@@ -1,0 +1,223 @@
+"""flexynesis_torch command-line interface, inference mode.
+
+The same flags and defaults as ``python -m flexynesis_tpu``. Inference mode
+(``--pretrained_model``, ``--artifacts``, ``--data_path_test``) loads a model
+saved by either package, scores the test cohort on the chosen device and
+writes ``<prefix>.embeddings_test.csv``, ``<prefix>.predicted_labels.csv`` and
+``<prefix>.stats.csv``. Training, marker finding and fine-tuning are not
+ported yet and raise ``NotImplementedError`` naming their ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+
+from .utils.device import DEVICE_CHOICES
+
+__version__ = "0.1.0"
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        description="flexynesis-torch model interface",
+        formatter_class=argparse.ArgumentDefaultsHelpFormatter,
+    )
+    p.add_argument("-v", "--version", action="version",
+                   version=f"%(prog)s {__version__}")
+    p.add_argument("--data_path", type=str,
+                   help="Folder with train/test data files")
+    p.add_argument(
+        "--model_class", type=str,
+        choices=["DirectPred", "supervised_vae", "MultiTripletNetwork",
+                 "CrossModalPred", "GNN", "RandomForest", "SVM", "XGBoost",
+                 "RandomSurvivalForest"],
+        help="Model class to instantiate",
+    )
+    p.add_argument("--gnn_conv_type", type=str,
+                   choices=["GC", "GCN", "SAGE", "GAT"],
+                   help="Graph convolution type for GNN")
+    p.add_argument("--target_variables", type=str, default=None,
+                   help="clin.csv variables to predict (comma-separated)")
+    p.add_argument("--covariates", type=str, default=None,
+                   help="clin.csv variables used as feature covariates")
+    p.add_argument("--surv_event_var", type=str, default=None,
+                   help="clin.csv column with event/status indicator")
+    p.add_argument("--surv_time_var", type=str, default=None,
+                   help="clin.csv column with time/duration")
+    p.add_argument("--config_path", type=str, default=None,
+                   help="YAML hyperparameter search-space override")
+    p.add_argument("--fusion_type", type=str, choices=["early", "intermediate"],
+                   default="intermediate", help="How to fuse the omics layers")
+    p.add_argument("--hpo_iter", type=int, default=100,
+                   help="Hyperparameter optimisation iterations")
+    p.add_argument("--hpo_batch", type=int, default=0,
+                   help="HPO suggestions evaluated per GP round")
+    p.add_argument("--hpo_pipeline", type=str, default="True",
+                   choices=["True", "False"],
+                   help="Pipeline the GP ask with the previous round's training")
+    p.add_argument("--finetuning_samples", type=int, default=0,
+                   help="Test samples used for fine-tuning (0 disables)")
+    p.add_argument("--variance_threshold", type=float, default=1,
+                   help="Variance percentile to drop low-variance features")
+    p.add_argument("--correlation_threshold", type=float, default=0.8,
+                   help="Correlation threshold for redundancy filtering")
+    p.add_argument("--restrict_to_features", type=str, default=None,
+                   help="File with feature list to restrict the analysis to")
+    p.add_argument("--subsample", type=int, default=0,
+                   help="Downsample training set to N random samples")
+    p.add_argument("--features_min", type=int, default=500,
+                   help="Minimum features to retain after selection")
+    p.add_argument("--features_top_percentile", type=float, default=20,
+                   help="Top percentile of features to retain")
+    p.add_argument("--data_types", type=str,
+                   help="Omic matrices to use, e.g. 'gex,cnv'")
+    p.add_argument("--input_layers", type=str, default=None,
+                   help="CrossModalPred input/encoded layers")
+    p.add_argument("--output_layers", type=str, default=None,
+                   help="CrossModalPred output/decoded layers")
+    p.add_argument("--outdir", type=str, default=os.getcwd(),
+                   help="Output folder")
+    p.add_argument("--prefix", type=str, default="job", help="Output prefix")
+    p.add_argument("--log_transform", type=str, choices=["True", "False"],
+                   default="False", help="log1p-transform input matrices")
+    p.add_argument("--early_stop_patience", type=int, default=10,
+                   help="Epoch patience for val-loss early stopping (-1 off)")
+    p.add_argument("--hpo_patience", type=int, default=20,
+                   help="HPO iterations without improvement before stopping")
+    p.add_argument("--val_size", type=float, default=0.2,
+                   help="Validation split fraction")
+    p.add_argument("--use_cv", action="store_true",
+                   help="5-fold cross-validated HPO objective")
+    p.add_argument("--use_loss_weighting", type=str, choices=["True", "False"],
+                   default="True", help="Uncertainty-weighted loss balancing")
+    p.add_argument("--evaluate_baseline_performance", action="store_true",
+                   help="Also run classical-ML baselines")
+    p.add_argument("--threads", type=int, default=4, help="Host CPU threads")
+    p.add_argument("--num_workers", type=int, default=0,
+                   help="(compat) host workers; unused")
+    p.add_argument("--use_gpu", action="store_true",
+                   help="DEPRECATED: use --device")
+    p.add_argument("--device", type=str, choices=list(DEVICE_CHOICES),
+                   default="auto",
+                   help="auto/cuda = the CUDA card (raises without one); "
+                        "cpu on request; tpu and mps are not supported")
+    p.add_argument("--feature_importance_method", type=str,
+                   choices=["IntegratedGradients", "GradientShap", "Both"],
+                   default="IntegratedGradients")
+    p.add_argument("--disable_marker_finding", action="store_true")
+    p.add_argument("--marker_sample_cap", type=int, default=0,
+                   help="Subsample the attribution cohort to this many samples")
+    p.add_argument("--string_organism", type=int, default=9606,
+                   help="STRING DB organism id")
+    p.add_argument("--string_node_name", type=str,
+                   choices=["gene_name", "gene_id"], default="gene_name")
+    p.add_argument("--user_graph", type=str, default=None,
+                   help="Custom GeneA/GeneB/Score network file")
+    p.add_argument("--safetensors", action="store_true",
+                   help="JSON artifacts instead of joblib (weights are always "
+                        "safetensors)")
+    p.add_argument("--pretrained_model", type=str, default=None,
+                   help="Saved model for inference mode")
+    p.add_argument("--artifacts", type=str, default=None,
+                   help="Artifacts .json from training")
+    p.add_argument("--data_path_test", type=str, default=None,
+                   help="Test-only dataset folder for inference")
+    p.add_argument("--join_key", type=str, default="JoinKey",
+                   help="clin.csv column used to join sample IDs")
+    p.add_argument("--hpo_checkpoint", type=str, default=None,
+                   help="Path for preemption-safe HPO state checkpointing")
+    p.add_argument("--profile", action="store_true",
+                   help="Per-phase profiling")
+    return p
+
+
+def run_inference(args, device) -> int:
+    from .data.inference_importer import DataImporterInference
+    from .inference import check_model_type, load_and_sniff_artifacts, reconstruct_model
+
+    kind = check_model_type(args.pretrained_model)
+    if kind != "safetensors":
+        raise ValueError(
+            "flexynesis models are safetensors parameter trees; "
+            f"got a '{kind}' file."
+        )
+    config_path = args.pretrained_model.replace(
+        ".final_model.safetensors", ".final_model_config.json"
+    )
+    if not os.path.exists(config_path):
+        raise FileNotFoundError(
+            f"Expected model config JSON next to the weights: {config_path}"
+        )
+    artifacts = load_and_sniff_artifacts(args.artifacts)
+    model = reconstruct_model(args.pretrained_model, config_path, artifacts, device=device)
+    print(f"[INFO] Reconstructed {model.model_name} from {args.pretrained_model} "
+          f"on {model.device}")
+    test_dataset = DataImporterInference(args.data_path_test, artifacts).import_data()
+    _write_eval_outputs(args, model, None, test_dataset)
+    return 0
+
+
+def _write_eval_outputs(args, model, train_dataset, test_dataset) -> None:
+    """Embeddings, predictions and stats (reference __main__.py:1353-1469)."""
+    from .utils.csvio import write_rows
+    from .utils.metrics import evaluate_wrapper, get_predicted_labels
+
+    outdir, prefix = args.outdir, args.prefix
+    if train_dataset is not None:
+        model.transform(train_dataset).to_csv(
+            os.path.join(outdir, f"{prefix}.embeddings_train.csv")
+        )
+    model.transform(test_dataset).to_csv(
+        os.path.join(outdir, f"{prefix}.embeddings_test.csv")
+    )
+
+    preds_test = model.predict(test_dataset)
+    rows = get_predicted_labels(preds_test, test_dataset, "test", model.model_name)
+    if train_dataset is not None:
+        rows += get_predicted_labels(
+            model.predict(train_dataset), train_dataset, "train", model.model_name
+        )
+    write_rows(os.path.join(outdir, f"{prefix}.predicted_labels.csv"), rows)
+
+    stats = evaluate_wrapper(
+        model.model_name, preds_test, test_dataset,
+        surv_event_var=model.surv_event_var, surv_time_var=model.surv_time_var,
+    )
+    write_rows(os.path.join(outdir, f"{prefix}.stats.csv"), stats)
+    for r in stats:
+        print(f"{r['var']:>12} {r['metric']:>14} {r['value']}")
+
+
+def main(argv=None) -> int:
+    from .utils.device import resolve_device
+
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if not args.pretrained_model:
+        raise NotImplementedError(
+            "training mode is not ported to flexynesis_torch yet (ROADMAP "
+            "A.3-A.5); use --pretrained_model with --artifacts and "
+            "--data_path_test for inference"
+        )
+    device = resolve_device(args.device)
+    if not (args.artifacts and args.data_path_test):
+        parser.error(
+            "inference mode needs --pretrained_model, --artifacts and --data_path_test"
+        )
+    if not args.disable_marker_finding:
+        raise NotImplementedError(
+            "marker finding (Integrated Gradients) is not ported yet (ROADMAP "
+            "A.10); pass --disable_marker_finding"
+        )
+    if args.finetuning_samples > 0:
+        raise NotImplementedError(
+            "fine-tuning in inference mode is not ported yet (ROADMAP A.12)"
+        )
+    os.makedirs(args.outdir, exist_ok=True)
+    return run_inference(args, device)
+
+
+if __name__ == "__main__":
+    sys.exit(main())
