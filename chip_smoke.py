@@ -3,18 +3,33 @@
 Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases (any failure exits nonzero):
-1. the card's name and power limit; build kernel B2 with nvcc for sm_90a;
-2. kernel B2 against its plain PyTorch version at every shape the serving
-   phase launches, a ragged shape and the production single-model encoder,
-   with CUDA-event timings of the kernel, the plain version and torch.addmm
-   (a GEMM-only yardstick), and each shape's bound on an H100;
-3. serving at full width: the DirectPred headline configuration (gex 2000 and
+1. the card's name and power limit; build kernels B1 and B2 with nvcc for
+   sm_90a, one nvcc per source, started together;
+2. kernel B2 (eval-mode fused Linear->BN->ReLU) against its plain PyTorch
+   version at every shape the serving phase launches, a ragged shape and the
+   production single-model encoder, with CUDA-event timings of the kernel,
+   the plain version and torch.addmm (a GEMM-only yardstick), and each
+   shape's bound on an H100;
+3. kernel B1 (training-mode, batch statistics) the same way at every shape
+   the training phase launches, 32- and 128-row batches, a ragged shape,
+   B = 1 and a 4096-row batch (the split reduction); its gradients
+   (kernel forward + the JAX backward formula) against autograd through the
+   plain version at the three training shapes;
+4. serving at full width: the DirectPred headline configuration (gex 2000 and
    cnv 1000 features, hidden widths 600 and 300, latent 64, supervisor hidden
    16, 4 classes, fused_kernels on) scores a 2000-sample cohort through
    ``python -m flexynesis_torch``'s inference mode on the card, once more on
-   the CPU as the reference, then answers timed requests.
+   the CPU as the reference, then answers timed requests;
+5. training at full width: ``python -m flexynesis_torch`` in training mode on
+   the card (feature selection down to gex 2000 and cnv 1000, one HPO trial,
+   10 epochs of batch 64) with B1 in every training step and B2 in validation
+   and evaluation, checked by launch counts; the saved model is served by the
+   inference CLI; three steps from one initialisation agree between the card
+   and the CPU; step time, samples/s and a profiled epoch.
 
-The output ends with a ``{"kernels": [...]}`` line, the nvidia-smi line and
+Each kernel's launch count is set to 0 just before the phase that drives its
+path (serving for B2, training for B1) and read just after. The output ends
+with a ``{"kernels": [...]}`` line, the nvidia-smi line and
 ``{"ok": true, "device": {...}}``. Working files go to build/chip_smoke/.
 """
 
@@ -41,6 +56,15 @@ GEX, CNV, LATENT, HIDDEN_FACTOR, SUP_HIDDEN, N_CLASSES = 2000, 1000, 64, 0.3, 16
 N_TEST, N_TRAIN, BATCH = 2000, 256, 64
 B2_PER_FORWARD = 3  # two encoders and one head
 CLI_FORWARDS = 2  # transform and predict each run one eval forward
+
+# training configuration: raw widths that feature selection (top 50 percent,
+# no variance cut) brings down to GEX and CNV
+RAW_GEX, RAW_CNV, TOP_PERCENTILE, FEATURES_MIN = 4000, 2000, 50, 500
+FIT_TRAIN, FIT_TEST, FIT_EPOCHS, VAL_SIZE = 2000, 500, 10, 0.2
+B1_PER_STEP = 3  # two encoders and one head
+EVAL_FORWARDS = 4  # transform and predict, of train and of test
+PROFILED_STEPS = 7
+DEVICE = "cuda"  # the training phase's device (a CPU rehearsal sets "cpu")
 
 
 def fail(msg: str) -> None:
@@ -125,6 +149,76 @@ def check_kernel(shapes):
               f"normwise_rel_err={max_rel:.3e} (tol {TOL})  kernel {ms:.4f} ms  "
               f"plain {plain_ms:.4f} ms  addmm(GEMM only) {addmm_ms:.4f} ms  "
               f"bound {bms:.4f} ms ({by})  {flops / ms / 1e9:.2f} TFLOP/s", flush=True)
+    return rows
+
+
+def work_b1(B: int, F: int, H: int):
+    """(FLOPs, bytes) of B1: the GEMM plus about 12 operations per output for
+    the statistics and the normalisation; x and w read once, h and y written
+    once, in f32."""
+    return 2 * B * F * H + 12 * B * H, 4 * (B * F + F * H + 2 * B * H + 5 * H)
+
+
+def check_b1(shapes, grad_shapes):
+    """Hold B1 against its plain version at each shape (forward: y, h, mean,
+    var) and its gradients at ``grad_shapes``; returns per-shape rows."""
+    import torch
+    from flexynesis_torch.kernels.fused_linear import (
+        fused_linear_bn_relu,
+        fused_linear_bn_relu_forward as kernel,
+        fused_linear_bn_relu_ref as plain,
+    )
+
+    rows = []
+    for label, (B, F, H) in shapes:
+        g = torch.Generator(device="cuda").manual_seed(B * 5 + F * 3 + H)
+        x = torch.randn(B, F, device="cuda", generator=g)
+        w = (torch.rand(F, H, device="cuda", generator=g) * 2 - 1) / math.sqrt(F)
+        b, be = (torch.randn(H, device="cuda", generator=g) * 0.1 for _ in range(2))
+        gamma = torch.rand(H, device="cuda", generator=g) + 0.5
+        args = (x, w, b, gamma, be)
+        out = kernel(*args)
+        torch.cuda.synchronize()
+        ref = plain(*args)
+        max_abs = 0.0
+        for name, got, want in zip(("y", "h", "mean", "var"), out, ref):
+            err = (got - want).abs().max().item()
+            max_abs = max(max_abs, err)
+            if not torch.allclose(got, want, **TOL):
+                fail(f"B1 {name} disagrees with its plain version at {label} B={B} "
+                     f"F={F} H={H}: max abs {err:.3e}, tolerance {TOL}")
+        if not all(torch.equal(a, c) for a, c in zip(out, kernel(*args))):
+            fail(f"B1 is not deterministic at {label}")
+        reps = 10 if B * F * H > 1e9 else 30
+        ms = cuda_ms(lambda: kernel(*args), reps)
+        plain_ms = cuda_ms(lambda: plain(*args), reps)
+        addmm_ms = cuda_ms(lambda: torch.addmm(b, x, w), reps)
+        flops, nbytes = work_b1(B, F, H)
+        bms, by = bound_ms(flops, nbytes)
+        grad_err = None
+        if (B, F, H) in grad_shapes:
+            gy = torch.randn(B, H, device="cuda", generator=g)
+            grads = []
+            for fn in (lambda *a: fused_linear_bn_relu(*a)[0], lambda *a: plain(*a)[0]):
+                leaves = [t.clone().requires_grad_() for t in args]
+                (fn(*leaves) * gy).sum().backward()
+                grads.append([t.grad for t in leaves])
+            grad_err = 0.0
+            for name, got, want in zip(("dx", "dw", "db", "dgamma", "dbeta"), *grads):
+                err = (got - want).abs().max().item()
+                grad_err = max(grad_err, err)
+                if not torch.allclose(got, want, **TOL):
+                    fail(f"B1 gradient {name} disagrees with autograd through the plain "
+                         f"version at {label}: max abs {err:.3e}, tolerance {TOL}")
+        rows.append(dict(label=label, B=B, F=F, H=H, max_abs_err=max_abs,
+                         grad_max_abs_err=grad_err, ms=ms, plain_ms=plain_ms,
+                         addmm_ms=addmm_ms, flops=flops, bytes=nbytes,
+                         bound_ms=bms, bound_by=by))
+        print(f"B1 {label:>16} B={B:5d} F={F:6d} H={H:5d}  max_abs_err={max_abs:.3e} "
+              f"grad_max_abs_err={'n/a' if grad_err is None else f'{grad_err:.3e}'} "
+              f"(tol {TOL})  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+              f"addmm(GEMM only) {addmm_ms:.4f} ms  bound {bms:.4f} ms ({by})  "
+              f"{flops / ms / 1e9:.2f} TFLOP/s", flush=True)
     return rows
 
 
@@ -319,6 +413,260 @@ def serve(workdir: Path):
     return launches
 
 
+HPO_CONFIG = """DirectPred:
+  - {type: Categorical, categories: [%d], name: latent_dim}
+  - {type: Categorical, categories: [%s], name: hidden_dim_factor}
+  - {type: Categorical, categories: [0.001], name: lr}
+  - {type: Categorical, categories: [%d], name: supervisor_hidden_dim}
+  - {type: Categorical, categories: [%d], name: epochs}
+  - {type: Categorical, categories: [%d], name: batch_size}
+  - {type: Categorical, categories: [true], name: fused_kernels}
+"""
+
+
+def train_args(data: Path, config: Path, outdir: Path, device: str):
+    return ["--data_path", str(data), "--model_class", "DirectPred",
+            "--data_types", "gex,cnv", "--target_variables", "subtype",
+            "--config_path", str(config), "--hpo_iter", "1",
+            "--features_top_percentile", str(TOP_PERCENTILE), "--variance_threshold", "0",
+            "--features_min", str(FEATURES_MIN),
+            "--safetensors", "--disable_marker_finding", "--device", device,
+            "--outdir", str(outdir), "--prefix", "fit"]
+
+
+def check_card_matches_cpu(model, cohort):
+    """Three training steps from one initialisation with dropout 0 and one
+    permutation, on the card and on the CPU: per-step losses and the first
+    step's gradients must agree."""
+    import torch
+    from flexynesis_torch.models.direct_pred import DirectPred
+    from flexynesis_torch.ops.fused_mlp import FusedMLP
+    from flexynesis_torch.train.trainer import Trainer, gather
+
+    runs = {}
+    for device in (DEVICE, "cpu"):
+        m = DirectPred(model.config, cohort, target_variables=["subtype"], device=device)
+        m.init_params(seed=3)
+        for block in m.module.modules():
+            if isinstance(block, FusedMLP):
+                block.dropout_rate = 0.0
+        data = m.make_batch(cohort)
+        perm = torch.randperm(len(cohort), generator=torch.Generator().manual_seed(5))
+        perm = perm[: 3 * BATCH].reshape(3, BATCH).to(device)
+        trainer = Trainer(m.module, m.loss_fn, lr=float(model.config["lr"]))
+        gen = torch.Generator(device=device)
+        total, _ = m.loss_fn(gather(data, perm[0]), gen, True)
+        grads = torch.autograd.grad(total, trainer.params, allow_unused=True)
+        trainer.optimizer.step(grads)
+        losses = [float(total.detach())] + [float(trainer.train_step(gather(data, p), gen))
+                                            for p in perm[1:]]
+        runs[device] = (losses, [None if g is None else g.cpu() for g in grads])
+    (l_gpu, g_gpu), (l_cpu, g_cpu) = runs[DEVICE], runs["cpu"]
+    if not all(math.isclose(a, b, rel_tol=1e-4) for a, b in zip(l_gpu, l_cpu)):
+        fail(f"training steps disagree between cuda and cpu: {l_gpu} vs {l_cpu}")
+    grad_err = 0.0
+    for a, b in zip(g_gpu, g_cpu):
+        if a is None:
+            continue
+        grad_err = max(grad_err, float((a - b).abs().max()))
+        if not torch.allclose(a, b, rtol=1e-4, atol=1e-4):
+            fail(f"first-step gradients disagree between cuda and cpu: {grad_err:.3e}")
+    print(f"training: 3 steps cuda vs cpu, losses {l_gpu} vs {l_cpu} (rtol 1e-4); "
+          f"first-step gradients max abs diff {grad_err:.3e} (rtol/atol 1e-4)", flush=True)
+
+
+def time_steps(model, cohort):
+    """Median host-clock time of one training step (synchronised), and a
+    profiled run of PROFILED_STEPS steps with its device-busy share."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from flexynesis_torch.train.trainer import Trainer, gather
+
+    data = model.make_batch(cohort)
+    trainer = Trainer(model.module, model.loss_fn, lr=float(model.config["lr"]))
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    perm = torch.randperm(len(cohort), generator=torch.Generator().manual_seed(9))
+    batches = [gather(data, perm[i:i + BATCH].to(DEVICE))
+               for i in range(0, len(cohort) - BATCH + 1, BATCH)]
+    for b in batches[:3]:  # warm-up
+        trainer.train_step(b, gen)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t, out
+
+    steps, parts = [], {"forward_and_loss": [], "backward": [], "optimizer": []}
+    for i in range(30):
+        b = batches[i % len(batches)]
+        steps.append(timed(lambda: trainer.train_step(b, gen))[0])
+        t_f, (total, _) = timed(lambda: model.loss_fn(b, gen, True))
+        t_b, grads = timed(lambda: torch.autograd.grad(total, trainer.params, allow_unused=True))
+        t_o, _ = timed(lambda: trainer.optimizer.step(grads))
+        for k, v in zip(parts, (t_f, t_b, t_o)):
+            parts[k].append(v)
+    med = statistics.median(steps)
+    print(f"training: train step (batch {BATCH}) x30: median {med * 1e3:.3f} ms "
+          f"(min {min(steps) * 1e3:.3f}, max {max(steps) * 1e3:.3f}), {BATCH / med:.0f} "
+          "samples/s (host clock, synchronised); medians of its parts: "
+          + json.dumps({k: round(statistics.median(v) * 1e3, 3) for k, v in parts.items()})
+          + " ms", flush=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for b in batches[:PROFILED_STEPS]:
+            trainer.train_step(b, gen)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t) * 1e6
+    device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in device)
+    if busy_us > 0:
+        top = sorted(device, key=lambda e: -e.self_device_time_total)[:8]
+        per_step = sum(e.count for e in device) / PROFILED_STEPS
+        print(f"training: profiled {PROFILED_STEPS} steps: wall {wall_us:.0f} us, device busy "
+              f"{busy_us:.0f} us ({100 * busy_us / wall_us:.1f}%), {per_step:.0f} device "
+              "operations per step; top: "
+              + "; ".join(f"{e.key[:48]} {e.self_device_time_total:.0f} us" for e in top),
+              flush=True)
+    else:
+        print("training: profiled steps: the profiler saw no device time (not measured)")
+    return med
+
+
+def train(workdir: Path):
+    """The training phase; returns (B1 launches, B2 launches) of the CLI run."""
+    import numpy as np
+    from flexynesis_torch.__main__ import main as cli, parse_args, run_training
+    from flexynesis_torch.data.inference_importer import DataImporterInference
+    from flexynesis_torch.kernels.fused_linear import (
+        fused_linear_bn_relu as b1,
+        fused_linear_bn_relu_eval as b2,
+    )
+    from flexynesis_torch.utils.csvio import read_matrix, read_table
+    from flexynesis_torch.utils.synthetic import write_synthetic_folder
+
+    t0 = time.perf_counter()
+    data = workdir / "fit_data"
+    write_synthetic_folder(str(data), n_train=FIT_TRAIN, n_test=FIT_TEST,
+                           n_features={"gex": RAW_GEX, "cnv": RAW_CNV},
+                           n_classes=N_CLASSES, seed=1)
+    config = workdir / "fit_hpo.yaml"
+    config.write_text(HPO_CONFIG % (LATENT, HIDDEN_FACTOR, SUP_HIDDEN, FIT_EPOCHS, BATCH))
+    print(f"training: wrote {FIT_TRAIN}+{FIT_TEST} samples x {RAW_GEX}+{RAW_CNV} raw "
+          f"features in {time.perf_counter() - t0:.2f} s", flush=True)
+
+    out = workdir / "fit_out"
+    b1.launches = b2.launches = 0
+    t = time.perf_counter()
+    # main() of the CLI in its two halves, keeping the trained model
+    model = run_training(*parse_args(train_args(data, config, out, DEVICE)))
+    cli_s = time.perf_counter() - t
+    launches = (b1.launches, b2.launches)
+
+    expected_files = [f"fit.feature_logs.{x}.csv" for x in ("gex", "cnv")] + [
+        f"fit.{x}.csv" for x in ("embeddings_train", "embeddings_test",
+                                 "predicted_labels", "stats")] + [
+        "fit.final_model.safetensors", "fit.final_model_config.json", "fit.artifacts.json"]
+    missing = [f for f in expected_files if not (out / f).exists()]
+    if missing:
+        fail(f"training CLI did not write {missing}")
+    h_gex, h_cnv = int(GEX * HIDDEN_FACTOR), int(CNV * HIDDEN_FACTOR)
+    widths = (model.input_dims,
+              [model.module.encoder_gex.layer_1_kernel.shape[1],
+               model.module.encoder_cnv.layer_1_kernel.shape[1]],
+              model.module.head_subtype.layer_1_kernel.shape[1])
+    if widths != ([GEX, CNV], [h_gex, h_cnv], SUP_HIDDEN):
+        fail(f"selected/hidden widths {widths}, expected {[GEX, CNV]}, {[h_gex, h_cnv]}, "
+             f"{SUP_HIDDEN}")
+    res = model.train_result
+    n = len(next(iter(model.ann.values())))
+    n_fit = n - int(np.ceil(n * VAL_SIZE))
+    steps = res.epochs_run * (n_fit // BATCH)
+    want = (B1_PER_STEP * steps, B2_PER_FORWARD * (res.epochs_run + EVAL_FORWARDS))
+    if launches != want:
+        fail(f"training launches (B1, B2) = {launches}, expected {want} "
+             f"({res.epochs_run} epochs x {n_fit // BATCH} steps)")
+    losses = res.history["train_loss"]
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        fail(f"train loss did not fall: {losses}")
+    print(f"training: CLI on {DEVICE} {cli_s:.3f} s; selected widths gex {GEX}, cnv {CNV}; "
+          f"{res.epochs_run} epochs x {n_fit // BATCH} steps; launches B1 {launches[0]} "
+          f"({B1_PER_STEP} per step), B2 {launches[1]} ({B2_PER_FORWARD} per eval forward x "
+          f"({res.epochs_run} validations + {EVAL_FORWARDS} evaluation forwards))", flush=True)
+    print("training: train loss by epoch " + json.dumps([round(v, 5) for v in losses])
+          + "; val loss by epoch " + json.dumps([round(v, 5) for v in res.history["val_loss"]]),
+          flush=True)
+    print("training: CLI phases (host clock, s): "
+          + json.dumps({k: round(v, 4) for k, v in model.cli_phases.items()}), flush=True)
+    for r in read_table(str(out / "fit.stats.csv"))[2]:
+        print("training: stats", ",".join(r), flush=True)
+
+    # the saved model serves through the port's inference CLI on the card
+    served = workdir / "fit_served"
+    if cli(["--pretrained_model", str(out / "fit.final_model.safetensors"),
+            "--artifacts", str(out / "fit.artifacts.json"),
+            "--data_path_test", str(data / "test"), "--outdir", str(served),
+            "--prefix", "smoke", "--disable_marker_finding", "--device", DEVICE]) != 0:
+        fail("serving the trained model returned nonzero")
+    # (values differ from the training run's test embeddings where the test
+    # matrix had missing cells: training imputes the test cohort's medians,
+    # inference the training mean)
+    _, _, emb = read_matrix(str(served / "smoke.embeddings_test.csv"))
+    if emb.shape != (FIT_TEST, LATENT) or not np.isfinite(emb).all():
+        fail(f"the served model's embeddings: shape {emb.shape}, finite {np.isfinite(emb).all()}")
+    print(f"training: the saved model served on {DEVICE}: {emb.shape[0]} finite "
+          "test embeddings", flush=True)
+
+    cohort = DataImporterInference(str(data / "test"), str(out / "fit.artifacts.json"),
+                                   verbose=False).import_data()
+    check_card_matches_cpu(model, cohort)
+    time_steps(model, cohort)
+    return launches
+
+
+def build_all(names):
+    """Build the kernels' libraries, one nvcc per source, started together."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from flexynesis_torch.kernels import build
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(names)) as pool:
+        libs = list(pool.map(build.build, names))
+    print(f"build: {', '.join(lib.name for lib in libs)} in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    for lib in libs:
+        log = lib.with_suffix(".log")
+        if log.exists():
+            print(log.read_text().strip(), flush=True)
+
+
+def kernel_entry(name, source, replaces, rows, path_rows, launches, by_path):
+    flops = sum(r["flops"] for r in path_rows)
+    nbytes = sum(r["bytes"] for r in path_rows)
+    bms, by = bound_ms(flops, nbytes)
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": source,
+        "replaces": replaces,
+        "launches": launches,
+        "launches_by_path": by_path,
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "ms": sum(r["ms"] for r in path_rows),
+        "plain_ms": sum(r["plain_ms"] for r in path_rows),
+        "bound_ms": bms,
+        "bound_by": by,
+        "library_ms": None,
+        "gemm_only_addmm_ms": sum(r["addmm_ms"] for r in path_rows),
+        "shapes": [[r["B"], r["F"], r["H"]] for r in path_rows],
+    }
+
+
 def main() -> int:
     import torch
 
@@ -329,18 +677,13 @@ def main() -> int:
         print(f"chip_smoke: {REPO} holds no flexynesis_torch checkout", file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
-    from flexynesis_torch.kernels import build
 
     card = card_line()
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    t0 = time.perf_counter()
-    lib = build.build("fused_linear_eval")
-    print(f"build: {lib.name} in {time.perf_counter() - t0:.2f} s", flush=True)
-    log = lib.with_suffix(".log")
-    if log.exists():
-        print(log.read_text().strip(), flush=True)
+    t_start = time.perf_counter()
+    build_all(["fused_linear_eval", "fused_linear_train"])
 
     h_gex, h_cnv = int(GEX * HIDDEN_FACTOR), int(CNV * HIDDEN_FACTOR)
     serving_shapes = [
@@ -353,31 +696,34 @@ def main() -> int:
                     ("large_encoder", (1024, 16384, int(16384 * 0.3)))]
     rows = check_kernel(serving_shapes + request_shapes + extra_shapes)
 
+    train_shapes = [
+        ("encoder_gex", (BATCH, GEX, h_gex)),
+        ("encoder_cnv", (BATCH, CNV, h_cnv)),
+        ("head_subtype", (BATCH, LATENT, SUP_HIDDEN)),
+    ]
+    b1_extra = [("encoder_gex_b32", (32, GEX, h_gex)), ("encoder_gex_b128", (128, GEX, h_gex)),
+                ("ragged", (37, 129, 67)), ("one_row", (1, LATENT, SUP_HIDDEN)),
+                ("split_b4096", (4096, GEX, h_gex))]
+    b1_rows = check_b1(train_shapes + b1_extra, [shape for _, shape in train_shapes])
+
     workdir = REPO / "build" / "chip_smoke"
     shutil.rmtree(workdir, ignore_errors=True)
     workdir.mkdir(parents=True)
-    launches = serve(workdir)
+    serve_b2 = serve(workdir)
+    train_b1, train_b2 = train(workdir)
 
-    path_rows = rows[:len(serving_shapes)]  # one eval forward over the cohort
-    flops = sum(r["flops"] for r in path_rows)
-    nbytes = sum(r["bytes"] for r in path_rows)
-    bms, by = bound_ms(flops, nbytes)
-    entry = {
-        "name": "fused_linear_bn_relu_eval",
-        "route": "cuda",
-        "source": "flexynesis_torch/csrc/fused_linear_eval.cu",
-        "replaces": "flexynesis_tpu/ops/pallas/fused_linear.py:223",
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "ms": sum(r["ms"] for r in path_rows),
-        "plain_ms": sum(r["plain_ms"] for r in path_rows),
-        "bound_ms": bms,
-        "bound_by": by,
-        "library_ms": None,
-        "gemm_only_addmm_ms": sum(r["addmm_ms"] for r in path_rows),
-        "shapes": [[r["B"], r["F"], r["H"]] for r in path_rows],
-    }
-    print(json.dumps({"kernels": [entry]}))
+    entries = [
+        kernel_entry("fused_linear_bn_relu", "flexynesis_torch/csrc/fused_linear_train.cu",
+                     "flexynesis_tpu/ops/pallas/fused_linear.py:115", b1_rows,
+                     b1_rows[:len(train_shapes)],  # one training forward
+                     train_b1, {"training": train_b1}),
+        kernel_entry("fused_linear_bn_relu_eval", "flexynesis_torch/csrc/fused_linear_eval.cu",
+                     "flexynesis_tpu/ops/pallas/fused_linear.py:223", rows,
+                     rows[:len(serving_shapes)],  # one eval forward over the cohort
+                     serve_b2, {"serving": serve_b2, "training": train_b2}),
+    ]
+    print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,11 +1,21 @@
-"""flexynesis_torch command-line interface, inference mode.
+"""flexynesis_torch command-line interface.
 
-The same flags and defaults as ``python -m flexynesis_tpu``. Inference mode
-(``--pretrained_model``, ``--artifacts``, ``--data_path_test``) loads a model
-saved by either package, scores the test cohort on the chosen device and
-writes ``<prefix>.embeddings_test.csv``, ``<prefix>.predicted_labels.csv`` and
-``<prefix>.stats.csv``. Training, marker finding and fine-tuning are not
-ported yet and raise ``NotImplementedError`` naming their ROADMAP item.
+The same flags and defaults as ``python -m flexynesis_tpu``, on the CUDA card
+unless ``--device cpu`` is given.
+
+* Training mode (``--data_path``, ``--model_class DirectPred``,
+  ``--data_types``, targets): imports the CSV folder and selects features,
+  runs sequential GP hyperparameter search, trains with Adam and early
+  stopping, writes ``<prefix>.feature_logs.<layer>.csv``,
+  ``<prefix>.embeddings_{train,test}.csv``, ``<prefix>.predicted_labels.csv``
+  and ``<prefix>.stats.csv``, and saves ``<prefix>.final_model.safetensors``,
+  its ``final_model_config.json`` and the JSON artifacts (``--safetensors``).
+  Both this port and flexynesis_tpu load the saved model.
+* Inference mode (``--pretrained_model``, ``--artifacts``,
+  ``--data_path_test``) loads a model saved by either package, scores the
+  test cohort and writes the embeddings, predicted labels and stats.
+
+What is not ported yet raises ``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -13,6 +23,7 @@ from __future__ import annotations
 import argparse
 import os
 import sys
+import time
 
 from .utils.device import DEVICE_CHOICES
 
@@ -159,6 +170,152 @@ def run_inference(args, device) -> int:
     return 0
 
 
+def _split(s):
+    return [x.strip() for x in s.split(",")] if s else None
+
+
+def _build_importer(args, device):
+    from .data.importer import DataImporter
+
+    return DataImporter(
+        path=args.data_path,
+        data_types=_split(args.data_types),
+        covariates=_split(args.covariates),
+        log_transform=args.log_transform == "True",
+        concatenate=args.fusion_type == "early",
+        restrict_to_features=args.restrict_to_features,
+        min_features=args.features_min,
+        top_percentile=args.features_top_percentile,
+        correlation_threshold=args.correlation_threshold,
+        variance_threshold=args.variance_threshold / 100.0
+        if args.variance_threshold > 0 else 0.0,
+        downsample=args.subsample,
+        device=device,
+    )
+
+
+def _save_model_files(args, model, data_importer) -> None:
+    from .inference import build_artifacts, save_model, save_model_config, write_artifacts
+
+    outdir, prefix = args.outdir, args.prefix
+    weights = os.path.join(outdir, f"{prefix}.final_model.safetensors")
+    save_model(model, weights)
+    save_model_config(model, os.path.join(outdir, f"{prefix}.final_model_config.json"))
+    print(f"[INFO] Model saved to {weights}")
+    artifacts = build_artifacts(
+        data_importer, _split(args.data_types) or [], _split(args.target_variables) or [],
+        covariates=_split(args.covariates), join_key=args.join_key,
+        string_organism=args.string_organism, string_node_name=args.string_node_name,
+    )
+    path = os.path.join(outdir, f"{prefix}.artifacts.json")
+    write_artifacts(artifacts, path)
+    print(f"[INFO] Wrote inference artifacts to {path}")
+
+
+def run_training(args, device):
+    """Import, select features, tune, train, evaluate and save
+    (flexynesis_tpu/__main__.py:488-570). Returns the trained model, with the
+    phases' host-clock seconds as its ``cli_phases``."""
+    from .inference import MODEL_REGISTRY
+    from .train.hpo import HyperparameterTuning
+    from .utils.csvio import write_rows
+
+    t0 = time.perf_counter()
+    phases = {}
+    data_importer = _build_importer(args, device)
+    train_dataset, test_dataset = data_importer.import_data()
+    for layer, rows in data_importer.feature_logs.items():
+        write_rows(os.path.join(args.outdir, f"{args.prefix}.feature_logs.{layer}.csv"), rows)
+    phases["import_and_feature_selection"] = time.perf_counter() - t0
+
+    t = time.perf_counter()
+    tuner = HyperparameterTuning(
+        dataset=train_dataset,
+        model_class=MODEL_REGISTRY[args.model_class],
+        config_name=args.model_class,
+        target_variables=_split(args.target_variables) or [],
+        surv_event_var=args.surv_event_var,
+        surv_time_var=args.surv_time_var,
+        n_iter=args.hpo_iter,
+        config_path=args.config_path,
+        val_size=args.val_size,
+        use_loss_weighting=args.use_loss_weighting == "True",
+        early_stop_patience=args.early_stop_patience,
+        device=device,
+    )
+    model, best_params = tuner.perform_tuning(hpo_patience=args.hpo_patience)
+    phases["hpo_fit"] = time.perf_counter() - t
+    print(f"[INFO] Best hyperparameters: {best_params}")
+
+    t = time.perf_counter()
+    _write_eval_outputs(args, model, train_dataset, test_dataset)
+    phases["evaluation_outputs"] = time.perf_counter() - t
+    t = time.perf_counter()
+    _save_model_files(args, model, data_importer)
+    phases["save"] = time.perf_counter() - t
+    model.cli_phases = phases
+    print(f"[INFO] Total wall time: {time.perf_counter() - t0:.1f}s")
+    return model
+
+
+def _check_training_args(parser, args) -> None:
+    """The JAX CLI's argument checks, then what the port does not run yet."""
+    missing = [k for k in ("data_path", "model_class", "data_types") if not getattr(args, k)]
+    if missing:
+        parser.error("required in training mode: " + ", ".join(f"--{m}" for m in missing))
+    deep = args.model_class in ("DirectPred", "supervised_vae", "MultiTripletNetwork",
+                                "CrossModalPred", "GNN")
+    if deep and not args.target_variables and not (args.surv_event_var and args.surv_time_var):
+        parser.error("either --target_variables or both survival variables required")
+    if (args.surv_event_var is None) != (args.surv_time_var is None):
+        parser.error("--surv_event_var and --surv_time_var must be set together")
+    if args.fusion_type == "early" and args.model_class in ("CrossModalPred", "GNN"):
+        parser.error(f"--fusion_type early is not applicable to {args.model_class}")
+    if args.model_class == "GNN" and args.covariates:
+        parser.error("--covariates are not supported for GNN models")
+
+    if not deep:
+        raise NotImplementedError(
+            f"--model_class {args.model_class} (classical baselines) is not ported "
+            "to flexynesis_torch yet (ROADMAP item 13)"
+        )
+    if args.model_class != "DirectPred":
+        raise NotImplementedError(
+            f"--model_class {args.model_class} is not ported to flexynesis_torch "
+            "yet (ROADMAP A.12)"
+        )
+    if args.finetuning_samples > 0:
+        raise NotImplementedError("fine-tuning is not ported yet (ROADMAP A.12)")
+    if args.evaluate_baseline_performance:
+        raise NotImplementedError(
+            "--evaluate_baseline_performance is not ported yet (ROADMAP item 13)"
+        )
+    if args.profile:
+        raise NotImplementedError("--profile is not ported yet (ROADMAP item 13)")
+    if args.use_cv:
+        raise NotImplementedError(
+            "--use_cv runs the vmapped fold engine in flexynesis_tpu, not ported "
+            "to flexynesis_torch yet (ROADMAP A.8)"
+        )
+    if args.hpo_checkpoint:
+        raise NotImplementedError(
+            "--hpo_checkpoint is not ported yet (ROADMAP item 9)"
+        )
+    if not args.safetensors:
+        raise NotImplementedError(
+            "joblib artifacts hold pickled sklearn objects that flexynesis_torch "
+            "does not write; pass --safetensors for JSON artifacts"
+        )
+    if args.hpo_batch > 1:
+        raise NotImplementedError(
+            "--hpo_batch > 1 needs the K-stacked trial engine, not ported to "
+            "flexynesis_torch yet (ROADMAP A.8)"
+        )
+    if args.hpo_batch == 0:
+        print("[INFO] --hpo_batch 0 resolves to 1 (sequential trials): the "
+              "K-stacked trial engine is not ported yet (ROADMAP A.8)")
+
+
 def _write_eval_outputs(args, model, train_dataset, test_dataset) -> None:
     """Embeddings, predictions and stats (reference __main__.py:1353-1469)."""
     from .utils.csvio import write_rows
@@ -190,19 +347,16 @@ def _write_eval_outputs(args, model, train_dataset, test_dataset) -> None:
         print(f"{r['var']:>12} {r['metric']:>14} {r['value']}")
 
 
-def main(argv=None) -> int:
+def parse_args(argv=None):
+    """(args, device) after the CLI's checks; the output folder exists."""
     from .utils.device import resolve_device
 
     parser = build_parser()
     args = parser.parse_args(argv)
     if not args.pretrained_model:
-        raise NotImplementedError(
-            "training mode is not ported to flexynesis_torch yet (ROADMAP "
-            "A.3-A.5); use --pretrained_model with --artifacts and "
-            "--data_path_test for inference"
-        )
+        _check_training_args(parser, args)
     device = resolve_device(args.device)
-    if not (args.artifacts and args.data_path_test):
+    if args.pretrained_model and not (args.artifacts and args.data_path_test):
         parser.error(
             "inference mode needs --pretrained_model, --artifacts and --data_path_test"
         )
@@ -216,7 +370,15 @@ def main(argv=None) -> int:
             "fine-tuning in inference mode is not ported yet (ROADMAP A.12)"
         )
     os.makedirs(args.outdir, exist_ok=True)
-    return run_inference(args, device)
+    return args, device
+
+
+def main(argv=None) -> int:
+    args, device = parse_args(argv)
+    if args.pretrained_model:
+        return run_inference(args, device)
+    run_training(args, device)
+    return 0
 
 
 if __name__ == "__main__":

@@ -111,6 +111,28 @@ def save_model_config(model, path: str) -> str:
     return path
 
 
+def build_artifacts(data_importer, data_types, target_variables, covariates=None,
+                    join_key: str = "JoinKey", string_organism: int = 9606,
+                    string_node_name: str = "gene_name") -> dict:
+    """Preprocessing state of a training run (schema_version 1), as
+    ``flexynesis_tpu/inference.py::build_artifacts`` builds it; scalers and
+    encoders are already the JSON-state dicts ``write_artifacts`` writes."""
+    return {
+        "schema_version": 1,
+        "data_types": list(data_importer.train_features) or list(data_types),
+        "original_modalities": list(data_types),
+        "target_variables": list(target_variables or []),
+        "feature_lists": {k: list(v) for k, v in data_importer.train_features.items()},
+        "transforms": data_importer.scalers or {},
+        "label_encoders": data_importer.label_encoders or {},
+        "covariate_vars": list(covariates or []),
+        "covariate_columns": {},
+        "join_key": join_key,
+        "string_organism": string_organism,
+        "string_node_name": string_node_name,
+    }
+
+
 _ARTIFACT_KEYS = (
     "schema_version",
     "data_types",

@@ -1,11 +1,11 @@
-"""Host-side model scaffolding, inference half.
+"""Host-side model scaffolding.
 
 Counterpart of ``flexynesis_tpu/models/base.py``: ``BaseModel`` holds config,
-dataset metadata and the ``nn.Module``, and serves ``predict`` and
-``transform``. The module is built on the ``meta`` device and moved to the
-model's device without drawing numbers; ``init_params`` fills it from a seeded
-``torch.Generator`` and ``inference.reconstruct_model`` loads saved weights
-into it. Training (``loss_fn``, ``fit``) is the next slice (ROADMAP A.3-A.5).
+dataset metadata and the ``nn.Module``; it trains (``make_batch``,
+``loss_fn``, ``fit``) and serves ``predict`` and ``transform``. The module is
+built on the ``meta`` device and moved to the model's device without drawing
+numbers; ``init_params`` fills it from a seeded ``torch.Generator`` and
+``inference.reconstruct_model`` loads saved weights into it.
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from ..ops.losses import compute_total_loss, cox_ph_loss, masked_ce_loss, masked_mse_loss
 from ..utils.csvio import Table
 from ..utils.device import resolve_device
 
@@ -23,6 +24,22 @@ def num_classes_for(ann_values: np.ndarray) -> int:
     """Output width of a categorical head: count of distinct encoded labels
     (NaN counts as one extra pseudo-class, as in the reference)."""
     return int(np.unique(np.asarray(ann_values)).size)
+
+
+def supervised_loss_terms(outputs: Dict[str, torch.Tensor], y: Dict[str, torch.Tensor],
+                          variables: List[str], variable_types: Dict[str, str],
+                          surv_event_var: Optional[str],
+                          surv_time_var: Optional[str]) -> Dict[str, torch.Tensor]:
+    """Per-variable masked losses (reference direct_pred.py:238-253)."""
+    losses = {}
+    for var in variables:
+        if surv_event_var is not None and var == surv_event_var:
+            losses[var] = cox_ph_loss(outputs[var], y[surv_time_var], y[surv_event_var])
+        elif variable_types[var] == "numerical":
+            losses[var] = masked_mse_loss(outputs[var], y[var])
+        else:
+            losses[var] = masked_ce_loss(outputs[var], y[var])
+    return losses
 
 
 class BaseModel:
@@ -85,6 +102,62 @@ class BaseModel:
         """Fresh parameters from ``torch.Generator().manual_seed(seed)``."""
         self.module.reset_parameters(torch.Generator().manual_seed(seed))
         return self.module
+
+    # ------------------------------------------------------------ training API
+
+    def make_batch(self, dataset, indices=None) -> dict:
+        """``{x: {layer: (n, F)}, y: {var: (n,)}}`` float32 tensors on the
+        model's device, optionally the rows ``indices`` only."""
+        dat, ann = dataset.as_arrays()
+        y_vars = set(self.variables)
+        if self.surv_time_var:
+            y_vars.add(self.surv_time_var)
+        rows = slice(None) if indices is None else np.asarray(indices)
+
+        def put(a):
+            return torch.from_numpy(
+                np.ascontiguousarray(np.asarray(a)[rows], dtype=np.float32)
+            ).to(self.device)
+
+        return {"x": {k: put(dat[k]) for k in self.layers},
+                "y": {v: put(ann[v]) for v in sorted(y_vars)}}
+
+    def loss_fn(self, batch: dict, generator: Optional[torch.Generator] = None,
+                train: bool = True):
+        """``(total_loss, {var: loss})`` of the module on ``batch``; in training
+        mode the module uses batch statistics and draws dropout from
+        ``generator``."""
+        self.module.train(train)
+        out = self.module(batch["x"], generator)
+        losses = supervised_loss_terms(
+            out["outputs"], batch["y"], self.variables, self.variable_types,
+            self.surv_event_var, self.surv_time_var,
+        )
+        total = compute_total_loss(losses, out.get("log_vars"), self.use_loss_weighting)
+        return total, losses
+
+    def fit(self, dataset, train_idx=None, val_idx=None, *, lr: float,
+            batch_size: int, max_epochs: int, early_stop_patience: int = -1,
+            seed: int = 42):
+        """Train this model on (a subset of) a dataset from fresh parameters
+        drawn with ``seed``; keeps the best state and returns the TrainResult,
+        also kept as ``train_result``."""
+        from ..train.trainer import Trainer
+
+        self.init_params(seed)
+        if train_idx is None:
+            train_idx = np.arange(len(dataset))
+        train_data = self.make_batch(dataset, train_idx)
+        val_data = self.make_batch(dataset, val_idx) if val_idx is not None else None
+        trainer = Trainer(self.module, self.loss_fn, lr=lr)
+        res = trainer.fit(
+            train_data, val_data, n_samples=len(train_idx), batch_size=batch_size,
+            max_epochs=max_epochs, early_stop_patience=early_stop_patience, seed=seed,
+        )
+        self.module.load_state_dict(res.state)
+        self.module.eval()
+        self.train_result = res
+        return res
 
     # ----------------------------------------------------------- inference API
 

@@ -8,7 +8,7 @@ module's names (``encoder_<layer>``, ``fusion_block``, ``head_<var>``,
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 from torch import nn
@@ -56,18 +56,23 @@ class DirectPredNet(nn.Module):
             if self.use_loss_weighting:
                 getattr(self, f"log_var_{var}").zero_()
 
-    def encode(self, x: Dict[str, torch.Tensor]) -> torch.Tensor:
-        embs = [getattr(self, f"encoder_{ln}")(x[ln]) for ln in self.layer_names]
+    def encode(self, x: Dict[str, torch.Tensor],
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``generator`` draws the blocks' dropout masks in training mode."""
+        embs = [getattr(self, f"encoder_{ln}")(x[ln], generator)
+                for ln in self.layer_names]
         concat = torch.cat(embs, dim=-1)
         if self.fusion_block is not None:
             return self.fusion_block(concat)
         return concat
 
-    def forward(self, x: Dict[str, torch.Tensor]) -> dict:
-        emb = self.encode(x)
+    def forward(self, x: Dict[str, torch.Tensor],
+                generator: Optional[torch.Generator] = None) -> dict:
+        emb = self.encode(x, generator)
         out = {
             "embeddings": emb,
-            "outputs": {var: getattr(self, f"head_{var}")(emb) for var in self.variables},
+            "outputs": {var: getattr(self, f"head_{var}")(emb, generator)
+                        for var in self.variables},
         }
         if self.use_loss_weighting:
             out["log_vars"] = {

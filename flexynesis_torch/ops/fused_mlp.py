@@ -3,9 +3,14 @@
 Counterpart of ``flexynesis_tpu/ops/fused_mlp.py::FusedMLP``, selected by the
 ``fused_kernels`` config key. The parameters keep the Flax module's layout:
 ``layer_1_kernel`` is ``(in, hidden)``, the layout kernel B2 takes, and the
-BatchNorm scale, bias and running statistics are plain tensors. In eval mode
-the block runs kernel B2 (``kernels/fused_linear.py``) on CUDA tensors and its
-plain version on CPU tensors.
+BatchNorm scale, bias and running statistics are plain tensors. In training
+mode the block runs kernel B1 (batch statistics) and then updates the running
+statistics as the JAX block does: ``ra = 0.9 * ra + 0.1 * mean`` and
+``ra_var = 0.9 * ra_var + 0.1 * var * n / max(n - 1, 1)`` (torch's unbiased
+convention, unlike ``MLP``). Dropout is applied outside the kernel, from the
+caller's ``torch.Generator``. In eval mode the block runs kernel B2. Both
+kernels live in ``kernels/fused_linear.py``; CPU tensors take their plain
+versions.
 """
 
 from __future__ import annotations
@@ -13,9 +18,9 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..kernels.fused_linear import fused_linear_bn_relu_eval
+from ..kernels.fused_linear import fused_linear_bn_relu, fused_linear_bn_relu_eval
 from .initializers import reset_linear_, torch_linear_uniform_
-from .mlp import BN_EPS
+from .mlp import BN_EPS, BN_MOMENTUM, dropout
 
 
 class FusedMLP(nn.Module):
@@ -43,13 +48,22 @@ class FusedMLP(nn.Module):
         self.running_var.fill_(1.0)
         reset_linear_(self.layer_out, generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: torch.Generator = None) -> torch.Tensor:
+        """``generator`` draws the dropout mask in training mode."""
         if self.training:
-            raise NotImplementedError(
-                "training-mode FusedMLP needs kernel B1 (fused Linear->BatchNorm"
-                "->ReLU with batch statistics), the next slice of the port "
-                "(ROADMAP B.1)"
+            if generator is None:
+                raise ValueError("training-mode dropout needs a torch.Generator")
+            h, mu, var = fused_linear_bn_relu(
+                x, self.layer_1_kernel, self.layer_1_bias, self.bn_scale,
+                self.bn_bias, BN_EPS,
             )
+            n = x.shape[0]
+            with torch.no_grad():
+                self.running_mean.mul_(1 - BN_MOMENTUM).add_(BN_MOMENTUM * mu)
+                self.running_var.mul_(1 - BN_MOMENTUM).add_(
+                    (BN_MOMENTUM * n / max(n - 1, 1)) * var
+                )
+            return self.layer_out(dropout(h, self.dropout_rate, generator))
         h = fused_linear_bn_relu_eval(
             x, self.layer_1_kernel, self.layer_1_bias, self.bn_scale,
             self.bn_bias, self.running_mean, self.running_var, BN_EPS,

@@ -1,9 +1,17 @@
 """The MLP block of encoders and supervisor heads.
 
 Counterpart of ``flexynesis_tpu/ops/mlp.py::MLP`` (reference modules.py:106-150):
-Linear -> BatchNorm1d(eps 1e-5, momentum 0.1) -> ReLU -> Dropout(0.1) -> Linear.
-The hidden width is clamped to at least 2 and the output layer has no bias
-when ``output_dim == 1``.
+Linear -> BatchNorm(eps 1e-5) -> ReLU -> Dropout(0.1) -> Linear. The hidden
+width is clamped to at least 2 and the output layer has no bias when
+``output_dim == 1``.
+
+BatchNorm follows Flax ``nn.BatchNorm`` (``use_fast_variance=True``) in
+training mode, not ``torch.nn.BatchNorm1d``: the batch variance is the biased
+``max(E[h^2] - E[h]^2, 0)``, used both to normalise and to update the running
+statistics as ``new = 0.9 * old + 0.1 * batch``. (``BatchNorm1d`` would update
+``running_var`` with the unbiased variance.) The ``BatchNorm1d`` submodule
+holds the parameters and running statistics, so the layout ``convert.py``
+maps is unchanged, and it runs the eval-mode normalisation.
 """
 
 from __future__ import annotations
@@ -14,7 +22,7 @@ from torch import nn
 from .initializers import reset_linear_
 
 BN_EPS = 1e-5
-BN_MOMENTUM = 0.1  # torch convention (flax's 0.9)
+BN_MOMENTUM = 0.1  # weight of the new batch in the running statistics (flax's 1 - 0.9)
 
 
 def dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
@@ -41,9 +49,16 @@ class MLP(nn.Module):
 
     def forward(self, x: torch.Tensor, generator: torch.Generator = None) -> torch.Tensor:
         """``generator`` draws the dropout mask in training mode."""
-        h = torch.relu(self.batchnorm(self.layer_1(x)))
-        if self.training:
-            if generator is None:
-                raise ValueError("training-mode dropout needs a torch.Generator")
-            h = dropout(h, self.dropout_rate, generator)
-        return self.layer_out(h)
+        if not self.training:
+            return self.layer_out(torch.relu(self.batchnorm(self.layer_1(x))))
+        if generator is None:
+            raise ValueError("training-mode dropout needs a torch.Generator")
+        h = self.layer_1(x)
+        bn = self.batchnorm
+        mu = h.mean(dim=0)
+        var = torch.clamp((h * h).mean(dim=0) - mu * mu, min=0.0)
+        with torch.no_grad():
+            bn.running_mean.mul_(1 - BN_MOMENTUM).add_(BN_MOMENTUM * mu)
+            bn.running_var.mul_(1 - BN_MOMENTUM).add_(BN_MOMENTUM * var)
+        h = torch.relu((h - mu) * torch.rsqrt(var + BN_EPS) * bn.weight + bn.bias)
+        return self.layer_out(dropout(h, self.dropout_rate, generator))

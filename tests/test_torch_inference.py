@@ -256,8 +256,9 @@ def test_port_saved_model_loads_in_jax(trained, tmp_path):
 def test_unported_paths_raise(trained, tmp_path):
     args = _infer_args(trained["weights"], trained["artifacts"], trained["test"],
                        str(tmp_path))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        main(["--data_path", "x", "--model_class", "DirectPred", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):  # training: CV, not ported
+        main(["--data_path", "x", "--model_class", "DirectPred", "--data_types", "gex",
+              "--target_variables", "y", "--use_cv", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="marker"):
         main([a for a in args if a != "--disable_marker_finding"])
     with pytest.raises(NotImplementedError, match="fine-tuning"):

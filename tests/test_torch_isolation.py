@@ -40,7 +40,9 @@ def test_cli_module_loads_without_forbidden_modules():
         "before = set(sys.modules)\n"
         "import flexynesis_torch.__main__, flexynesis_torch.inference\n"
         "import flexynesis_torch.data.inference_importer, flexynesis_torch.utils.metrics\n"
-        "import flexynesis_torch.utils.synthetic\n"
+        "import flexynesis_torch.utils.synthetic, flexynesis_torch.data.importer\n"
+        "import flexynesis_torch.data.feature_selection, flexynesis_torch.train.hpo\n"
+        "import flexynesis_torch.train.trainer, flexynesis_torch.ops.losses\n"
         "new = {m.split('.')[0] for m in set(sys.modules) - before}\n"
         f"bad = sorted(set({sorted(FORBIDDEN)!r}) & new)\n"
         "assert not bad, bad\n"
@@ -59,4 +61,15 @@ def test_card_devices_raise_without_cuda(device, tmp_path, monkeypatch):
               "--artifacts", str(tmp_path / "a.json"),
               "--data_path_test", str(tmp_path), "--outdir", str(tmp_path),
               "--disable_marker_finding", "--device", device])
+    assert not any(tmp_path.iterdir())
+
+
+@pytest.mark.parametrize("device", ["auto", "cuda"])
+def test_training_mode_raises_without_cuda(device, tmp_path, monkeypatch):
+    monkeypatch.setattr("torch.cuda.is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["--data_path", str(tmp_path), "--model_class", "DirectPred",
+              "--data_types", "gex", "--target_variables", "y", "--hpo_batch", "1",
+              "--safetensors", "--disable_marker_finding", "--outdir",
+              str(tmp_path / "out"), "--device", device])
     assert not any(tmp_path.iterdir())

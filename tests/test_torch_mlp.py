@@ -1,5 +1,6 @@
 """The port's MLP and FusedMLP blocks in eval mode against the JAX modules,
-with the weights carried across by flexynesis_torch.convert.
+with the weights carried across by flexynesis_torch.convert (training mode:
+tests/test_torch_train.py).
 
 Tolerance: rtol=1e-4, atol=1e-5 (f32, as tests/test_torch_parity.py)."""
 
@@ -69,8 +70,9 @@ def test_block_matches_jax(fused, B, F, hidden, out):
 
 
 def test_fused_block_raises_in_training_mode():
+    """Training mode runs kernel B1 and needs a generator for its dropout."""
     block = FusedMLP(6, 4, 2).train()
-    with pytest.raises(NotImplementedError, match="B1"):
+    with pytest.raises(ValueError, match="Generator"):
         block(torch.zeros(3, 6))
 
 
