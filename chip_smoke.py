@@ -24,8 +24,11 @@ Phases (any failure exits nonzero):
    the card (feature selection down to gex 2000 and cnv 1000, one HPO trial,
    10 epochs of batch 64) with B1 in every training step and B2 in validation
    and evaluation, checked by launch counts; the saved model is served by the
-   inference CLI; three steps from one initialisation agree between the card
-   and the CPU; step time, samples/s and a profiled epoch.
+   inference CLI on the card and on the CPU, and the two agree; three steps
+   from one initialisation agree between the card and the CPU; step time,
+   samples/s and a profiled epoch; then B2 against its plain version at the
+   batch sizes the training run gave it (validation split, train and test
+   cohorts) that serving did not.
 
 Each kernel's launch count is set to 0 just before the phase that drives its
 path (serving for B2, training for B1) and read just after. The output ends
@@ -294,19 +297,20 @@ def run_cli(test, weights, art, outdir: Path, device: str) -> float:
     return time.perf_counter() - t0
 
 
-def read_outputs(outdir: Path):
-    """(samples, embeddings, probabilities, stats rows), checked for shape and finiteness."""
+def read_outputs(outdir: Path, n: int = N_TEST, classes: int = N_CLASSES):
+    """(samples, embeddings, probabilities, stats rows) of an inference run
+    over ``n`` samples and ``classes`` classes, checked for shape and finiteness."""
     import numpy as np
     from flexynesis_torch.utils.csvio import read_matrix, read_table
 
     samples, _, emb = read_matrix(str(outdir / "smoke.embeddings_test.csv"))
-    if emb.shape != (N_TEST, LATENT) or not np.isfinite(emb).all():
+    if emb.shape != (n, LATENT) or not np.isfinite(emb).all():
         fail(f"embeddings: shape {emb.shape}, finite {np.isfinite(emb).all()}")
     _, columns, rows = read_table(str(outdir / "smoke.predicted_labels.csv"))
     prob = np.array([float(r[columns.index("probability")]) for r in rows])
-    if prob.size != N_TEST * N_CLASSES or not np.isfinite(prob).all():
-        fail(f"predicted_labels: {prob.size} probabilities")
-    sums = prob.reshape(N_TEST, N_CLASSES).sum(axis=1)
+    if prob.size != n * classes or not np.isfinite(prob).all():
+        fail(f"predicted_labels: {prob.size} probabilities, expected {n} x {classes}")
+    sums = prob.reshape(n, classes).sum(axis=1)
     if not np.allclose(sums, 1.0, atol=1e-5):
         fail("predicted probabilities do not sum to one")
     _, stat_cols, stat_rows = read_table(str(outdir / "smoke.stats.csv"))
@@ -315,6 +319,25 @@ def read_outputs(outdir: Path):
     if not values or not np.isfinite(values).all():
         fail(f"stats.csv holds no finite metric: {stat_rows}")
     return samples, emb, prob, stat_rows
+
+
+def compare_outputs(out_card: Path, out_cpu: Path, n: int, classes: int, phase: str):
+    """Hold the card's inference outputs against the CPU run's; returns the
+    card run's stats rows."""
+    import numpy as np
+
+    s_gpu, emb_gpu, p_gpu, stats = read_outputs(out_card, n, classes)
+    s_cpu, emb_cpu, p_cpu, _ = read_outputs(out_cpu, n, classes)
+    if s_gpu != s_cpu:
+        fail(f"{phase}: the cuda and cpu runs scored different samples")
+    emb_err = float(np.abs(emb_gpu - emb_cpu).max())
+    p_err = float(np.abs(p_gpu - p_cpu).max())
+    if not (np.allclose(emb_gpu, emb_cpu, **TOL) and np.allclose(p_gpu, p_cpu, **TOL)):
+        fail(f"{phase}: cuda and cpu outputs differ: embeddings {emb_err:.3e}, "
+             f"probabilities {p_err:.3e}")
+    print(f"{phase}: cuda vs cpu max abs diff: embeddings {emb_err:.3e}, "
+          f"probabilities {p_err:.3e} (tol {TOL})", flush=True)
+    return stats
 
 
 def serve(workdir: Path):
@@ -345,16 +368,8 @@ def serve(workdir: Path):
 
     cpu_s = run_cli(test, weights, art, workdir / "out_cpu", "cpu")
     print(f"serving: CLI on cpu (reference) {cpu_s:.3f} s", flush=True)
-    s_gpu, emb_gpu, p_gpu, stats = read_outputs(workdir / "out_cuda")
-    s_cpu, emb_cpu, p_cpu, _ = read_outputs(workdir / "out_cpu")
-    if s_gpu != s_cpu:
-        fail("the cuda and cpu runs scored different samples")
-    emb_err = float(np.abs(emb_gpu - emb_cpu).max())
-    p_err = float(np.abs(p_gpu - p_cpu).max())
-    if not (np.allclose(emb_gpu, emb_cpu, **TOL) and np.allclose(p_gpu, p_cpu, **TOL)):
-        fail(f"cuda and cpu outputs differ: embeddings {emb_err:.3e}, probabilities {p_err:.3e}")
-    print(f"serving: cuda vs cpu max abs diff: embeddings {emb_err:.3e}, "
-          f"probabilities {p_err:.3e} (tol {TOL})", flush=True)
+    stats = compare_outputs(workdir / "out_cuda", workdir / "out_cpu", N_TEST, N_CLASSES,
+                            "serving")
     for r in stats:
         print("serving: stats", ",".join(r), flush=True)
 
@@ -538,11 +553,13 @@ def time_steps(model, cohort):
 
 
 def train(workdir: Path):
-    """The training phase; returns (B1 launches, B2 launches) of the CLI run."""
+    """The training phase; returns (B1 launches, B2 launches) of the CLI run
+    and the batch sizes the run gave B2 (validation, train and test cohorts)."""
     import numpy as np
     from flexynesis_torch.__main__ import main as cli, parse_args, run_training
     from flexynesis_torch.data.inference_importer import DataImporterInference
     from flexynesis_torch.kernels.fused_linear import (
+        ROW_TILE,
         fused_linear_bn_relu as b1,
         fused_linear_bn_relu_eval as b2,
     )
@@ -586,7 +603,9 @@ def train(workdir: Path):
     n = len(next(iter(model.ann.values())))
     n_fit = n - int(np.ceil(n * VAL_SIZE))
     steps = res.epochs_run * (n_fit // BATCH)
-    want = (B1_PER_STEP * steps, B2_PER_FORWARD * (res.epochs_run + EVAL_FORWARDS))
+    # a batch beyond one row tile adds the split reduction's merge launch
+    b1_per_step = B1_PER_STEP * (1 if BATCH <= ROW_TILE else 2)
+    want = (b1_per_step * steps, B2_PER_FORWARD * (res.epochs_run + EVAL_FORWARDS))
     if launches != want:
         fail(f"training launches (B1, B2) = {launches}, expected {want} "
              f"({res.epochs_run} epochs x {n_fit // BATCH} steps)")
@@ -595,7 +614,7 @@ def train(workdir: Path):
         fail(f"train loss did not fall: {losses}")
     print(f"training: CLI on {DEVICE} {cli_s:.3f} s; selected widths gex {GEX}, cnv {CNV}; "
           f"{res.epochs_run} epochs x {n_fit // BATCH} steps; launches B1 {launches[0]} "
-          f"({B1_PER_STEP} per step), B2 {launches[1]} ({B2_PER_FORWARD} per eval forward x "
+          f"({b1_per_step} per step), B2 {launches[1]} ({B2_PER_FORWARD} per eval forward x "
           f"({res.epochs_run} validations + {EVAL_FORWARDS} evaluation forwards))", flush=True)
     print("training: train loss by epoch " + json.dumps([round(v, 5) for v in losses])
           + "; val loss by epoch " + json.dumps([round(v, 5) for v in res.history["val_loss"]]),
@@ -605,27 +624,33 @@ def train(workdir: Path):
     for r in read_table(str(out / "fit.stats.csv"))[2]:
         print("training: stats", ",".join(r), flush=True)
 
-    # the saved model serves through the port's inference CLI on the card
-    served = workdir / "fit_served"
-    if cli(["--pretrained_model", str(out / "fit.final_model.safetensors"),
-            "--artifacts", str(out / "fit.artifacts.json"),
-            "--data_path_test", str(data / "test"), "--outdir", str(served),
-            "--prefix", "smoke", "--disable_marker_finding", "--device", DEVICE]) != 0:
-        fail("serving the trained model returned nonzero")
-    # (values differ from the training run's test embeddings where the test
-    # matrix had missing cells: training imputes the test cohort's medians,
-    # inference the training mean)
-    _, _, emb = read_matrix(str(served / "smoke.embeddings_test.csv"))
-    if emb.shape != (FIT_TEST, LATENT) or not np.isfinite(emb).all():
-        fail(f"the served model's embeddings: shape {emb.shape}, finite {np.isfinite(emb).all()}")
-    print(f"training: the saved model served on {DEVICE}: {emb.shape[0]} finite "
-          "test embeddings", flush=True)
+    # the saved model serves through the port's inference CLI on the card and
+    # on the CPU, and the two agree. (Values differ from the training run's
+    # test embeddings where the test matrix had missing cells: training
+    # imputes the test cohort's medians, inference the training mean.)
+    for device in (DEVICE, "cpu"):
+        if cli(["--pretrained_model", str(out / "fit.final_model.safetensors"),
+                "--artifacts", str(out / "fit.artifacts.json"),
+                "--data_path_test", str(data / "test"),
+                "--outdir", str(workdir / f"fit_served_{device}"),
+                "--prefix", "smoke", "--disable_marker_finding", "--device", device]) != 0:
+            fail(f"serving the trained model on {device} returned nonzero")
+    # missing training labels give the encoder a missing-value class
+    encoder = json.loads((out / "fit.artifacts.json").read_text())["label_encoders"]["subtype"]
+    compare_outputs(workdir / f"fit_served_{DEVICE}", workdir / "fit_served_cpu", FIT_TEST,
+                    len(encoder["categories"][0]), "training: the saved model served")
+
+    # B2's batch sizes in the CLI run: the validation split each epoch, then
+    # the train and test cohorts whole
+    n_rows = [len(read_matrix(str(out / f"fit.embeddings_{split}.csv"))[0])
+              for split in ("train", "test")]
+    b2_rows = sorted({n - n_fit, *n_rows})
 
     cohort = DataImporterInference(str(data / "test"), str(out / "fit.artifacts.json"),
                                    verbose=False).import_data()
     check_card_matches_cpu(model, cohort)
     time_steps(model, cohort)
-    return launches
+    return launches, b2_rows
 
 
 def build_all(names):
@@ -710,7 +735,11 @@ def main() -> int:
     shutil.rmtree(workdir, ignore_errors=True)
     workdir.mkdir(parents=True)
     serve_b2 = serve(workdir)
-    train_b1, train_b2 = train(workdir)
+    (train_b1, train_b2), b2_train_rows = train(workdir)
+    # B2 at the shapes the training phase gave it that serving did not
+    checked = {(r["B"], r["F"], r["H"]) for r in rows}
+    rows += check_kernel([(f"{n}_n{B}", (B, F, H)) for B in b2_train_rows
+                          for n, (_, F, H) in serving_shapes if (B, F, H) not in checked])
 
     entries = [
         kernel_entry("fused_linear_bn_relu", "flexynesis_torch/csrc/fused_linear_train.cu",

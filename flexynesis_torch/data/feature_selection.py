@@ -26,10 +26,14 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..utils.device import resolve_device
 
-def laplacian_score(X, k: int = 5, device="cpu") -> np.ndarray:
-    """Laplacian score of each column of X (samples x features); lower is better."""
-    X = torch.as_tensor(np.asarray(X, dtype=np.float32), device=device)
+
+def laplacian_score(X, k: int = 5, device="auto") -> np.ndarray:
+    """Laplacian score of each column of X (samples x features); lower is better.
+
+    ``device`` as in ``utils.device.resolve_device``: the card unless ``cpu``."""
+    X = torch.as_tensor(np.asarray(X, dtype=np.float32), device=resolve_device(device))
     n = X.shape[0]
     sq = (X * X).sum(dim=1)
     d2 = torch.clamp(sq[:, None] + sq[None, :] - 2.0 * (X @ X.T), min=0.0)
@@ -55,9 +59,9 @@ def laplacian_score(X, k: int = 5, device="cpu") -> np.ndarray:
     return (num / den).cpu().numpy()
 
 
-def correlation_matrix(X, device="cpu") -> np.ndarray:
+def correlation_matrix(X, device="auto") -> np.ndarray:
     """np.corrcoef(X.T): correlations between the columns of X, in float32."""
-    X = torch.as_tensor(np.asarray(X, dtype=np.float32), device=device)
+    X = torch.as_tensor(np.asarray(X, dtype=np.float32), device=resolve_device(device))
     Xc = X - X.mean(dim=0, keepdim=True)
     cov = Xc.T @ Xc
     std = torch.sqrt(torch.diagonal(cov))
@@ -66,7 +70,7 @@ def correlation_matrix(X, device="cpu") -> np.ndarray:
 
 def remove_redundant_features(X, names: Sequence[str], scores: np.ndarray,
                               threshold: float, topN: Optional[int] = None,
-                              device="cpu") -> Tuple[List[str], List[dict]]:
+                              device="auto") -> Tuple[List[str], List[dict]]:
     """(kept names, redundancy rows) for the columns of X in ascending score
     order (reference feature_selection.py:51-154)."""
     corr = np.abs(correlation_matrix(X, device))
@@ -94,7 +98,7 @@ def remove_redundant_features(X, names: Sequence[str], scores: np.ndarray,
 
 def filter_by_laplacian(X, names: Sequence[str], layer: str, k: int = 5,
                         topN: int = 100, correlation_threshold: float = 0.9,
-                        device="cpu") -> Tuple[List[str], List[dict]]:
+                        device="auto") -> Tuple[List[str], List[dict]]:
     """(selected feature names in log order, feature log) for X (samples x
     features) with columns ``names`` (reference feature_selection.py:157-268).
 

@@ -38,6 +38,7 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from ..utils.csvio import NA_VALUES, read_matrix, read_table
+from ..utils.device import resolve_device
 from .dataset import MultiOmicDataset
 from .feature_selection import filter_by_laplacian
 from .preprocessing import NAN_TOKEN, apply_standard_scaler, fit_standard_scaler
@@ -105,7 +106,10 @@ def _nan_var(values: np.ndarray, axis: int) -> np.ndarray:
 
 
 class DataImporter:
-    """Imports, cleans and preprocesses multi-omic CSV data folders."""
+    """Imports, cleans and preprocesses multi-omic CSV data folders.
+
+    ``device`` is where feature selection runs: ``auto`` and ``cuda`` mean the
+    card and raise without one; ``cpu`` only when asked for."""
 
     def __init__(
         self,
@@ -121,7 +125,7 @@ class DataImporter:
         variance_threshold: float = 0.01,
         na_threshold: float = 0.1,
         downsample: int = 0,
-        device="cpu",
+        device="auto",
     ):
         if covariates:
             raise NotImplementedError(
@@ -140,7 +144,7 @@ class DataImporter:
         self.variance_threshold = variance_threshold
         self.na_threshold = na_threshold
         self.downsample = downsample
-        self.device = device
+        self.device = resolve_device(device)
 
         self.encoders: Dict[str, dict] = {}
         self.scalers: Optional[Dict[str, dict]] = None

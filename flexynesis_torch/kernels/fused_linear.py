@@ -14,7 +14,7 @@ header says what bounds the kernel and how its design answers that.
 
 A wrapper takes the plain version only for tensors on the CPU. For CUDA
 tensors it launches the kernel or raises; there is no size ceiling and no
-fallback. ``<wrapper>.launches`` counts the calls that launched the kernel.
+fallback. ``<wrapper>.launches`` counts the CUDA launches of its kernels.
 """
 
 from __future__ import annotations
@@ -34,22 +34,13 @@ def fused_linear_bn_relu_eval_ref(x, w, b, gamma, beta, running_mean,
 _launchers: dict = {}
 
 
-def _kernel(name: str):
-    """The C launcher of ``csrc/<name>.cu``, built at first use."""
+def _kernel(name: str, symbol: str, argtypes):
+    """The C launcher ``symbol`` of ``csrc/<name>.cu``, built at first use."""
     if name not in _launchers:
         from . import build
 
-        lib = build.load(name)
-        if name == "fused_linear_eval":
-            fn = lib.fused_linear_bn_relu_eval_f32
-            fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [
-                ctypes.c_float, ctypes.c_void_p,
-            ]
-        else:
-            fn = lib.fused_linear_bn_relu_train_f32
-            fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3 + [
-                ctypes.c_float, ctypes.c_void_p,
-            ]
+        fn = getattr(build.load(name), symbol)
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         _launchers[name] = fn
     return _launchers[name]
@@ -93,7 +84,8 @@ def fused_linear_bn_relu_eval(x, w, b, gamma, beta, running_mean, running_var,
     y = torch.empty((B, H), device=x.device, dtype=torch.float32)
     if B == 0 or H == 0:
         return y
-    fn = _kernel("fused_linear_eval")
+    fn = _kernel("fused_linear_eval", "fused_linear_bn_relu_eval_f32",
+                 [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p])
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), gamma.data_ptr(),
@@ -155,7 +147,8 @@ def fused_linear_bn_relu_forward(x, w, b, gamma, beta, eps: float = 1e-5):
         return y, h, mu, var
     tiles = -(-B // ROW_TILE)
     part = torch.empty((2, tiles, H), **dev) if tiles > 1 else None
-    fn = _kernel("fused_linear_train")
+    fn = _kernel("fused_linear_train", "fused_linear_bn_relu_train_f32",
+                 [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p])
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), gamma.data_ptr(),
@@ -169,7 +162,8 @@ def fused_linear_bn_relu_forward(x, w, b, gamma, beta, eps: float = 1e-5):
             f"fused_linear_bn_relu kernel launch failed: CUDA error {rc} "
             f"(B={B}, F={F}, H={H})"
         )
-    fused_linear_bn_relu.launches += 1
+    # the tile kernel, and the merge kernel where the batch spans row tiles
+    fused_linear_bn_relu.launches += 1 if part is None else 2
     return y, h, mu, var
 
 
@@ -209,8 +203,8 @@ def fused_linear_bn_relu(x, w, b, gamma, beta, eps: float = 1e-5):
 
     x (B, F), w (F, H), vectors (H,), float32 on the card; returns
     ``(y, batch_mean, batch_var)`` with the biased variance.
-    ``fused_linear_bn_relu.launches`` counts forward calls that launched the
-    kernel (one or, for B > 64, two CUDA launches each)."""
+    ``fused_linear_bn_relu.launches`` counts CUDA launches: one per forward,
+    two where B > 64 (the tile kernel and the merge of the split reduction)."""
     return FusedLinearBNReLU.apply(x, w, b, gamma, beta, eps)
 
 

@@ -94,15 +94,12 @@ class HyperparameterTuning:
             "device": self.device,
         }
 
-    def objective(self, params: dict, full_train: bool = False):
-        """Train with ``params``; returns (val_loss, epochs_run, model), or
-        just the trained model when full_train=True (main.py:228-332)."""
+    def objective(self, params: dict):
+        """Train with ``params`` on a validation split; returns (val_loss,
+        epochs_run, model) (main.py:228-332). Training on the full set, which
+        the JAX package does after cross-validation or a resumed tuning run,
+        waits for ROADMAP A.8 and item 9."""
         model = self.model_class(**self._model_args(params))
-        if full_train:
-            model.fit(self.dataset, lr=params["lr"], batch_size=int(params["batch_size"]),
-                      max_epochs=int(params["epochs"]), early_stop_patience=-1,
-                      seed=self.seed)
-            return model
         train_idx, val_idx = train_val_split(self.n_units, self.val_size, seed=self.seed)
         res = model.fit(
             self.dataset, train_idx, val_idx, lr=params["lr"],

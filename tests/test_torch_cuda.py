@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from flexynesis_torch.kernels.fused_linear import (
+    ROW_TILE,
     fused_linear_bn_relu,
     fused_linear_bn_relu_eval,
     fused_linear_bn_relu_eval_ref,
@@ -75,7 +76,8 @@ def test_b1_matches_plain_version(card, B, F, H):
     before = fused_linear_bn_relu.launches
     out = fused_linear_bn_relu_forward(x, w, b, gamma, beta)
     torch.cuda.synchronize()
-    assert fused_linear_bn_relu.launches == before + 1
+    # the merge of the split reduction is a second launch
+    assert fused_linear_bn_relu.launches == before + (1 if B <= ROW_TILE else 2)
     for got, want in zip(out, fused_linear_bn_relu_ref(x, w, b, gamma, beta)):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
     again = fused_linear_bn_relu_forward(x, w, b, gamma, beta)

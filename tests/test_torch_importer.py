@@ -32,7 +32,7 @@ def imported(tmp_path_factory):
     path = str(tmp_path_factory.mktemp("importer") / "data")
     write_synthetic_folder(path, n_train=60, n_test=30,
                            n_features={"gex": 80, "cnv": 50}, n_classes=4, seed=11)
-    ours = DataImporter(path, **OPTIONS)
+    ours = DataImporter(path, device="cpu", **OPTIONS)
     theirs = JaxImporter(path, **OPTIONS)
     return ours, ours.import_data(), theirs, theirs.import_data()
 
@@ -125,7 +125,7 @@ def test_downsample_and_feature_restriction_match_jax(imported, tmp_path):
     keep.write_text("\n".join([f"gex_f{i}" for i in range(0, 80, 2)]
                            + [f"cnv_f{i}" for i in range(12)] + ["nope"]))
     opts = dict(OPTIONS, downsample=40, restrict_to_features=str(keep))
-    (train, test) = DataImporter(ours.path, **opts).import_data()
+    (train, test) = DataImporter(ours.path, device="cpu", **opts).import_data()
     (jtrain, jtest) = JaxImporter(ours.path, **opts).import_data()
     for ds, jds in ((train, jtrain), (test, jtest)):
         assert sorted(ds.samples) == sorted(jds.samples)
@@ -154,4 +154,20 @@ def test_not_ported_options_raise(tmp_path):
         os.makedirs(tmp_path / split)
         (tmp_path / split / "gex.h5").write_bytes(b"")
     with pytest.raises(NotImplementedError, match="HDF5"):
-        DataImporter(str(tmp_path), ["gex"]).import_data()
+        DataImporter(str(tmp_path), ["gex"], device="cpu").import_data()
+
+
+@pytest.mark.parametrize("device", ["auto", "cuda"])
+def test_card_devices_raise_without_cuda(device, tmp_path, monkeypatch):
+    """Feature selection runs on the card unless the caller asks for the CPU."""
+    from flexynesis_torch.data import feature_selection
+
+    monkeypatch.setattr("torch.cuda.is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DataImporter(str(tmp_path), ["gex"], device=device)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DataImporter(str(tmp_path), ["gex"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        feature_selection.laplacian_score(np.ones((8, 3), dtype=np.float32))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        feature_selection.correlation_matrix(np.ones((8, 3), dtype=np.float32), device)
