@@ -3,8 +3,8 @@
 Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases (any failure exits nonzero):
-1. the card's name and power limit; build kernels B1 and B2 with nvcc for
-   sm_90a, one nvcc per source, started together;
+1. the card's name and power limit; build kernels B1, B2 and B3 with nvcc
+   for sm_90a, one nvcc per source, started together;
 2. kernel B2 (eval-mode fused Linear->BN->ReLU) against its plain PyTorch
    version at every shape the serving phase launches, a ragged shape and the
    production single-model encoder, with CUDA-event timings of the kernel,
@@ -15,6 +15,13 @@ Phases (any failure exits nonzero):
    B = 1 and a 4096-row batch (the split reduction); its gradients
    (kernel forward + the JAX backward formula) against autograd through the
    plain version at the three training shapes;
+3b. kernel B3 (the Gaussian-kernel mean of the VAE-MMD loss) at every shape
+   the VAE phases launch (a 200-draw prior against a 64-row batch and a
+   400-row validation split, latent 64), a ragged shape, one row, latent 128
+   and a 4096 x 4096 grid of 4096 blocks: the mean within 1e-6 / rtol 1e-5 of
+   the plain version, two calls bit for bit, and at the training shapes the
+   gradients of the kernel mean (also of y against itself) and of the MMD
+   term against autograd through the plain version;
 4. serving at full width: the DirectPred headline configuration (gex 2000 and
    cnv 1000 features, hidden widths 600 and 300, latent 64, supervisor hidden
    16, 4 classes, fused_kernels on) scores a 2000-sample cohort through
@@ -28,10 +35,23 @@ Phases (any failure exits nonzero):
    from one initialisation agree between the card and the CPU; step time,
    samples/s and a profiled epoch; then B2 against its plain version at the
    batch sizes the training run gave it (validation split, train and test
-   cohorts) that serving did not.
+   cohorts) that serving did not;
+6. supervised_vae at the same width (encoders 2000->600 and 1000->300,
+   decoders 64->600->2000 and 64->300->1000, latent 64, head 16,
+   fused_kernels on) through the training CLI on the card, on the folder of
+   phase 5, one trial of 10 epochs of batch 64: B3 in every training step and
+   validation, B1 and B2 in none, checked by launch counts; the loss falls;
+   the saved model served on the card and on the CPU agrees; three steps
+   agree between the card and the CPU (eps and prior from one CPU
+   generator); step time and a profiled run of steps;
+7. CrossModalPred, gex encoded and cnv decoded, 3 epochs: B3's launch
+   counts, ``fit.cnv_decoded.csv`` with 500 x 1000 values in [0, 1], and the
+   saved model (with its decoded layer) served on the card and on the CPU
+   agree.
 
 Each kernel's launch count is set to 0 just before the phase that drives its
-path (serving for B2, training for B1) and read just after. The output ends
+path (serving for B2, training for B1, phases 6 and 7 for all three) and
+read just after. The output ends
 with a ``{"kernels": [...]}`` line, the nvidia-smi line and
 ``{"ok": true, "device": {...}}``. Working files go to build/chip_smoke/.
 """
@@ -67,6 +87,7 @@ FIT_TRAIN, FIT_TEST, FIT_EPOCHS, VAL_SIZE = 2000, 500, 10, 0.2
 B1_PER_STEP = 3  # two encoders and one head
 EVAL_FORWARDS = 4  # transform and predict, of train and of test
 PROFILED_STEPS = 7
+CM_EPOCHS = 3  # the CrossModalPred run, cut to 3 epochs
 DEVICE = "cuda"  # the training phase's device (a CPU rehearsal sets "cpu")
 
 
@@ -222,6 +243,88 @@ def check_b1(shapes, grad_shapes):
               f"(tol {TOL})  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
               f"addmm(GEMM only) {addmm_ms:.4f} ms  bound {bms:.4f} ms ({by})  "
               f"{flops / ms / 1e9:.2f} TFLOP/s", flush=True)
+    return rows
+
+
+B3_TOL = dict(rtol=1e-5, atol=1e-6)  # one f32 mean; only the order of summation differs
+
+
+def work_b3(N: int, M: int, d: int):
+    """(FLOPs, bytes) of one B3 call: the dot products, the two norms and about
+    six operations per pair (expansion, clamp, division, exp, sum); x and y
+    read once and one float written, in f32."""
+    return 2 * N * M * d + 2 * (N + M) * d + 6 * N * M, 4 * ((N + M) * d + 1)
+
+
+def check_b3(shapes, grad_shapes):
+    """Hold B3 against its plain version at each (label, (N, M, d)): the mean
+    within B3_TOL, two calls bit for bit, and at ``grad_shapes`` the
+    gradients of the kernel mean (x against y and x against itself) and of
+    the MMD term (a 200-draw prior against the batch) against autograd
+    through the plain version. Returns per-shape rows."""
+    import torch
+    from flexynesis_torch.kernels.mmd import (
+        GaussianKernelMean,
+        compute_mmd_fused,
+        gaussian_kernel_mean as kernel,
+        gaussian_kernel_mean_ref as plain,
+    )
+    from flexynesis_torch.ops.losses import compute_mmd
+
+    def grad_err(fused_fn, plain_fn, inputs, what):
+        """Max abs difference of the gradients; tolerance rtol 1e-4 and atol
+        1e-4 of the largest plain gradient (the gradients scale as
+        1 / (N M d^2), so an absolute atol would say nothing)."""
+        grads = []
+        for fn in (fused_fn, plain_fn):
+            leaves = [t.clone().requires_grad_() for t in inputs]
+            fn(*leaves).backward()
+            grads.append([t.grad for t in leaves])
+        err = 0.0
+        for got, want in zip(*grads):
+            atol = 1e-4 * float(want.abs().max())
+            err = max(err, float((got - want).abs().max()))
+            if not torch.allclose(got, want, rtol=1e-4, atol=atol):
+                fail(f"B3 gradient of {what} disagrees with autograd through the plain "
+                     f"version: max abs {err:.3e}, rtol 1e-4, atol {atol:.3e}")
+        return err
+
+    rows = []
+    for label, (N, M, d) in shapes:
+        g = torch.Generator(device="cuda").manual_seed(N * 7 + M * 3 + d)
+        x = torch.randn(N, d, device="cuda", generator=g)
+        y = torch.randn(M, d, device="cuda", generator=g) * 0.5 + 0.1
+        out = kernel(x, y)
+        torch.cuda.synchronize()
+        ref = plain(x, y)
+        err = float((out - ref).abs())
+        if not torch.allclose(out, ref, **B3_TOL):
+            fail(f"B3 disagrees with its plain version at {label} N={N} M={M} d={d}: "
+                 f"{float(out)!r} vs {float(ref)!r}, tolerance {B3_TOL}")
+        if not torch.equal(out, kernel(x, y)):
+            fail(f"B3 is not deterministic at {label}")
+        reps = 10 if N * M * d > 1e8 else 50
+        ms = cuda_ms(lambda: kernel(x, y), reps)
+        plain_ms = cuda_ms(lambda: plain(x, y), reps)
+        flops, nbytes = work_b3(N, M, d)
+        bms, by = bound_ms(flops, nbytes)
+        g_err = None
+        if (N, M, d) in grad_shapes:
+            g_err = max(
+                grad_err(GaussianKernelMean.apply, plain, (x, y), "the kernel mean"),
+                grad_err(lambda a: GaussianKernelMean.apply(a, a), lambda a: plain(a, a),
+                         (y,), "the kernel mean of y against itself"),
+                grad_err(compute_mmd_fused, compute_mmd,
+                         (torch.randn(200, d, device="cuda", generator=g), y), "the MMD"),
+            )
+        rows.append(dict(label=label, shape=[N, M, d], max_abs_err=err,
+                         grad_max_abs_err=g_err, ms=ms, plain_ms=plain_ms, flops=flops,
+                         bytes=nbytes, bound_ms=bms, bound_by=by))
+        print(f"B3 {label:>16} N={N:5d} M={M:5d} d={d:4d}  mean={float(out):.7f} "
+              f"abs_err={err:.3e} (tol {B3_TOL}) deterministic "
+              f"grad_max_abs_err={'n/a' if g_err is None else f'{g_err:.3e}'}  "
+              f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {bms:.6f} ms ({by})  "
+              f"{flops / ms / 1e9:.3f} TFLOP/s", flush=True)
     return rows
 
 
@@ -428,7 +531,7 @@ def serve(workdir: Path):
     return launches
 
 
-HPO_CONFIG = """DirectPred:
+HPO_CONFIG = """%s:
   - {type: Categorical, categories: [%d], name: latent_dim}
   - {type: Categorical, categories: [%s], name: hidden_dim_factor}
   - {type: Categorical, categories: [0.001], name: lr}
@@ -439,8 +542,9 @@ HPO_CONFIG = """DirectPred:
 """
 
 
-def train_args(data: Path, config: Path, outdir: Path, device: str):
-    return ["--data_path", str(data), "--model_class", "DirectPred",
+def train_args(data: Path, config: Path, outdir: Path, device: str,
+               model_class: str = "DirectPred", extra=()):
+    return ["--data_path", str(data), "--model_class", model_class, *extra,
             "--data_types", "gex,cnv", "--target_variables", "subtype",
             "--config_path", str(config), "--hpo_iter", "1",
             "--features_top_percentile", str(TOP_PERCENTILE), "--variance_threshold", "0",
@@ -452,24 +556,28 @@ def train_args(data: Path, config: Path, outdir: Path, device: str):
 def check_card_matches_cpu(model, cohort):
     """Three training steps from one initialisation with dropout 0 and one
     permutation, on the card and on the CPU: per-step losses and the first
-    step's gradients must agree."""
+    step's gradients must agree. One CPU generator seeded alike feeds both
+    runs, so a VAE's eps and prior draws are the same numbers on both."""
     import torch
-    from flexynesis_torch.models.direct_pred import DirectPred
     from flexynesis_torch.ops.fused_mlp import FusedMLP
+    from flexynesis_torch.ops.mlp import MLP
     from flexynesis_torch.train.trainer import Trainer, gather
 
+    layers = ({"input_layers": model.input_layers, "output_layers": model.output_layers}
+              if model.model_name == "CrossModalPred" else {})
     runs = {}
     for device in (DEVICE, "cpu"):
-        m = DirectPred(model.config, cohort, target_variables=["subtype"], device=device)
+        m = type(model)(model.config, cohort, target_variables=model.target_variables,
+                        device=device, **layers)
         m.init_params(seed=3)
         for block in m.module.modules():
-            if isinstance(block, FusedMLP):
+            if isinstance(block, (MLP, FusedMLP)):
                 block.dropout_rate = 0.0
         data = m.make_batch(cohort)
         perm = torch.randperm(len(cohort), generator=torch.Generator().manual_seed(5))
         perm = perm[: 3 * BATCH].reshape(3, BATCH).to(device)
         trainer = Trainer(m.module, m.loss_fn, lr=float(model.config["lr"]))
-        gen = torch.Generator(device=device)
+        gen = torch.Generator().manual_seed(11)
         total, _ = m.loss_fn(gather(data, perm[0]), gen, True)
         grads = torch.autograd.grad(total, trainer.params, allow_unused=True)
         trainer.optimizer.step(grads)
@@ -478,15 +586,17 @@ def check_card_matches_cpu(model, cohort):
         runs[device] = (losses, [None if g is None else g.cpu() for g in grads])
     (l_gpu, g_gpu), (l_cpu, g_cpu) = runs[DEVICE], runs["cpu"]
     if not all(math.isclose(a, b, rel_tol=1e-4) for a, b in zip(l_gpu, l_cpu)):
-        fail(f"training steps disagree between cuda and cpu: {l_gpu} vs {l_cpu}")
+        fail(f"{model.model_name}: training steps disagree between cuda and cpu: "
+             f"{l_gpu} vs {l_cpu}")
     grad_err = 0.0
     for a, b in zip(g_gpu, g_cpu):
         if a is None:
             continue
         grad_err = max(grad_err, float((a - b).abs().max()))
         if not torch.allclose(a, b, rtol=1e-4, atol=1e-4):
-            fail(f"first-step gradients disagree between cuda and cpu: {grad_err:.3e}")
-    print(f"training: 3 steps cuda vs cpu, losses {l_gpu} vs {l_cpu} (rtol 1e-4); "
+            fail(f"{model.model_name}: first-step gradients disagree between cuda and "
+                 f"cpu: {grad_err:.3e}")
+    print(f"{model.model_name} training: 3 steps cuda vs cpu, losses {l_gpu} vs {l_cpu} (rtol 1e-4); "
           f"first-step gradients max abs diff {grad_err:.3e} (rtol/atol 1e-4)", flush=True)
 
 
@@ -525,7 +635,7 @@ def time_steps(model, cohort):
         for k, v in zip(parts, (t_f, t_b, t_o)):
             parts[k].append(v)
     med = statistics.median(steps)
-    print(f"training: train step (batch {BATCH}) x30: median {med * 1e3:.3f} ms "
+    print(f"{model.model_name} training: train step (batch {BATCH}) x30: median {med * 1e3:.3f} ms "
           f"(min {min(steps) * 1e3:.3f}, max {max(steps) * 1e3:.3f}), {BATCH / med:.0f} "
           "samples/s (host clock, synchronised); medians of its parts: "
           + json.dumps({k: round(statistics.median(v) * 1e3, 3) for k, v in parts.items()})
@@ -542,13 +652,14 @@ def time_steps(model, cohort):
     if busy_us > 0:
         top = sorted(device, key=lambda e: -e.self_device_time_total)[:8]
         per_step = sum(e.count for e in device) / PROFILED_STEPS
-        print(f"training: profiled {PROFILED_STEPS} steps: wall {wall_us:.0f} us, device busy "
+        print(f"{model.model_name} training: profiled {PROFILED_STEPS} steps: wall {wall_us:.0f} us, device busy "
               f"{busy_us:.0f} us ({100 * busy_us / wall_us:.1f}%), {per_step:.0f} device "
               "operations per step; top: "
               + "; ".join(f"{e.key[:48]} {e.self_device_time_total:.0f} us" for e in top),
               flush=True)
     else:
-        print("training: profiled steps: the profiler saw no device time (not measured)")
+        print(f"{model.model_name} training: profiled steps: the profiler saw no device "
+              "time (not measured)")
     return med
 
 
@@ -572,7 +683,8 @@ def train(workdir: Path):
                            n_features={"gex": RAW_GEX, "cnv": RAW_CNV},
                            n_classes=N_CLASSES, seed=1)
     config = workdir / "fit_hpo.yaml"
-    config.write_text(HPO_CONFIG % (LATENT, HIDDEN_FACTOR, SUP_HIDDEN, FIT_EPOCHS, BATCH))
+    config.write_text(HPO_CONFIG % ("DirectPred", LATENT, HIDDEN_FACTOR, SUP_HIDDEN,
+                                    FIT_EPOCHS, BATCH))
     print(f"training: wrote {FIT_TRAIN}+{FIT_TEST} samples x {RAW_GEX}+{RAW_CNV} raw "
           f"features in {time.perf_counter() - t0:.2f} s", flush=True)
 
@@ -653,6 +765,111 @@ def train(workdir: Path):
     return launches, b2_rows
 
 
+def train_vae(workdir: Path, model_class: str, epochs: int, layer_args=(), timed=True):
+    """A VAE-MMD model class through the training CLI on the card, on the
+    folder the DirectPred training phase wrote, with kernel B3 in every
+    training step and validation and neither B1 nor B2 (the VAE's blocks are
+    plain PyTorch), checked by launch counts; the loss falls; the saved model
+    (and a CrossModalPred's decoded layers) served on the card and on the CPU
+    agree. With ``timed``, also three steps card against CPU and the step
+    time. Returns B3's launches in the CLI run."""
+    import numpy as np
+    from flexynesis_torch.__main__ import main as cli, parse_args, run_training
+    from flexynesis_torch.data.inference_importer import DataImporterInference
+    from flexynesis_torch.kernels.fused_linear import (
+        fused_linear_bn_relu as b1,
+        fused_linear_bn_relu_eval as b2,
+    )
+    from flexynesis_torch.kernels.mmd import gaussian_kernel_mean as b3, launches_per_call
+    from flexynesis_torch.ops.losses import N_PRIOR_SAMPLES
+    from flexynesis_torch.utils.csvio import read_matrix, read_table
+
+    phase = f"{model_class} training"
+    data = workdir / "fit_data"
+    config = workdir / f"{model_class}_hpo.yaml"
+    config.write_text(HPO_CONFIG % (model_class, LATENT, HIDDEN_FACTOR, SUP_HIDDEN, epochs, BATCH))
+    out = workdir / f"{model_class}_out"
+    b1.launches = b2.launches = b3.launches = 0
+    t = time.perf_counter()
+    model = run_training(*parse_args(
+        train_args(data, config, out, DEVICE, model_class, layer_args)))
+    cli_s = time.perf_counter() - t
+    launches = (b1.launches, b2.launches, b3.launches)
+
+    decoded = model.output_layers if model_class == "CrossModalPred" else []
+    expected_files = [f"fit.{x}.csv" for x in ("embeddings_train", "embeddings_test",
+                                               "predicted_labels", "stats")] + [
+        f"fit.{ln}_decoded.csv" for ln in decoded] + [
+        "fit.final_model.safetensors", "fit.final_model_config.json", "fit.artifacts.json"]
+    missing = [f for f in expected_files if not (out / f).exists()]
+    if missing:
+        fail(f"{phase}: the CLI did not write {missing}")
+    res = model.train_result
+    n = len(next(iter(model.ann.values())))
+    n_val = int(np.ceil(n * VAL_SIZE))
+    steps = res.epochs_run * ((n - n_val) // BATCH)
+
+    def per_mmd(rows):  # B3 launches of one MMD term: prior-prior, z-z, prior-z
+        p = N_PRIOR_SAMPLES
+        return (launches_per_call(p, p) + launches_per_call(rows, rows)
+                + launches_per_call(p, rows))
+
+    n_dec = len(model.decoded_layers)
+    want = (0, 0, n_dec * (steps * per_mmd(BATCH) + res.epochs_run * per_mmd(n_val)))
+    if launches != want:
+        fail(f"{phase}: launches (B1, B2, B3) = {launches}, expected {want} ({n_dec} decoded "
+             f"layers x ({steps} steps x {per_mmd(BATCH)} + {res.epochs_run} validations x "
+             f"{per_mmd(n_val)}))")
+    losses = res.history["train_loss"]
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        fail(f"{phase}: train loss did not fall: {losses}")
+    print(f"{phase}: CLI on {DEVICE} {cli_s:.3f} s; {res.epochs_run} epochs x "
+          f"{(n - n_val) // BATCH} steps; launches B1 0, B2 0, B3 {launches[2]} ({n_dec} decoded "
+          f"layers x ({per_mmd(BATCH)} per step + {per_mmd(n_val)} per validation of {n_val} "
+          "rows))", flush=True)
+    print(f"{phase}: train loss by epoch " + json.dumps([round(v, 5) for v in losses])
+          + "; val loss by epoch " + json.dumps([round(v, 5) for v in res.history["val_loss"]]),
+          flush=True)
+    print(f"{phase}: CLI phases (host clock, s): "
+          + json.dumps({k: round(v, 4) for k, v in model.cli_phases.items()}), flush=True)
+    for r in read_table(str(out / "fit.stats.csv"))[2]:
+        print(f"{phase}: stats", ",".join(r), flush=True)
+    for ln in decoded:
+        _, cols, values = read_matrix(str(out / f"fit.{ln}_decoded.csv"))
+        width = {"gex": GEX, "cnv": CNV}[ln]
+        if values.shape != (FIT_TEST, width) or not ((values >= 0) & (values <= 1)).all():
+            fail(f"{phase}: fit.{ln}_decoded.csv holds {values.shape} values, expected "
+                 f"{(FIT_TEST, width)} in [0, 1]")
+        print(f"{phase}: fit.{ln}_decoded.csv {values.shape[0]} x {values.shape[1]} values in "
+              f"[{values.min():.4f}, {values.max():.4f}]", flush=True)
+
+    served = {}
+    for device in (DEVICE, "cpu"):
+        served[device] = workdir / f"{model_class}_served_{device}"
+        if cli(["--pretrained_model", str(out / "fit.final_model.safetensors"),
+                "--artifacts", str(out / "fit.artifacts.json"),
+                "--data_path_test", str(data / "test"), "--outdir", str(served[device]),
+                "--prefix", "smoke", "--disable_marker_finding", "--device", device]) != 0:
+            fail(f"{phase}: serving the trained model on {device} returned nonzero")
+    encoder = json.loads((out / "fit.artifacts.json").read_text())["label_encoders"]["subtype"]
+    compare_outputs(served[DEVICE], served["cpu"], FIT_TEST, len(encoder["categories"][0]),
+                    f"{phase}: the saved model served")
+    for ln in decoded:
+        a, b = (read_matrix(str(served[d] / f"smoke.{ln}_decoded.csv"))[2]
+                for d in (DEVICE, "cpu"))
+        if a.shape != b.shape or not np.allclose(a, b, **TOL):
+            fail(f"{phase}: served {ln}_decoded differs between cuda and cpu")
+        print(f"{phase}: served {ln}_decoded cuda vs cpu max abs diff "
+              f"{float(np.abs(a - b).max()):.3e} (tol {TOL})", flush=True)
+
+    if timed:
+        cohort = DataImporterInference(str(data / "test"), str(out / "fit.artifacts.json"),
+                                       verbose=False).import_data()
+        check_card_matches_cpu(model, cohort)
+        time_steps(model, cohort)
+    return launches[2]
+
+
 def build_all(names):
     """Build the kernels' libraries, one nvcc per source, started together."""
     from concurrent.futures import ThreadPoolExecutor
@@ -670,11 +887,13 @@ def build_all(names):
             print(log.read_text().strip(), flush=True)
 
 
-def kernel_entry(name, source, replaces, rows, path_rows, launches, by_path):
-    flops = sum(r["flops"] for r in path_rows)
-    nbytes = sum(r["bytes"] for r in path_rows)
+def kernel_entry(name, source, replaces, rows, path_rows, launches, by_path, per_path=1):
+    """The kernel's line: times and work summed over ``path_rows`` (the calls
+    of one pass of its path), times ``per_path`` where the pass repeats them."""
+    flops = per_path * sum(r["flops"] for r in path_rows)
+    nbytes = per_path * sum(r["bytes"] for r in path_rows)
     bms, by = bound_ms(flops, nbytes)
-    return {
+    entry = {
         "name": name,
         "route": "cuda",
         "source": source,
@@ -682,14 +901,16 @@ def kernel_entry(name, source, replaces, rows, path_rows, launches, by_path):
         "launches": launches,
         "launches_by_path": by_path,
         "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "ms": sum(r["ms"] for r in path_rows),
-        "plain_ms": sum(r["plain_ms"] for r in path_rows),
+        "ms": per_path * sum(r["ms"] for r in path_rows),
+        "plain_ms": per_path * sum(r["plain_ms"] for r in path_rows),
         "bound_ms": bms,
         "bound_by": by,
         "library_ms": None,
-        "gemm_only_addmm_ms": sum(r["addmm_ms"] for r in path_rows),
-        "shapes": [[r["B"], r["F"], r["H"]] for r in path_rows],
+        "shapes": [r.get("shape") or [r["B"], r["F"], r["H"]] for r in path_rows],
     }
+    if "addmm_ms" in path_rows[0]:
+        entry["gemm_only_addmm_ms"] = sum(r["addmm_ms"] for r in path_rows)
+    return entry
 
 
 def main() -> int:
@@ -708,7 +929,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
-    build_all(["fused_linear_eval", "fused_linear_train"])
+    build_all(["fused_linear_eval", "fused_linear_train", "mmd_kernel"])
 
     h_gex, h_cnv = int(GEX * HIDDEN_FACTOR), int(CNV * HIDDEN_FACTOR)
     serving_shapes = [
@@ -731,6 +952,16 @@ def main() -> int:
                 ("split_b4096", (4096, GEX, h_gex))]
     b1_rows = check_b1(train_shapes + b1_extra, [shape for _, shape in train_shapes])
 
+    # B3: one MMD term holds the 200-draw prior against the latent batch
+    val_rows = int(math.ceil(FIT_TRAIN * VAL_SIZE))
+    b3_train = [("prior_prior", (200, 200, LATENT)), ("z_z", (BATCH, BATCH, LATENT)),
+                ("prior_z", (200, BATCH, LATENT))]
+    b3_extra = [(f"z_z_val{val_rows}", (val_rows, val_rows, LATENT)),
+                (f"prior_z_val{val_rows}", (200, val_rows, LATENT)),
+                ("ragged", (37, 129, 17)), ("one_row", (1, 200, 16)),
+                ("latent128", (200, BATCH, 128)), ("many_blocks", (4096, 4096, LATENT))]
+    b3_rows = check_b3(b3_train + b3_extra, [shape for _, shape in b3_train])
+
     workdir = REPO / "build" / "chip_smoke"
     shutil.rmtree(workdir, ignore_errors=True)
     workdir.mkdir(parents=True)
@@ -740,6 +971,9 @@ def main() -> int:
     checked = {(r["B"], r["F"], r["H"]) for r in rows}
     rows += check_kernel([(f"{n}_n{B}", (B, F, H)) for B in b2_train_rows
                           for n, (_, F, H) in serving_shapes if (B, F, H) not in checked])
+    vae_b3 = train_vae(workdir, "supervised_vae", FIT_EPOCHS)
+    cm_b3 = train_vae(workdir, "CrossModalPred", CM_EPOCHS,
+                      ("--input_layers", "gex", "--output_layers", "cnv"), timed=False)
 
     entries = [
         kernel_entry("fused_linear_bn_relu", "flexynesis_torch/csrc/fused_linear_train.cu",
@@ -750,6 +984,11 @@ def main() -> int:
                      "flexynesis_tpu/ops/pallas/fused_linear.py:223", rows,
                      rows[:len(serving_shapes)],  # one eval forward over the cohort
                      serve_b2, {"serving": serve_b2, "training": train_b2}),
+        kernel_entry("gaussian_kernel_mean", "flexynesis_torch/csrc/mmd_kernel.cu",
+                     "flexynesis_tpu/ops/pallas/mmd_kernel.py:66", b3_rows,
+                     b3_rows[:len(b3_train)], vae_b3,
+                     {"supervised_vae_training": vae_b3, "crossmodal_training": cm_b3},
+                     per_path=2),  # one training step: an MMD term per decoded layer
     ]
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": entries}))

@@ -3,17 +3,20 @@
 The same flags and defaults as ``python -m flexynesis_tpu``, on the CUDA card
 unless ``--device cpu`` is given.
 
-* Training mode (``--data_path``, ``--model_class DirectPred``,
-  ``--data_types``, targets): imports the CSV folder and selects features,
-  runs sequential GP hyperparameter search, trains with Adam and early
-  stopping, writes ``<prefix>.feature_logs.<layer>.csv``,
-  ``<prefix>.embeddings_{train,test}.csv``, ``<prefix>.predicted_labels.csv``
-  and ``<prefix>.stats.csv``, and saves ``<prefix>.final_model.safetensors``,
-  its ``final_model_config.json`` and the JSON artifacts (``--safetensors``).
-  Both this port and flexynesis_tpu load the saved model.
+* Training mode (``--data_path``, ``--model_class`` DirectPred,
+  supervised_vae or CrossModalPred, ``--data_types``, targets): imports the
+  CSV folder and selects features, runs sequential GP hyperparameter search,
+  trains with Adam and early stopping, writes
+  ``<prefix>.feature_logs.<layer>.csv``, ``<prefix>.embeddings_{train,test}.csv``,
+  ``<prefix>.predicted_labels.csv`` and ``<prefix>.stats.csv``, and saves
+  ``<prefix>.final_model.safetensors``, its ``final_model_config.json`` and
+  the JSON artifacts (``--safetensors``). Both this port and flexynesis_tpu
+  load the saved model. CrossModalPred encodes ``--input_layers``, decodes
+  ``--output_layers`` and also writes ``<prefix>.<layer>_decoded.csv``.
 * Inference mode (``--pretrained_model``, ``--artifacts``,
   ``--data_path_test``) loads a model saved by either package, scores the
-  test cohort and writes the embeddings, predicted labels and stats.
+  test cohort and writes the embeddings, predicted labels and stats (and a
+  CrossModalPred's decoded layers).
 
 What is not ported yet raises ``NotImplementedError`` naming its ROADMAP item.
 """
@@ -216,7 +219,7 @@ def run_training(args, device):
     """Import, select features, tune, train, evaluate and save
     (flexynesis_tpu/__main__.py:488-570). Returns the trained model, with the
     phases' host-clock seconds as its ``cli_phases``."""
-    from .inference import MODEL_REGISTRY
+    from .models import MODEL_REGISTRY
     from .train.hpo import HyperparameterTuning
     from .utils.csvio import write_rows
 
@@ -242,6 +245,8 @@ def run_training(args, device):
         use_loss_weighting=args.use_loss_weighting == "True",
         early_stop_patience=args.early_stop_patience,
         device=device,
+        input_layers=_split(args.input_layers),
+        output_layers=_split(args.output_layers),
     )
     model, best_params = tuner.perform_tuning(hpo_patience=args.hpo_patience)
     phases["hpo_fit"] = time.perf_counter() - t
@@ -279,7 +284,7 @@ def _check_training_args(parser, args) -> None:
             f"--model_class {args.model_class} (classical baselines) is not ported "
             "to flexynesis_torch yet (ROADMAP item 13)"
         )
-    if args.model_class != "DirectPred":
+    if args.model_class not in ("DirectPred", "supervised_vae", "CrossModalPred"):
         raise NotImplementedError(
             f"--model_class {args.model_class} is not ported to flexynesis_torch "
             "yet (ROADMAP A.12)"
@@ -345,6 +350,10 @@ def _write_eval_outputs(args, model, train_dataset, test_dataset) -> None:
     write_rows(os.path.join(outdir, f"{prefix}.stats.csv"), stats)
     for r in stats:
         print(f"{r['var']:>12} {r['metric']:>14} {r['value']}")
+
+    if model.model_name == "CrossModalPred":
+        for layer, table in model.decode(test_dataset).items():
+            table.to_csv(os.path.join(outdir, f"{prefix}.{layer}_decoded.csv"))
 
 
 def parse_args(argv=None):

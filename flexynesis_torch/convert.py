@@ -2,17 +2,18 @@
 
 ``from_flax(params, batch_stats)`` returns a ``state_dict`` for the port's
 model module; ``to_flax(module)`` returns ``(params, batch_stats)`` as nested
-dicts of numpy arrays, the layout flexynesis_tpu saves and loads. Both cover
-the two block layouts:
+dicts of numpy arrays, the layout flexynesis_tpu saves and loads. The port's
+submodules carry the Flax names, so both walk the tree and map its leaves:
 
-* ``MLP``: ``layer_1/{kernel,bias}``, ``batchnorm/{scale,bias}``,
-  batch_stats ``batchnorm/{mean,var}``, ``layer_out/{kernel[,bias]}``;
-* ``FusedMLP``: ``layer_1_kernel``, ``layer_1_bias``, ``bn_scale``,
-  ``bn_bias``, batch_stats ``{mean,var}``, ``layer_out/...``;
-
-and, beside the blocks, ``fusion_block/{kernel,bias}`` and ``log_var_<var>``.
-Flax Dense kernels are ``(in, out)`` and torch Linear weights ``(out, in)``,
-so they are transposed; FusedMLP keeps ``layer_1_kernel`` as ``(in, out)``.
+* a Dense group ``{kernel[, bias]}`` is an ``nn.Linear`` (the kernel
+  transposed: Flax kernels are ``(in, out)``, torch weights ``(out, in)``);
+* a BatchNorm group ``{scale, bias}`` with batch_stats ``{mean, var}`` is an
+  ``nn.BatchNorm1d`` (MLP's ``batchnorm``, the VAE stacks' ``bn_<i>``);
+* a ``FusedMLP`` group keeps flat leaves: ``layer_1_kernel`` (``(in, out)``,
+  as kernel B2 takes it), ``layer_1_bias``, ``bn_scale``, ``bn_bias``,
+  batch_stats ``{mean, var}``, and ``layer_out``;
+* any other group (``encoder_<l>``, ``hidden_layers``, an MLP) is walked
+  into, and a bare array (``log_var_<var>``) is a parameter.
 """
 
 from __future__ import annotations
@@ -24,7 +25,6 @@ import torch
 from torch import nn
 
 from .ops.fused_mlp import FusedMLP
-from .ops.mlp import MLP
 
 
 def _t(a) -> torch.Tensor:
@@ -44,33 +44,33 @@ def _dense_to_flax(linear: nn.Linear) -> dict:
     return d
 
 
+def _group_from_flax(prefix: str, p: dict, stats: dict, out: dict) -> None:
+    if "layer_1_kernel" in p:  # FusedMLP
+        for leaf in ("layer_1_kernel", "layer_1_bias", "bn_scale", "bn_bias"):
+            out[f"{prefix}{leaf}"] = _t(p[leaf])
+        out[f"{prefix}running_mean"] = _t(stats["mean"])
+        out[f"{prefix}running_var"] = _t(stats["var"])
+        _dense_from_flax(f"{prefix}layer_out", p["layer_out"], out)
+    elif "kernel" in p:  # Dense
+        _dense_from_flax(prefix[:-1], p, out)
+    elif "scale" in p:  # BatchNorm
+        out[f"{prefix}weight"] = _t(p["scale"])
+        out[f"{prefix}bias"] = _t(p["bias"])
+        out[f"{prefix}running_mean"] = _t(stats["mean"])
+        out[f"{prefix}running_var"] = _t(stats["var"])
+        out[f"{prefix}num_batches_tracked"] = torch.tensor(0)
+    else:
+        for name, sub in p.items():
+            if isinstance(sub, dict):
+                _group_from_flax(f"{prefix}{name}.", sub, stats.get(name, {}), out)
+            else:  # log_var_<var>
+                out[f"{prefix}{name}"] = _t(sub)
+
+
 def from_flax(params: dict, batch_stats: dict) -> Dict[str, torch.Tensor]:
     """state_dict of the port's module for a Flax (params, batch_stats) pair."""
     out: Dict[str, torch.Tensor] = {}
-    for name, p in params.items():
-        stats = (batch_stats or {}).get(name, {})
-        if not isinstance(p, dict):  # log_var_<var>
-            out[name] = _t(p)
-        elif "layer_1" in p:  # MLP
-            _dense_from_flax(f"{name}.layer_1", p["layer_1"], out)
-            out[f"{name}.batchnorm.weight"] = _t(p["batchnorm"]["scale"])
-            out[f"{name}.batchnorm.bias"] = _t(p["batchnorm"]["bias"])
-            out[f"{name}.batchnorm.running_mean"] = _t(stats["batchnorm"]["mean"])
-            out[f"{name}.batchnorm.running_var"] = _t(stats["batchnorm"]["var"])
-            out[f"{name}.batchnorm.num_batches_tracked"] = torch.tensor(0)
-            _dense_from_flax(f"{name}.layer_out", p["layer_out"], out)
-        elif "layer_1_kernel" in p:  # FusedMLP
-            out[f"{name}.layer_1_kernel"] = _t(p["layer_1_kernel"])
-            out[f"{name}.layer_1_bias"] = _t(p["layer_1_bias"])
-            out[f"{name}.bn_scale"] = _t(p["bn_scale"])
-            out[f"{name}.bn_bias"] = _t(p["bn_bias"])
-            out[f"{name}.running_mean"] = _t(stats["mean"])
-            out[f"{name}.running_var"] = _t(stats["var"])
-            _dense_from_flax(f"{name}.layer_out", p["layer_out"], out)
-        elif "kernel" in p:  # Dense (fusion_block)
-            _dense_from_flax(name, p, out)
-        else:
-            raise ValueError(f"unrecognised Flax parameter group '{name}'")
+    _group_from_flax("", params, batch_stats or {}, out)
     return out
 
 
@@ -85,20 +85,7 @@ def to_flax(module: nn.Module) -> Tuple[dict, dict]:
     for name, p in module.named_parameters(recurse=False):
         params[name] = _np(p)
     for name, child in module.named_children():
-        if isinstance(child, MLP):
-            params[name] = {
-                "layer_1": _dense_to_flax(child.layer_1),
-                "batchnorm": {
-                    "scale": _np(child.batchnorm.weight),
-                    "bias": _np(child.batchnorm.bias),
-                },
-                "layer_out": _dense_to_flax(child.layer_out),
-            }
-            batch_stats[name] = {"batchnorm": {
-                "mean": _np(child.batchnorm.running_mean),
-                "var": _np(child.batchnorm.running_var),
-            }}
-        elif isinstance(child, FusedMLP):
+        if isinstance(child, FusedMLP):
             params[name] = {
                 "layer_1_kernel": _np(child.layer_1_kernel),
                 "layer_1_bias": _np(child.layer_1_bias),
@@ -112,6 +99,12 @@ def to_flax(module: nn.Module) -> Tuple[dict, dict]:
             }
         elif isinstance(child, nn.Linear):
             params[name] = _dense_to_flax(child)
+        elif isinstance(child, nn.BatchNorm1d):
+            params[name] = {"scale": _np(child.weight), "bias": _np(child.bias)}
+            batch_stats[name] = {"mean": _np(child.running_mean),
+                                 "var": _np(child.running_var)}
         else:
-            raise TypeError(f"no Flax layout for submodule '{name}' ({type(child).__name__})")
+            params[name], stats = to_flax(child)
+            if stats:
+                batch_stats[name] = stats
     return params, batch_stats

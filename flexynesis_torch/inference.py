@@ -10,8 +10,8 @@ the JAX package in both directions:
 * artifacts: the JSON form only (``--safetensors`` in training). A joblib
   artifact holds pickled sklearn objects that the port cannot load.
 
-``reconstruct_model`` rebuilds DirectPred; the other model classes are not
-ported yet (ROADMAP A.12).
+``reconstruct_model`` rebuilds DirectPred, supervised_vae and CrossModalPred;
+the other model classes are not ported yet (ROADMAP A.12).
 """
 
 from __future__ import annotations
@@ -24,7 +24,7 @@ import numpy as np
 
 from .convert import from_flax, to_flax
 from .data.preprocessing import encoder_categories, normalize_encoder_state
-from .models.direct_pred import DirectPred
+from .models import MODEL_REGISTRY
 from .utils.safetensors_io import load_file, save_file
 
 MODEL_CLASS_NAMES = [
@@ -35,9 +35,6 @@ MODEL_CLASS_NAMES = [
     "CrossModalPred",
     "GNN",
 ]
-
-
-MODEL_REGISTRY = {"DirectPred": DirectPred}
 
 
 # ---------------------------------------------------------------- save side
@@ -93,6 +90,8 @@ def save_model_config(model, path: str) -> str:
     for attr in (
         "input_dims",
         "layers",
+        "input_layers",
+        "output_layers",
         "device_type",
         "target_variables",
         "surv_event_var",
@@ -102,7 +101,8 @@ def save_model_config(model, path: str) -> str:
         "use_loss_weighting",
         "batch_variables",
     ):
-        config[attr] = getattr(model, attr)
+        if hasattr(model, attr):
+            config[attr] = getattr(model, attr)
     config["num_layers"] = len(model.layers)
     config["variable_types"] = {v: model.variable_types[v] for v in model.variables}
     config.update(model.config)
@@ -228,7 +228,7 @@ def build_dataset_namespace(config: dict, artifacts: dict) -> SimpleNamespace:
 
 
 def reconstruct_model(weights_path: str, config_path: str, artifacts, device="auto"):
-    """Rebuild a trained DirectPred from safetensors + config + artifacts on
+    """Rebuild a trained model from safetensors + config + artifacts on
     ``device`` ("auto"/"cuda" = the card, "cpu" on request)."""
     with open(config_path) as fh:
         config = json.load(fh)
@@ -249,6 +249,9 @@ def reconstruct_model(weights_path: str, config_path: str, artifacts, device="au
                   "epochs", "batch_size", "fused_kernels")
         if k in config
     }
+    extra = {}
+    if cls_name == "CrossModalPred":
+        extra = {k: config.get(k) for k in ("input_layers", "output_layers")}
     model = MODEL_REGISTRY[cls_name](
         config=hyper,
         dataset=build_dataset_namespace(config, artifacts),
@@ -262,6 +265,7 @@ def reconstruct_model(weights_path: str, config_path: str, artifacts, device="au
         device_type=config.get("device_type"),
         batch_variables=config.get("batch_variables"),
         device=device,
+        **extra,
     )
     params, batch_stats = load_weights(weights_path)
     model.module.load_state_dict(from_flax(params, batch_stats))

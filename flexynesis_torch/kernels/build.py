@@ -73,3 +73,17 @@ def load(name: str) -> ctypes.CDLL:
     if name not in _loaded:
         _loaded[name] = ctypes.CDLL(str(build(name)))
     return _loaded[name]
+
+
+_launchers: dict = {}
+
+
+def launcher(name: str, symbol: str, argtypes):
+    """The C launcher ``symbol`` of ``csrc/<name>.cu``, built at first use;
+    it returns the launch's CUDA error code as an int."""
+    if (name, symbol) not in _launchers:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _launchers[name, symbol] = fn
+    return _launchers[name, symbol]

@@ -23,27 +23,14 @@ import ctypes
 
 import torch
 
+from .build import launcher
+
 
 def fused_linear_bn_relu_eval_ref(x, w, b, gamma, beta, running_mean,
                                   running_var, eps: float = 1e-5):
     """Plain PyTorch version of the kernel: the CPU path and the oracle."""
     h = x @ w + b
     return torch.relu((h - running_mean) * torch.rsqrt(running_var + eps) * gamma + beta)
-
-
-_launchers: dict = {}
-
-
-def _kernel(name: str, symbol: str, argtypes):
-    """The C launcher ``symbol`` of ``csrc/<name>.cu``, built at first use."""
-    if name not in _launchers:
-        from . import build
-
-        fn = getattr(build.load(name), symbol)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _launchers[name] = fn
-    return _launchers[name]
 
 
 def _check(x, w, vectors):
@@ -84,8 +71,8 @@ def fused_linear_bn_relu_eval(x, w, b, gamma, beta, running_mean, running_var,
     y = torch.empty((B, H), device=x.device, dtype=torch.float32)
     if B == 0 or H == 0:
         return y
-    fn = _kernel("fused_linear_eval", "fused_linear_bn_relu_eval_f32",
-                 [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p])
+    fn = launcher("fused_linear_eval", "fused_linear_bn_relu_eval_f32",
+                  [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p])
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), gamma.data_ptr(),
@@ -147,8 +134,8 @@ def fused_linear_bn_relu_forward(x, w, b, gamma, beta, eps: float = 1e-5):
         return y, h, mu, var
     tiles = -(-B // ROW_TILE)
     part = torch.empty((2, tiles, H), **dev) if tiles > 1 else None
-    fn = _kernel("fused_linear_train", "fused_linear_bn_relu_train_f32",
-                 [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p])
+    fn = launcher("fused_linear_train", "fused_linear_bn_relu_train_f32",
+                  [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p])
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), gamma.data_ptr(),

@@ -6,6 +6,10 @@ dataset metadata and the ``nn.Module``; it trains (``make_batch``,
 built on the ``meta`` device and moved to the model's device without drawing
 numbers; ``init_params`` fills it from a seeded ``torch.Generator`` and
 ``inference.reconstruct_model`` loads saved weights into it.
+
+Subclasses extend ``loss_fn`` through ``_extra_losses(out, batch, generator)``
+(the VAE's MMD) and ``make_batch`` through ``batch_layers`` (CrossModalPred's
+reconstruction targets).
 """
 
 from __future__ import annotations
@@ -105,9 +109,15 @@ class BaseModel:
 
     # ------------------------------------------------------------ training API
 
+    @property
+    def batch_layers(self) -> List[str]:
+        """The layers ``make_batch`` puts in a batch: those the module reads."""
+        return self.layers
+
     def make_batch(self, dataset, indices=None) -> dict:
         """``{x: {layer: (n, F)}, y: {var: (n,)}}`` float32 tensors on the
-        model's device, optionally the rows ``indices`` only."""
+        model's device for the ``batch_layers``, optionally the rows
+        ``indices`` only."""
         dat, ann = dataset.as_arrays()
         y_vars = set(self.variables)
         if self.surv_time_var:
@@ -119,22 +129,29 @@ class BaseModel:
                 np.ascontiguousarray(np.asarray(a)[rows], dtype=np.float32)
             ).to(self.device)
 
-        return {"x": {k: put(dat[k]) for k in self.layers},
+        return {"x": {k: put(dat[k]) for k in self.batch_layers},
                 "y": {v: put(ann[v]) for v in sorted(y_vars)}}
 
     def loss_fn(self, batch: dict, generator: Optional[torch.Generator] = None,
                 train: bool = True):
-        """``(total_loss, {var: loss})`` of the module on ``batch``; in training
-        mode the module uses batch statistics and draws dropout from
-        ``generator``."""
+        """``(total_loss, {name: loss})`` of the module on ``batch``: the
+        supervised losses and the ``_extra_losses``. In training mode the
+        module uses batch statistics and draws its noise (dropout, the VAE's
+        reparameterisation) from ``generator``; validation passes None."""
         self.module.train(train)
         out = self.module(batch["x"], generator)
         losses = supervised_loss_terms(
             out["outputs"], batch["y"], self.variables, self.variable_types,
             self.surv_event_var, self.surv_time_var,
         )
+        losses.update(self._extra_losses(out, batch, generator))
         total = compute_total_loss(losses, out.get("log_vars"), self.use_loss_weighting)
         return total, losses
+
+    def _extra_losses(self, out: dict, batch: dict,
+                      generator: Optional[torch.Generator]) -> Dict[str, torch.Tensor]:
+        """Model-specific loss terms (the VAE's MMD); none here."""
+        return {}
 
     def fit(self, dataset, train_idx=None, val_idx=None, *, lr: float,
             batch_size: int, max_epochs: int, early_stop_patience: int = -1,
@@ -179,13 +196,18 @@ class BaseModel:
             self.module({k: v[s:s + self.EVAL_CHUNK] for k, v in x.items()})
             for s in range(0, n, self.EVAL_CHUNK)
         ]
-        out = dict(outs[0])
-        out["embeddings"] = torch.cat([o["embeddings"] for o in outs])
-        out["outputs"] = {
-            var: torch.cat([o["outputs"][var] for o in outs])
-            for var in outs[0]["outputs"]
-        }
-        return out
+
+        # concatenate the batch-axis leaves (embeddings, outputs, x_hat, ...);
+        # the others, such as the (1,)-shaped log_vars, are the same in every
+        # chunk (flexynesis_tpu/models/base.py:333-345)
+        def combine(parts):
+            if isinstance(parts[0], dict):
+                return {k: combine([p[k] for p in parts]) for k in parts[0]}
+            if parts[0].dim() > 0 and parts[0].shape[0] == self.EVAL_CHUNK:
+                return torch.cat(parts)
+            return parts[0]
+
+        return combine(outs)
 
     def predict(self, dataset) -> Dict[str, np.ndarray]:
         """Per-variable predictions: softmax probabilities for categorical

@@ -10,9 +10,14 @@ serves every step and no value leaves the device:
 * ``cox_ph_loss``        - negative Cox partial log-likelihood; invalid rows
                            sort last and are zeroed before any exp or log;
 * ``compute_total_loss`` - Kendall et al. uncertainty weighting,
-                           sum exp(-s) * L + s.
+                           sum exp(-s) * L + s;
+* ``gaussian_kernel``, ``compute_mmd``, ``mmd_loss`` - the VAE-MMD loss
+                           (reference supervised_vae.py:494-550) in plain
+                           torch ops: the ``fused_kernels: false`` path and
+                           the oracle of kernel B3 (``kernels/mmd.py``).
 
-The MMD and triplet losses come with the models that use them.
+The masked MMD of padded trials and the triplet loss come with the trial
+engine and the model that use them.
 """
 
 from __future__ import annotations
@@ -20,6 +25,10 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 import torch
+
+from .mlp import standard_normal
+
+N_PRIOR_SAMPLES = 200  # draws from N(0, I) that the latent is held against
 
 
 def masked_mse_loss(y_hat: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -97,3 +106,41 @@ def compute_total_loss(losses: Dict[str, torch.Tensor],
             total = total + torch.exp(-s) * loss + s
         return total
     return sum(losses.values())
+
+
+def gaussian_kernel(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """(N, M) matrix exp(-||x_i - y_j||^2 / d^2), d = x.shape[-1], through the
+    Gram expansion ||x||^2 + ||y||^2 - 2 x.y clamped at 0, as
+    ``flexynesis_tpu/ops/losses.py::gaussian_kernel`` computes it."""
+    d = x.shape[-1]
+    x2 = x.square().sum(dim=-1, keepdim=True)
+    y2 = y.square().sum(dim=-1, keepdim=True).T
+    sq = torch.clamp(x2 + y2 - 2.0 * (x @ y.T), min=0.0)
+    return torch.exp(-sq / (d * float(d)))
+
+
+def compute_mmd(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Maximum mean discrepancy between two sample sets."""
+    return (gaussian_kernel(x, x).mean() + gaussian_kernel(y, y).mean()
+            - 2.0 * gaussian_kernel(x, y).mean())
+
+
+def prior_or_draw(z: torch.Tensor, prior: Optional[torch.Tensor],
+                  generator: Optional[torch.Generator], n_prior_samples: int):
+    """``prior`` as given, else ``n_prior_samples`` N(0, I) draws of z's width
+    from ``generator``."""
+    if prior is not None:
+        return prior
+    if generator is None:
+        raise ValueError("the MMD prior needs draws or a torch.Generator")
+    return standard_normal((n_prior_samples, z.shape[-1]), generator, z.device)
+
+
+def mmd_loss(z: torch.Tensor, x_hat: torch.Tensor, x: torch.Tensor,
+             prior: Optional[torch.Tensor] = None,
+             generator: Optional[torch.Generator] = None,
+             n_prior_samples: int = N_PRIOR_SAMPLES) -> torch.Tensor:
+    """MMD(prior, z) + the reconstruction MSE. ``prior`` holds the N(0, I)
+    draws; without it they are drawn from ``generator``."""
+    prior = prior_or_draw(z, prior, generator, n_prior_samples)
+    return compute_mmd(prior, z) + (x_hat - x).square().mean()

@@ -45,6 +45,8 @@ class HyperparameterTuning:
         device_type: Optional[str] = None,
         seed: int = 42,
         device="auto",
+        input_layers: Optional[List[str]] = None,
+        output_layers: Optional[List[str]] = None,
     ):
         self.dataset = dataset
         self.model_class = model_class
@@ -60,6 +62,8 @@ class HyperparameterTuning:
         self.device_type = device_type
         self.seed = seed
         self.device = device
+        self.input_layers = input_layers
+        self.output_layers = output_layers
         self.n_units = len(dataset)
 
         if config_path:
@@ -82,7 +86,7 @@ class HyperparameterTuning:
         return Categorical(sizes, name="batch_size")
 
     def _model_args(self, params: dict) -> dict:
-        return {
+        args = {
             "config": params,
             "dataset": self.dataset,
             "target_variables": self.target_variables,
@@ -93,6 +97,10 @@ class HyperparameterTuning:
             "device_type": self.device_type,
             "device": self.device,
         }
+        if self.model_class.__name__ == "CrossModalPred":
+            args["input_layers"] = self.input_layers
+            args["output_layers"] = self.output_layers
+        return args
 
     def objective(self, params: dict):
         """Train with ``params`` on a validation split; returns (val_loss,

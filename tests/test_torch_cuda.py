@@ -1,12 +1,15 @@
-"""Tests of the port that need the CUDA card (kernels B1 and B2); they skip
-where there is none.
+"""Tests of the port that need the CUDA card (kernels B1, B2 and B3); they
+skip where there is none.
 
 This file imports neither JAX nor the JAX package, so it also runs on a card
 machine without them:
 ``python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q``.
 
 Tolerance for kernel against plain version: rtol=1e-4, atol=1e-4 (f32; the
-kernel and cuBLAS sum the product in different orders; TF32 is off)."""
+kernel and cuBLAS sum the product in different orders; TF32 is off). B3's
+mean: rtol 1e-5, atol 1e-6 (one f32 mean near 1, the order of summation
+differs); its gradients: rtol 1e-4, atol 1e-4 times the largest plain
+gradient (they scale as 1 / (N M d^2))."""
 
 import pytest
 import torch
@@ -19,7 +22,15 @@ from flexynesis_torch.kernels.fused_linear import (
     fused_linear_bn_relu_forward,
     fused_linear_bn_relu_ref,
 )
+from flexynesis_torch.kernels.mmd import (
+    GaussianKernelMean,
+    compute_mmd_fused,
+    gaussian_kernel_mean,
+    gaussian_kernel_mean_ref,
+    launches_per_call,
+)
 from flexynesis_torch.ops.fused_mlp import FusedMLP
+from flexynesis_torch.ops.losses import compute_mmd
 
 
 @pytest.fixture
@@ -112,3 +123,57 @@ def test_fused_block_trains_the_same_on_the_card(card):
     y_gpu = gpu(x.to(card), torch.Generator(card))
     torch.testing.assert_close(y_gpu.cpu(), y_cpu, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(gpu.running_var.cpu(), cpu.running_var, rtol=1e-4, atol=1e-5)
+
+
+# kernel B3: one tile (one launch) and several (the fixed-order second launch)
+B3_SHAPES = [(1, 1, 1), (37, 129, 17), (64, 64, 64), (200, 64, 64), (200, 200, 64),
+             (400, 400, 64), (1000, 70, 130)]
+
+
+def _b3_inputs(N, M, d, device):
+    g = torch.Generator().manual_seed(N * 3 + M + d)
+    return torch.randn(N, d, generator=g).to(device), torch.randn(M, d, generator=g).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,M,d", B3_SHAPES)
+def test_b3_matches_plain_version_bit_for_bit_between_calls(card, N, M, d):
+    x, y = _b3_inputs(N, M, d, card)
+    before = gaussian_kernel_mean.launches
+    out = gaussian_kernel_mean(x, y)
+    torch.cuda.synchronize()
+    assert gaussian_kernel_mean.launches == before + launches_per_call(N, M)
+    torch.testing.assert_close(out, gaussian_kernel_mean_ref(x, y), rtol=1e-5, atol=1e-6)
+    assert torch.equal(out, gaussian_kernel_mean(x, y))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,M,d", [(200, 64, 64), (37, 129, 17)])
+def test_b3_gradients_match_autograd_through_plain_version(card, N, M, d):
+    x, y = _b3_inputs(N, M, d, card)
+    cases = [(GaussianKernelMean.apply, gaussian_kernel_mean_ref, (x, y)),
+             (lambda a: GaussianKernelMean.apply(a, a), lambda a: gaussian_kernel_mean_ref(a, a),
+              (y,)),
+             (compute_mmd_fused, compute_mmd, (x, y))]
+    for fused, plain, inputs in cases:
+        grads = []
+        for fn in (fused, plain):
+            leaves = [t.clone().requires_grad_() for t in inputs]
+            fn(*leaves).backward()
+            grads.append([t.grad for t in leaves])
+        for got, want in zip(*grads):
+            torch.testing.assert_close(got, want, rtol=1e-4,
+                                       atol=1e-4 * float(want.abs().max()))
+
+
+@pytest.mark.cuda
+def test_b3_rejects_bad_operands(card):
+    x, y = _b3_inputs(8, 9, 4, card)
+    with pytest.raises(TypeError):
+        gaussian_kernel_mean(x.double(), y)
+    with pytest.raises(ValueError):
+        gaussian_kernel_mean(x, y[:, :3])
+    with pytest.raises(ValueError):
+        gaussian_kernel_mean(x.t().contiguous().t(), y)
+    with pytest.raises(ValueError):
+        gaussian_kernel_mean(x[:0], y)

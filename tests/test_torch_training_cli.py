@@ -100,7 +100,7 @@ def test_port_trained_model_serves_in_the_jax_cli(folder, trained):
     (["--finetuning_samples", "5"], "A.12"),
     (["--evaluate_baseline_performance"], "item 13"),
     (["--profile"], "item 13"),
-    (["--model_class", "supervised_vae"], "A.12"),
+    (["--model_class", "MultiTripletNetwork"], "A.12"),
     (["--model_class", "RandomForest"], "item 13"),
     (["--covariates", "age"], "A.11"),
     (["--fusion_type", "early"], "A.11"),
