@@ -11,17 +11,23 @@ Phases (any failure exits nonzero):
    the plain version and torch.addmm (a GEMM-only yardstick), and each
    shape's bound on an H100;
 3. kernel B1 (training-mode, batch statistics) the same way at every shape
-   the training phase launches, 32- and 128-row batches, a ragged shape,
-   B = 1 and a 4096-row batch (the split reduction); its gradients
-   (kernel forward + the JAX backward formula) against autograd through the
-   plain version at the three training shapes;
-3b. kernel B3 (the Gaussian-kernel mean of the VAE-MMD loss) at every shape
-   the VAE phases launch (a 200-draw prior against a 64-row batch and a
-   400-row validation split, latent 64), a ragged shape, one row, latent 128
-   and a 4096 x 4096 grid of 4096 blocks: the mean within 1e-6 / rtol 1e-5 of
-   the plain version, two calls bit for bit, and at the training shapes the
-   gradients of the kernel mean (also of y against itself) and of the MMD
-   term against autograd through the plain version;
+   the training phase launches, F deep enough for every cluster size the
+   planner picks, an F and H that take 4-byte copies, 32- and 128-row
+   batches, a ragged shape, B = 1 and a 4096-row batch (the split
+   reduction), two calls bit for bit; its gradients (kernel forward + the JAX
+   backward formula) against autograd through the plain version at the three
+   training shapes;
+3b. kernel B3 (the Gaussian-kernel means of the VAE-MMD loss): one mean at
+   the shapes of the MMD's three means on the VAE's path (a 200-draw prior
+   against a 64-row batch and a 400-row validation split, latent 64), a
+   ragged shape, one row, latent 128 and a 4096 x 4096 grid of 4096 blocks:
+   the mean within 1e-6 / rtol 1e-5 of the plain version, two calls bit for
+   bit, and at the training shapes the gradients of the kernel mean (also of
+   y against itself) and of the MMD term against autograd through the plain
+   version; then the whole MMD term in one launch (the VAE's call) at the
+   training and validation shapes, a ragged shape and one row: its three
+   means and the MMD against the plain version, two calls bit for bit, and
+   its gradients at the training shape;
 4. serving at full width: the DirectPred headline configuration (gex 2000 and
    cnv 1000 features, hidden widths 600 and 300, latent 64, supervisor hidden
    16, 4 classes, fused_kernels on) scores a 2000-sample cohort through
@@ -49,9 +55,11 @@ Phases (any failure exits nonzero):
    saved model (with its decoded layer) served on the card and on the CPU
    agree.
 
-Each kernel's launch count is set to 0 just before the phase that drives its
-path (serving for B2, training for B1, phases 6 and 7 for all three) and
-read just after. The output ends
+Every kernel check prints the kernel's CUDA-event time per call, beside its
+device time per call from a torch.profiler trace (``device_ms``), the plain
+version's time and the bound. Each kernel's launch count is set to 0 just
+before the phase that drives its path (serving for B2, training for B1,
+phases 6 and 7 for all three) and read just after. The output ends
 with a ``{"kernels": [...]}`` line, the nvidia-smi line and
 ``{"ok": true, "device": {...}}``. Working files go to build/chip_smoke/.
 """
@@ -89,6 +97,10 @@ EVAL_FORWARDS = 4  # transform and predict, of train and of test
 PROFILED_STEPS = 7
 CM_EPOCHS = 3  # the CrossModalPred run, cut to 3 epochs
 DEVICE = "cuda"  # the training phase's device (a CPU rehearsal sets "cpu")
+# the CUDA functions of the kernels that training steps launch: B1 (and its
+# merge launch above 64 rows) and B3
+KERNEL_FUNCTIONS = ("fused_linear_bn_relu_train_split_kernel", "bn_relu_merge_kernel",
+                    "gaussian_kernel_mean_kernel")
 
 
 def fail(msg: str) -> None:
@@ -120,6 +132,49 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, reps: int = 20):
+    """(device ms per call, device operations per call) of ``fn`` from a
+    torch.profiler trace of ``reps`` calls: the kernels' own time on the
+    card, without the host's issue of the wrapper that the CUDA events
+    bracket. (None, 0) where the profiler saw no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(2):  # a trace now and then comes back without device events
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        total_us = sum(e.self_device_time_total for e in events)
+        if total_us > 0:
+            return total_us / reps / 1e3, sum(e.count for e in events) / reps
+    return None, 0
+
+
+def host_ms(fn, reps: int = 50) -> float:
+    """Host-clock time to issue one call of ``fn`` (the wrapper's checks,
+    allocations and launch), from ``reps`` calls issued back to back without
+    a synchronisation: the part of a CUDA-event time that is the host's."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    issued = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return issued / reps * 1e3
+
+
+def fmt_ms(v) -> str:
+    return "not measured" if v is None else f"{v:.4f} ms"
 
 
 def work(B: int, F: int, H: int):
@@ -161,18 +216,20 @@ def check_kernel(shapes):
                  f"max abs {max_abs:.3e}, max rel {max_rel:.3e}, tolerance {TOL}")
         reps = 10 if B * F * H > 1e10 else 30
         ms = cuda_ms(lambda: kernel(*args), reps)
+        dev_ms, _ = device_ms(lambda: kernel(*args), reps)
         plain_ms = cuda_ms(lambda: plain(*args), reps)
         addmm_ms = cuda_ms(lambda: torch.addmm(b, x, w), reps)
         flops, nbytes = work(B, F, H)
         bms, by = bound_ms(flops, nbytes)
         rows.append(dict(label=label, B=B, F=F, H=H, max_abs_err=max_abs,
-                         max_rel_err=max_rel, ms=ms, plain_ms=plain_ms,
+                         max_rel_err=max_rel, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
                          addmm_ms=addmm_ms, flops=flops, bytes=nbytes,
                          bound_ms=bms, bound_by=by))
         print(f"B2 {label:>16} B={B:5d} F={F:6d} H={H:5d}  max_abs_err={max_abs:.3e} "
-              f"normwise_rel_err={max_rel:.3e} (tol {TOL})  kernel {ms:.4f} ms  "
-              f"plain {plain_ms:.4f} ms  addmm(GEMM only) {addmm_ms:.4f} ms  "
-              f"bound {bms:.4f} ms ({by})  {flops / ms / 1e9:.2f} TFLOP/s", flush=True)
+              f"normwise_rel_err={max_rel:.3e} (tol {TOL})  kernel {ms:.4f} ms "
+              f"(device {fmt_ms(dev_ms)})  plain {plain_ms:.4f} ms  addmm(GEMM only) "
+              f"{addmm_ms:.4f} ms  bound {bms:.4f} ms ({by})  {flops / ms / 1e9:.2f} TFLOP/s",
+              flush=True)
     return rows
 
 
@@ -191,10 +248,13 @@ def check_b1(shapes, grad_shapes):
         fused_linear_bn_relu,
         fused_linear_bn_relu_forward as kernel,
         fused_linear_bn_relu_ref as plain,
+        plan_b1,
     )
 
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows = []
     for label, (B, F, H) in shapes:
+        plan = plan_b1(B, F, H, sms)
         g = torch.Generator(device="cuda").manual_seed(B * 5 + F * 3 + H)
         x = torch.randn(B, F, device="cuda", generator=g)
         w = (torch.rand(F, H, device="cuda", generator=g) * 2 - 1) / math.sqrt(F)
@@ -215,6 +275,8 @@ def check_b1(shapes, grad_shapes):
             fail(f"B1 is not deterministic at {label}")
         reps = 10 if B * F * H > 1e9 else 30
         ms = cuda_ms(lambda: kernel(*args), reps)
+        dev_ms, dev_ops = device_ms(lambda: kernel(*args), reps)
+        issue_ms = host_ms(lambda: kernel(*args))
         plain_ms = cuda_ms(lambda: plain(*args), reps)
         addmm_ms = cuda_ms(lambda: torch.addmm(b, x, w), reps)
         flops, nbytes = work_b1(B, F, H)
@@ -234,13 +296,16 @@ def check_b1(shapes, grad_shapes):
                 if not torch.allclose(got, want, **TOL):
                     fail(f"B1 gradient {name} disagrees with autograd through the plain "
                          f"version at {label}: max abs {err:.3e}, tolerance {TOL}")
-        rows.append(dict(label=label, B=B, F=F, H=H, max_abs_err=max_abs,
-                         grad_max_abs_err=grad_err, ms=ms, plain_ms=plain_ms,
-                         addmm_ms=addmm_ms, flops=flops, bytes=nbytes,
-                         bound_ms=bms, bound_by=by))
-        print(f"B1 {label:>16} B={B:5d} F={F:6d} H={H:5d}  max_abs_err={max_abs:.3e} "
+        rows.append(dict(label=label, B=B, F=F, H=H, split=plan.split, ctas=plan.ctas,
+                         max_abs_err=max_abs, grad_max_abs_err=grad_err, ms=ms,
+                         device_ms=dev_ms, host_ms=issue_ms, plain_ms=plain_ms,
+                         addmm_ms=addmm_ms, flops=flops, bytes=nbytes, bound_ms=bms,
+                         bound_by=by))
+        print(f"B1 {label:>16} B={B:5d} F={F:6d} H={H:5d} (cluster {plan.split}, slice "
+              f"{plan.slice}, {plan.ctas} CTAs)  max_abs_err={max_abs:.3e} "
               f"grad_max_abs_err={'n/a' if grad_err is None else f'{grad_err:.3e}'} "
-              f"(tol {TOL})  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+              f"(tol {TOL})  kernel {ms:.4f} ms (device {fmt_ms(dev_ms)}, "
+              f"{dev_ops:g} device ops; host issue {issue_ms:.4f} ms)  plain {plain_ms:.4f} ms  "
               f"addmm(GEMM only) {addmm_ms:.4f} ms  bound {bms:.4f} ms ({by})  "
               f"{flops / ms / 1e9:.2f} TFLOP/s", flush=True)
     return rows
@@ -254,6 +319,28 @@ def work_b3(N: int, M: int, d: int):
     six operations per pair (expansion, clamp, division, exp, sum); x and y
     read once and one float written, in f32."""
     return 2 * N * M * d + 2 * (N + M) * d + 6 * N * M, 4 * ((N + M) * d + 1)
+
+
+def b3_grad_err(fused_fn, plain_fn, inputs, what):
+    """Max abs difference of B3's gradients from autograd through the plain
+    version; tolerance rtol 1e-4 and atol 1e-4 of the largest plain gradient
+    (the gradients scale as 1 / (N M d^2), so an absolute atol would say
+    nothing)."""
+    import torch
+
+    grads = []
+    for fn in (fused_fn, plain_fn):
+        leaves = [t.clone().requires_grad_() for t in inputs]
+        fn(*leaves).backward()
+        grads.append([t.grad for t in leaves])
+    err = 0.0
+    for got, want in zip(*grads):
+        atol = 1e-4 * float(want.abs().max())
+        err = max(err, float((got - want).abs().max()))
+        if not torch.allclose(got, want, rtol=1e-4, atol=atol):
+            fail(f"B3 gradient of {what} disagrees with autograd through the plain "
+                 f"version: max abs {err:.3e}, rtol 1e-4, atol {atol:.3e}")
+    return err
 
 
 def check_b3(shapes, grad_shapes):
@@ -271,24 +358,6 @@ def check_b3(shapes, grad_shapes):
     )
     from flexynesis_torch.ops.losses import compute_mmd
 
-    def grad_err(fused_fn, plain_fn, inputs, what):
-        """Max abs difference of the gradients; tolerance rtol 1e-4 and atol
-        1e-4 of the largest plain gradient (the gradients scale as
-        1 / (N M d^2), so an absolute atol would say nothing)."""
-        grads = []
-        for fn in (fused_fn, plain_fn):
-            leaves = [t.clone().requires_grad_() for t in inputs]
-            fn(*leaves).backward()
-            grads.append([t.grad for t in leaves])
-        err = 0.0
-        for got, want in zip(*grads):
-            atol = 1e-4 * float(want.abs().max())
-            err = max(err, float((got - want).abs().max()))
-            if not torch.allclose(got, want, rtol=1e-4, atol=atol):
-                fail(f"B3 gradient of {what} disagrees with autograd through the plain "
-                     f"version: max abs {err:.3e}, rtol 1e-4, atol {atol:.3e}")
-        return err
-
     rows = []
     for label, (N, M, d) in shapes:
         g = torch.Generator(device="cuda").manual_seed(N * 7 + M * 3 + d)
@@ -305,26 +374,102 @@ def check_b3(shapes, grad_shapes):
             fail(f"B3 is not deterministic at {label}")
         reps = 10 if N * M * d > 1e8 else 50
         ms = cuda_ms(lambda: kernel(x, y), reps)
+        dev_ms, dev_ops = device_ms(lambda: kernel(x, y), reps)
         plain_ms = cuda_ms(lambda: plain(x, y), reps)
         flops, nbytes = work_b3(N, M, d)
         bms, by = bound_ms(flops, nbytes)
         g_err = None
         if (N, M, d) in grad_shapes:
             g_err = max(
-                grad_err(GaussianKernelMean.apply, plain, (x, y), "the kernel mean"),
-                grad_err(lambda a: GaussianKernelMean.apply(a, a), lambda a: plain(a, a),
-                         (y,), "the kernel mean of y against itself"),
-                grad_err(compute_mmd_fused, compute_mmd,
-                         (torch.randn(200, d, device="cuda", generator=g), y), "the MMD"),
+                b3_grad_err(GaussianKernelMean.apply, plain, (x, y), "the kernel mean"),
+                b3_grad_err(lambda a: GaussianKernelMean.apply(a, a), lambda a: plain(a, a),
+                            (y,), "the kernel mean of y against itself"),
+                b3_grad_err(compute_mmd_fused, compute_mmd,
+                            (torch.randn(200, d, device="cuda", generator=g), y), "the MMD"),
             )
         rows.append(dict(label=label, shape=[N, M, d], max_abs_err=err,
-                         grad_max_abs_err=g_err, ms=ms, plain_ms=plain_ms, flops=flops,
-                         bytes=nbytes, bound_ms=bms, bound_by=by))
+                         grad_max_abs_err=g_err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                         flops=flops, bytes=nbytes, bound_ms=bms, bound_by=by))
         print(f"B3 {label:>16} N={N:5d} M={M:5d} d={d:4d}  mean={float(out):.7f} "
               f"abs_err={err:.3e} (tol {B3_TOL}) deterministic "
               f"grad_max_abs_err={'n/a' if g_err is None else f'{g_err:.3e}'}  "
-              f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {bms:.6f} ms ({by})  "
+              f"kernel {ms:.4f} ms (device {fmt_ms(dev_ms)}, {dev_ops:g} device ops)  "
+              f"plain {plain_ms:.4f} ms  bound {bms:.6f} ms ({by})  "
               f"{flops / ms / 1e9:.3f} TFLOP/s", flush=True)
+    return rows
+
+
+MMD_TOL = dict(rtol=1e-4, atol=2e-6)  # a difference of three means near 1
+
+
+def work_term(N: int, M: int, d: int):
+    """(FLOPs, bytes) of one MMD term: the three kernel means, a self set over
+    its distinct pairs (N (N + 1) / 2), as in ``work_b3``; x and y read once
+    and four floats written, in f32."""
+    pairs = N * (N + 1) // 2 + M * (M + 1) // 2 + N * M
+    return 2 * pairs * d + 2 * (N + M) * d + 6 * pairs, 4 * ((N + M) * d + 4)
+
+
+def check_mmd_term(shapes, grad_shapes):
+    """Hold B3's one-launch MMD term against its plain version at each
+    (label, (N prior draws, M batch rows, d)): the three means within B3_TOL
+    and the MMD within MMD_TOL of ``mmd_term_ref``, two calls bit for bit, one
+    launch per call; at ``grad_shapes`` the gradients of the term (of both
+    inputs, and of the batch alone as the VAE takes them) against autograd
+    through ``ops.losses.compute_mmd``. Times ``compute_mmd_fused``, the
+    call of the VAE's loss. Returns per-shape rows."""
+    import torch
+    from flexynesis_torch.kernels.mmd import (
+        compute_mmd_fused,
+        gaussian_kernel_mean,
+        mmd_term_forward as kernel,
+        mmd_term_ref,
+    )
+    from flexynesis_torch.ops.losses import compute_mmd as plain
+
+    rows = []
+    for label, (N, M, d) in shapes:
+        g = torch.Generator(device="cuda").manual_seed(N * 11 + M * 5 + d)
+        x = torch.randn(N, d, device="cuda", generator=g)
+        y = torch.randn(M, d, device="cuda", generator=g) * 0.5 + 0.1
+        before = gaussian_kernel_mean.launches
+        out = kernel(x, y)
+        torch.cuda.synchronize()
+        if gaussian_kernel_mean.launches != before + 1:
+            fail(f"the MMD term made {gaussian_kernel_mean.launches - before} launches at {label}")
+        ref = mmd_term_ref(x, y)
+        mean_err = float((out[:3] - ref[:3]).abs().max())
+        mmd_err = float((out[3] - ref[3]).abs())
+        if not (torch.allclose(out[:3], ref[:3], **B3_TOL)
+                and torch.allclose(out[3], ref[3], **MMD_TOL)):
+            fail(f"the B3 MMD term disagrees with its plain version at {label} N={N} M={M} "
+                 f"d={d}: {out.tolist()} vs {ref.tolist()}, tolerances {B3_TOL} (means), "
+                 f"{MMD_TOL} (MMD)")
+        if not torch.equal(out, kernel(x, y)):
+            fail(f"the B3 MMD term is not deterministic at {label}")
+        reps = 50
+        ms = cuda_ms(lambda: compute_mmd_fused(x, y), reps)
+        dev_ms, dev_ops = device_ms(lambda: compute_mmd_fused(x, y), reps)
+        issue_ms = host_ms(lambda: compute_mmd_fused(x, y))
+        plain_ms = cuda_ms(lambda: plain(x, y), reps)
+        flops, nbytes = work_term(N, M, d)
+        bms, by = bound_ms(flops, nbytes)
+        g_err = None
+        if (N, M, d) in grad_shapes:
+            g_err = max(b3_grad_err(compute_mmd_fused, plain, (x, y), "the MMD term"),
+                        b3_grad_err(lambda a: compute_mmd_fused(x, a), lambda a: plain(x, a),
+                                    (y,), "the MMD term in the batch"))
+        rows.append(dict(label=label, shape=[N, M, d], max_abs_err=max(mean_err, mmd_err),
+                         grad_max_abs_err=g_err, ms=ms, device_ms=dev_ms, host_ms=issue_ms,
+                         plain_ms=plain_ms, flops=flops, bytes=nbytes, bound_ms=bms,
+                         bound_by=by))
+        print(f"B3 term {label:>12} N={N:5d} M={M:5d} d={d:4d}  mmd={float(out[3]):.7e} "
+              f"means_abs_err={mean_err:.3e} (tol {B3_TOL}) mmd_abs_err={mmd_err:.3e} "
+              f"(tol {MMD_TOL}) deterministic, 1 launch  "
+              f"grad_max_abs_err={'n/a' if g_err is None else f'{g_err:.3e}'}  "
+              f"compute_mmd_fused {ms:.4f} ms (device {fmt_ms(dev_ms)}, {dev_ops:g} device "
+              f"ops; host issue {issue_ms:.4f} ms)  plain compute_mmd {plain_ms:.4f} ms  bound {bms:.6f} ms ({by})",
+              flush=True)
     return rows
 
 
@@ -657,6 +802,16 @@ def time_steps(model, cohort):
               "operations per step; top: "
               + "; ".join(f"{e.key[:48]} {e.self_device_time_total:.0f} us" for e in top),
               flush=True)
+        # the port's own kernels, by the names of their CUDA functions
+        mine = {}
+        for e in device:
+            for name in KERNEL_FUNCTIONS:
+                if name in e.key:
+                    n, us = mine.get(name, (0, 0.0))
+                    mine[name] = (n + e.count, us + e.self_device_time_total)
+        print(f"{model.model_name} training: the port's kernels per step (device time): "
+              + (", ".join(f"{k} {us / PROFILED_STEPS:.2f} us in {n / PROFILED_STEPS:g} launches"
+                           for k, (n, us) in mine.items()) or "none"), flush=True)
     else:
         print(f"{model.model_name} training: profiled steps: the profiler saw no device "
               "time (not measured)")
@@ -809,10 +964,8 @@ def train_vae(workdir: Path, model_class: str, epochs: int, layer_args=(), timed
     n_val = int(np.ceil(n * VAL_SIZE))
     steps = res.epochs_run * ((n - n_val) // BATCH)
 
-    def per_mmd(rows):  # B3 launches of one MMD term: prior-prior, z-z, prior-z
-        p = N_PRIOR_SAMPLES
-        return (launches_per_call(p, p) + launches_per_call(rows, rows)
-                + launches_per_call(p, rows))
+    def per_mmd(rows):  # B3 launches of one MMD term (prior-prior, z-z, prior-z)
+        return launches_per_call(N_PRIOR_SAMPLES, rows)
 
     n_dec = len(model.decoded_layers)
     want = (0, 0, n_dec * (steps * per_mmd(BATCH) + res.epochs_run * per_mmd(n_val)))
@@ -902,33 +1055,29 @@ def kernel_entry(name, source, replaces, rows, path_rows, launches, by_path, per
         "launches_by_path": by_path,
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": per_path * sum(r["ms"] for r in path_rows),
+        "device_ms": (None if any(r["device_ms"] is None for r in path_rows)
+                      else per_path * sum(r["device_ms"] for r in path_rows)),
         "plain_ms": per_path * sum(r["plain_ms"] for r in path_rows),
         "bound_ms": bms,
         "bound_by": by,
         "library_ms": None,
         "shapes": [r.get("shape") or [r["B"], r["F"], r["H"]] for r in path_rows],
     }
+    if "host_ms" in path_rows[0]:
+        entry["host_ms"] = per_path * sum(r["host_ms"] for r in path_rows)
     if "addmm_ms" in path_rows[0]:
         entry["gemm_only_addmm_ms"] = sum(r["addmm_ms"] for r in path_rows)
     return entry
 
 
-def main() -> int:
+def check_kernels():
+    """Build the kernels, then hold B2, B1 and B3 against their plain
+    versions at their path shapes and more; returns the shape lists of the
+    paths and each kernel's per-shape rows."""
     import torch
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
-        return 2
-    if not (REPO / "flexynesis_torch" / "csrc").is_dir():
-        print(f"chip_smoke: {REPO} holds no flexynesis_torch checkout", file=sys.stderr)
-        return 2
-    sys.path.insert(0, str(REPO))
-
-    card = card_line()
-    print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    t_start = time.perf_counter()
     build_all(["fused_linear_eval", "fused_linear_train", "mmd_kernel"])
 
     h_gex, h_cnv = int(GEX * HIDDEN_FACTOR), int(CNV * HIDDEN_FACTOR)
@@ -947,7 +1096,12 @@ def main() -> int:
         ("encoder_cnv", (BATCH, CNV, h_cnv)),
         ("head_subtype", (BATCH, LATENT, SUP_HIDDEN)),
     ]
-    b1_extra = [("encoder_gex_b32", (32, GEX, h_gex)), ("encoder_gex_b128", (128, GEX, h_gex)),
+    # beyond the path: every cluster size the planner picks (8 at the
+    # encoders, 1 at the head; 2 and 4 at shallower F), an F and H that take
+    # 4-byte copies and a ragged last slice, batches of 32, 128 and 4096 rows
+    b1_extra = [("split2_f128", (BATCH, 128, h_gex)), ("split4_f256", (BATCH, 256, h_gex)),
+                ("unaligned", (BATCH, GEX - 1, h_gex + 1)),
+                ("encoder_gex_b32", (32, GEX, h_gex)), ("encoder_gex_b128", (128, GEX, h_gex)),
                 ("ragged", (37, 129, 67)), ("one_row", (1, LATENT, SUP_HIDDEN)),
                 ("split_b4096", (4096, GEX, h_gex))]
     b1_rows = check_b1(train_shapes + b1_extra, [shape for _, shape in train_shapes])
@@ -961,6 +1115,31 @@ def main() -> int:
                 ("ragged", (37, 129, 17)), ("one_row", (1, 200, 16)),
                 ("latent128", (200, BATCH, 128)), ("many_blocks", (4096, 4096, LATENT))]
     b3_rows = check_b3(b3_train + b3_extra, [shape for _, shape in b3_train])
+    # the VAE's call: one MMD term per decoded layer, of the prior against the
+    # batch in every step and against the validation split in validation
+    term_train = [("train", (200, BATCH, LATENT))]
+    term_rows = check_mmd_term(
+        term_train + [(f"val{val_rows}", (200, val_rows, LATENT)), ("ragged", (37, 129, 17)),
+                      ("one_row", (1, 1, 16))],
+        [shape for _, shape in term_train])
+    return serving_shapes, train_shapes, rows, b1_rows, b3_rows, term_rows
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    if not (REPO / "flexynesis_torch" / "csrc").is_dir():
+        print(f"chip_smoke: {REPO} holds no flexynesis_torch checkout", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(REPO))
+
+    card = card_line()
+    print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
+    t_start = time.perf_counter()
+    serving_shapes, train_shapes, rows, b1_rows, b3_rows, term_rows = check_kernels()
 
     workdir = REPO / "build" / "chip_smoke"
     shutil.rmtree(workdir, ignore_errors=True)
@@ -985,8 +1164,8 @@ def main() -> int:
                      rows[:len(serving_shapes)],  # one eval forward over the cohort
                      serve_b2, {"serving": serve_b2, "training": train_b2}),
         kernel_entry("gaussian_kernel_mean", "flexynesis_torch/csrc/mmd_kernel.cu",
-                     "flexynesis_tpu/ops/pallas/mmd_kernel.py:66", b3_rows,
-                     b3_rows[:len(b3_train)], vae_b3,
+                     "flexynesis_tpu/ops/pallas/mmd_kernel.py:66", b3_rows + term_rows,
+                     term_rows[:1], vae_b3,
                      {"supervised_vae_training": vae_b3, "crossmodal_training": cm_b3},
                      per_path=2),  # one training step: an MMD term per decoded layer
     ]

@@ -2,8 +2,8 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled at first
 use into ``build/kernels/<name>-<hash>.so`` at the root of the checkout. The
-hash covers the source and the compiler flags, so an edited source is rebuilt
-and an unchanged one is loaded as it is. A missing ``nvcc`` or a failed build
+hash covers the source, the headers under ``csrc/`` and the compiler flags, so
+an edited source or header is rebuilt and an unchanged one is loaded as it is. A missing ``nvcc`` or a failed build
 raises: there is no fallback.
 """
 
@@ -15,6 +15,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -41,9 +43,15 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    """The library of ``csrc/<name>.cu``, named by a hash of the source, of
+    every header under ``csrc/`` (an edited shared header rebuilds every
+    library) and of the compiler flags."""
+    digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("**/*.cuh")):
+        digest.update(header.relative_to(CSRC_DIR).as_posix().encode())
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Path:
@@ -87,3 +95,14 @@ def launcher(name: str, symbol: str, argtypes):
         fn.restype = ctypes.c_int
         _launchers[name, symbol] = fn
     return _launchers[name, symbol]
+
+
+def current_stream(device: torch.device) -> int:
+    """The handle of ``device``'s current stream, on which the kernels
+    launch; ``device`` must be the current device."""
+    if device.index != torch.cuda.current_device():
+        raise ValueError(
+            f"tensors are on {device} but the current device is "
+            f"cuda:{torch.cuda.current_device()}; call torch.cuda.set_device first"
+        )
+    return torch.cuda.current_stream(device).cuda_stream

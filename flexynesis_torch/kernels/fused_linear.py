@@ -20,10 +20,11 @@ fallback. ``<wrapper>.launches`` counts the CUDA launches of its kernels.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
-from .build import launcher
+from .build import current_stream, launcher
 
 
 def fused_linear_bn_relu_eval_ref(x, w, b, gamma, beta, running_mean,
@@ -106,9 +107,51 @@ def fused_linear_bn_relu_ref(x, w, b, gamma, beta, eps: float = 1e-5):
     return y, h, mu, var
 
 
-# rows of one tile of csrc/fused_linear_train.cu (its BM); above it the kernel
-# writes per-tile partial statistics that a second launch merges
+# the tiling of csrc/fused_linear_train.cu: a 64-row x 32-column tile of h per
+# cluster of CTAs, F walked in 16-deep stages; above ROW_TILE rows each row
+# tile writes partial statistics that a second launch merges
 ROW_TILE = 64
+COL_TILE = 32
+K_STAGE = 16
+MAX_SPLIT = 8  # the portable cluster size
+MIN_SLICE = 64  # the least depth of F worth a CTA of its own (4 stages)
+H100_SMS = 132
+
+
+class B1Plan(NamedTuple):
+    """How one B1 launch splits its work: ``split`` CTAs (a cluster) share
+    each of the ``tiles`` 64 x 32 tiles of h, CTA r over depth
+    [r * slice, min(F, (r + 1) * slice)) of F."""
+
+    split: int
+    slice: int
+    tiles: int
+
+    @property
+    def ctas(self) -> int:
+        return self.split * self.tiles
+
+
+def plan_b1(B: int, F: int, H: int, sms: int = H100_SMS) -> B1Plan:
+    """Cluster size and slice depth of a B1 launch: double the split of F
+    while the grid has fewer CTAs than the card has SMs and each slice keeps
+    at least MIN_SLICE of depth, up to MAX_SPLIT. A shape with many tiles
+    (a large batch) or a shallow F (the 64-wide head) keeps split 1."""
+    tiles = -(-B // ROW_TILE) * -(-H // COL_TILE)
+    split = 1
+    while split < MAX_SPLIT and tiles * split < sms and F >= 2 * split * MIN_SLICE:
+        split *= 2
+    depth = -(-F // split)
+    return B1Plan(split, -(-depth // K_STAGE) * K_STAGE, tiles)
+
+
+_SMS: dict = {}
+
+
+def _sm_count(device) -> int:
+    if device not in _SMS:
+        _SMS[device] = torch.cuda.get_device_properties(device).multi_processor_count
+    return _SMS[device]
 
 
 def fused_linear_bn_relu_forward(x, w, b, gamma, beta, eps: float = 1e-5):
@@ -125,31 +168,33 @@ def fused_linear_bn_relu_forward(x, w, b, gamma, beta, eps: float = 1e-5):
     H = w.shape[1]
     if B == 0:
         raise ValueError("batch statistics need at least one row")
-    dev = dict(device=x.device, dtype=torch.float32)
-    y = torch.empty((B, H), **dev)
-    h = torch.empty((B, H), **dev)
-    mu = torch.empty((H,), **dev)
-    var = torch.empty((H,), **dev)
+    stream = current_stream(x.device)
+    row_tiles = -(-B // ROW_TILE)
+    # one allocation: y and h (B, H), mean and var (H,), and above one row
+    # tile the per-tile (mean, M2) partials (2, row_tiles, H)
+    n_part = 2 * row_tiles * H if row_tiles > 1 else 0
+    buf = torch.empty(2 * B * H + 2 * H + n_part, device=x.device, dtype=torch.float32)
+    y, h = buf[: 2 * B * H].view(2, B, H)
+    mu, var = buf[2 * B * H: 2 * B * H + 2 * H].view(2, H)
     if H == 0:
         return y, h, mu, var
-    tiles = -(-B // ROW_TILE)
-    part = torch.empty((2, tiles, H), **dev) if tiles > 1 else None
+    plan = plan_b1(B, F, H, _sm_count(x.device))
+    part = buf[2 * B * H + 2 * H:].view(2, row_tiles, H) if n_part else None
     fn = launcher("fused_linear_train", "fused_linear_bn_relu_train_f32",
-                  [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p])
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), gamma.data_ptr(),
-                beta.data_ptr(), h.data_ptr(), y.data_ptr(), mu.data_ptr(),
-                var.data_ptr(),
-                None if part is None else part[0].data_ptr(),
-                None if part is None else part[1].data_ptr(),
-                B, F, H, float(eps), stream)
+                  [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
+                  + [ctypes.c_float, ctypes.c_void_p])
+    rc = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), gamma.data_ptr(),
+            beta.data_ptr(), h.data_ptr(), y.data_ptr(), mu.data_ptr(),
+            var.data_ptr(),
+            None if part is None else part[0].data_ptr(),
+            None if part is None else part[1].data_ptr(),
+            B, F, H, plan.split, plan.slice, float(eps), stream)
     if rc != 0:
         raise RuntimeError(
             f"fused_linear_bn_relu kernel launch failed: CUDA error {rc} "
-            f"(B={B}, F={F}, H={H})"
+            f"(B={B}, F={F}, H={H}, {plan})"
         )
-    # the tile kernel, and the merge kernel where the batch spans row tiles
+    # the cluster kernel, and the merge kernel where the batch spans row tiles
     fused_linear_bn_relu.launches += 1 if part is None else 2
     return y, h, mu, var
 
@@ -191,7 +236,7 @@ def fused_linear_bn_relu(x, w, b, gamma, beta, eps: float = 1e-5):
     x (B, F), w (F, H), vectors (H,), float32 on the card; returns
     ``(y, batch_mean, batch_var)`` with the biased variance.
     ``fused_linear_bn_relu.launches`` counts CUDA launches: one per forward,
-    two where B > 64 (the tile kernel and the merge of the split reduction)."""
+    two where B > 64 (the cluster kernel and the merge of the split reduction)."""
     return FusedLinearBNReLU.apply(x, w, b, gamma, beta, eps)
 
 

@@ -9,7 +9,8 @@ Tolerance for kernel against plain version: rtol=1e-4, atol=1e-4 (f32; the
 kernel and cuBLAS sum the product in different orders; TF32 is off). B3's
 mean: rtol 1e-5, atol 1e-6 (one f32 mean near 1, the order of summation
 differs); its gradients: rtol 1e-4, atol 1e-4 times the largest plain
-gradient (they scale as 1 / (N M d^2))."""
+gradient (they scale as 1 / (N M d^2)); an MMD (a difference of means near
+1): rtol 1e-4, atol 2e-6."""
 
 import pytest
 import torch
@@ -21,6 +22,7 @@ from flexynesis_torch.kernels.fused_linear import (
     fused_linear_bn_relu_eval_ref,
     fused_linear_bn_relu_forward,
     fused_linear_bn_relu_ref,
+    plan_b1,
 )
 from flexynesis_torch.kernels.mmd import (
     GaussianKernelMean,
@@ -28,6 +30,8 @@ from flexynesis_torch.kernels.mmd import (
     gaussian_kernel_mean,
     gaussian_kernel_mean_ref,
     launches_per_call,
+    mmd_term_forward,
+    mmd_term_ref,
 )
 from flexynesis_torch.ops.fused_mlp import FusedMLP
 from flexynesis_torch.ops.losses import compute_mmd
@@ -75,9 +79,11 @@ def test_kernel_rejects_bad_operands(card):
 
 
 # kernel B1: the shapes cover one row tile (B <= 64) and the split reduction
-# (B > 64, partial statistics merged by a second launch)
+# (B > 64, partial statistics merged by a second launch), every cluster size
+# and an F and H whose rows take 4-byte copies
 B1_SHAPES = [(1, 1, 1), (5, 37, 19), (37, 129, 67), (64, 2000, 600), (65, 7, 33),
-             (130, 300, 257), (2100, 64, 16)]
+             (130, 300, 257), (2100, 64, 16), (64, 1999, 601), (1, 2000, 600),
+             (64, 0, 5)]
 
 
 @pytest.mark.cuda
@@ -93,6 +99,21 @@ def test_b1_matches_plain_version(card, B, F, H):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
     again = fused_linear_bn_relu_forward(x, w, b, gamma, beta)
     assert all(torch.equal(a, c) for a, c in zip(out, again))  # fixed merge order
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split,B,F,H", [(1, 64, 64, 16), (2, 64, 128, 600), (4, 64, 256, 600),
+                                         (8, 64, 1000, 300), (4, 128, 2000, 600),
+                                         (2, 37, 129, 67), (8, 64, 1001, 299)])
+def test_b1_reaches_each_cluster_size(card, split, B, F, H):
+    assert plan_b1(B, F, H, torch.cuda.get_device_properties(card).multi_processor_count
+                   ).split == split
+    x, w, b, gamma, beta, _, _ = _inputs(B, F, H, card)
+    out = fused_linear_bn_relu_forward(x, w, b, gamma, beta)
+    for got, want in zip(out, fused_linear_bn_relu_ref(x, w, b, gamma, beta)):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    again = fused_linear_bn_relu_forward(x, w, b, gamma, beta)
+    assert all(torch.equal(a, c) for a, c in zip(out, again))  # fixed cluster order
 
 
 @pytest.mark.cuda
@@ -125,7 +146,8 @@ def test_fused_block_trains_the_same_on_the_card(card):
     torch.testing.assert_close(gpu.running_var.cpu(), cpu.running_var, rtol=1e-4, atol=1e-5)
 
 
-# kernel B3: one tile (one launch) and several (the fixed-order second launch)
+# kernel B3: one tile and several, each one launch (the fixed-order reduction
+# runs in the block that draws the last ticket)
 B3_SHAPES = [(1, 1, 1), (37, 129, 17), (64, 64, 64), (200, 64, 64), (200, 200, 64),
              (400, 400, 64), (1000, 70, 130)]
 
@@ -154,7 +176,8 @@ def test_b3_gradients_match_autograd_through_plain_version(card, N, M, d):
     cases = [(GaussianKernelMean.apply, gaussian_kernel_mean_ref, (x, y)),
              (lambda a: GaussianKernelMean.apply(a, a), lambda a: gaussian_kernel_mean_ref(a, a),
               (y,)),
-             (compute_mmd_fused, compute_mmd, (x, y))]
+             (compute_mmd_fused, compute_mmd, (x, y)),
+             (lambda a: compute_mmd_fused(x, a), lambda a: compute_mmd(x, a), (y,))]
     for fused, plain, inputs in cases:
         grads = []
         for fn in (fused, plain):
@@ -177,3 +200,46 @@ def test_b3_rejects_bad_operands(card):
         gaussian_kernel_mean(x.t().contiguous().t(), y)
     with pytest.raises(ValueError):
         gaussian_kernel_mean(x[:0], y)
+
+
+MMD_TOL = dict(rtol=1e-4, atol=2e-6)
+
+
+def _check_term(got, x, y):
+    want = mmd_term_ref(x, y)
+    torch.testing.assert_close(got[:3], want[:3], rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(got[3], want[3], **MMD_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,M,d", [(200, 64, 64), (200, 400, 64), (1, 1, 1), (37, 129, 17),
+                                   (65, 64, 64), (1000, 70, 130)])
+def test_b3_mmd_term_is_one_launch_and_bit_for_bit(card, N, M, d):
+    x, y = _b3_inputs(N, M, d, card)
+    before = gaussian_kernel_mean.launches
+    got = mmd_term_forward(x, y)
+    torch.cuda.synchronize()
+    assert gaussian_kernel_mean.launches == before + 1
+    _check_term(got, x, y)
+    assert torch.equal(got, mmd_term_forward(x, y))
+    assert float(compute_mmd_fused(x, y)) == float(got[3])
+
+
+@pytest.mark.cuda
+def test_b3_ticket_resets_between_calls_of_any_shape(card):
+    # one-tile and many-tile calls of both entry points back to back on one
+    # stream and one workspace, with no synchronisation between them: each
+    # launch must find the ticket at 0 and leave it so
+    shapes = [(64, 64, 64), (400, 400, 64), (1, 1, 1), (4096, 300, 64), (37, 129, 17),
+              (200, 64, 64), (64, 64, 64)]
+    inputs = [_b3_inputs(*s, card) for s in shapes]
+    runs = []
+    for _ in range(2):
+        before = gaussian_kernel_mean.launches
+        runs.append([(gaussian_kernel_mean(x, y), mmd_term_forward(x, y)) for x, y in inputs])
+        assert gaussian_kernel_mean.launches == before + 2 * len(shapes)
+    torch.cuda.synchronize()
+    for (x, y), (mean, term), (mean2, term2) in zip(inputs, *runs):
+        torch.testing.assert_close(mean, gaussian_kernel_mean_ref(x, y), rtol=1e-5, atol=1e-6)
+        _check_term(term, x, y)
+        assert torch.equal(mean, mean2) and torch.equal(term, term2)

@@ -26,11 +26,13 @@ from flexynesis_tpu.ops import losses as jax_losses
 from flexynesis_tpu.ops.pallas import mmd_kernel as jax_mmd
 from flexynesis_torch.kernels.mmd import (
     GaussianKernelMean,
+    MMDTerm,
     compute_mmd_fused,
     gaussian_kernel_mean,
     gaussian_kernel_mean_ref,
     launches_per_call,
     mmd_loss_fused,
+    mmd_term_forward,
 )
 from flexynesis_torch.ops.losses import compute_mmd, mmd_loss
 from flexynesis_torch.ops.mlp import standard_normal
@@ -106,6 +108,35 @@ def test_mmd_gradients_match_jax_grad(N, M, d):
     _grad_close(ty.grad.numpy(), want[1])
 
 
+# the MMD term as one Function (one launch on the card): the value, the three
+# means beside it, and the gradients of every input that needs them, against
+# compute_mmd_pallas in interpret mode; tolerances MMD_TOL, MEAN_TOL and
+# _grad_close's (module docstring)
+@pytest.mark.parametrize("N,M,d", SHAPES + [(200, 64, 8)])
+def test_mmd_term_matches_compute_mmd_pallas(N, M, d):
+    x, y = make(N * 5 + M + d, (N, d), (M, d), scale=1.1)
+    jx, jy = jnp.asarray(x), jnp.asarray(y)
+    tx, ty = torch.from_numpy(x), torch.from_numpy(y)
+    before = gaussian_kernel_mean.launches
+    terms = mmd_term_forward(tx, ty)
+    assert gaussian_kernel_mean.launches == before  # the CPU path launches nothing
+    for got, (a, b) in zip(terms[:3], ((jx, jx), (jy, jy), (jx, jy))):
+        np.testing.assert_allclose(float(got), float(jax_mmd.gaussian_kernel_mean(a, b)),
+                                   **MEAN_TOL)
+    want = float(jax_mmd.compute_mmd_pallas(jx, jy))
+    np.testing.assert_allclose(float(terms[3]), want, **MMD_TOL)
+    np.testing.assert_allclose(float(MMDTerm.apply(tx, ty)), want, **MMD_TOL)
+    grads = jax.grad(jax_mmd.compute_mmd_pallas, argnums=(0, 1))(jx, jy)
+    for needs in ((True, True), (False, True), (True, False)):
+        leaves = [torch.from_numpy(a).requires_grad_(n) for a, n in zip((x, y), needs)]
+        MMDTerm.apply(*leaves).backward()
+        for leaf, n, w in zip(leaves, needs, grads):
+            if n:
+                _grad_close(leaf.grad.numpy(), w)
+            else:
+                assert leaf.grad is None
+
+
 def test_gradcheck_f64():
     g = torch.Generator().manual_seed(0)
     x = torch.randn(6, 5, dtype=torch.float64, generator=g).requires_grad_()
@@ -113,6 +144,7 @@ def test_gradcheck_f64():
     assert torch.autograd.gradcheck(GaussianKernelMean.apply, (x, y))
     assert torch.autograd.gradcheck(lambda a: GaussianKernelMean.apply(a, a), (y,))
     assert torch.autograd.gradcheck(compute_mmd_fused, (x, y))
+    assert torch.autograd.gradcheck(lambda a: MMDTerm.apply(x.detach(), a), (y,))
 
 
 @pytest.mark.parametrize("fused", [False, True])
@@ -147,8 +179,8 @@ def test_plain_version_is_the_mean_of_the_kernel_matrix():
     torch.testing.assert_close(gaussian_kernel_mean_ref(x, y), K.mean())
 
 
-@pytest.mark.parametrize("n,m,want", [(64, 64, 1), (1, 1, 1), (65, 64, 2),
-                                      (200, 200, 2), (64, 200, 2), (400, 400, 2)])
+@pytest.mark.parametrize("n,m,want", [(64, 64, 1), (1, 1, 1), (65, 64, 1),
+                                      (200, 200, 1), (64, 200, 1), (400, 400, 1)])
 def test_launches_per_call(n, m, want):
     assert launches_per_call(n, m) == want
 
