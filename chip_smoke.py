@@ -6,10 +6,16 @@ Phases (any failure exits nonzero):
 1. the card's name and power limit; build kernels B1, B2 and B3 with nvcc
    for sm_90a, one nvcc per source, started together;
 2. kernel B2 (eval-mode fused Linear->BN->ReLU) against its plain PyTorch
-   version at every shape the serving phase launches, a ragged shape and the
-   production single-model encoder, with CUDA-event timings of the kernel,
-   the plain version and torch.addmm (a GEMM-only yardstick), and each
-   shape's bound on an H100;
+   version at the three calls of one eval forward at each batch size its
+   paths give it (the 2000-sample cohort, a 64-row request, the 400-row
+   validation split and the 500-row test cohort), at every cluster size its
+   planner picks, an F and H that take 4-byte copies, one row, a ragged shape
+   and the production single-model encoder: one launch per call, two calls
+   bit for bit; CUDA-event, profiler device and host-issue times of the
+   kernel, the plain version's time, torch.addmm's (a GEMM-only yardstick)
+   event and device times, and the bound of each shape by the route of the
+   kernel's main loop (3xTF32 on the tensor cores) beside the f32 bound; then
+   the same summed over each eval forward;
 3. kernel B1 (training-mode, batch statistics) the same way at every shape
    the training phase launches, F deep enough for every cluster size the
    planner picks, an F and H that take 4-byte copies, 32- and 128-row
@@ -57,7 +63,8 @@ Phases (any failure exits nonzero):
 
 Every kernel check prints the kernel's CUDA-event time per call, beside its
 device time per call from a torch.profiler trace (``device_ms``), the plain
-version's time and the bound. Each kernel's launch count is set to 0 just
+version's time and the bound; the profiled serving and training runs name
+each port kernel's CUDA function with its device time. Each kernel's launch count is set to 0 just
 before the phase that drives its path (serving for B2, training for B1,
 phases 6 and 7 for all three) and read just after. The output ends
 with a ``{"kernels": [...]}`` line, the nvidia-smi line and
@@ -77,8 +84,10 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
 
-# H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, HBM3
+# H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, TF32 on
+# the tensor cores (dense), HBM3
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
 TOL = dict(rtol=1e-4, atol=1e-4)  # f32, different summation orders, TF32 off
 
@@ -97,10 +106,10 @@ EVAL_FORWARDS = 4  # transform and predict, of train and of test
 PROFILED_STEPS = 7
 CM_EPOCHS = 3  # the CrossModalPred run, cut to 3 epochs
 DEVICE = "cuda"  # the training phase's device (a CPU rehearsal sets "cpu")
-# the CUDA functions of the kernels that training steps launch: B1 (and its
-# merge launch above 64 rows) and B3
+# the CUDA functions of the port's kernels, as the profiles name them: B1
+# (and its merge launch above 64 rows), B2 and B3
 KERNEL_FUNCTIONS = ("fused_linear_bn_relu_train_split_kernel", "bn_relu_merge_kernel",
-                    "gaussian_kernel_mean_kernel")
+                    "fused_linear_bn_relu_eval_kernel", "gaussian_kernel_mean_kernel")
 
 
 def fail(msg: str) -> None:
@@ -177,25 +186,57 @@ def fmt_ms(v) -> str:
     return "not measured" if v is None else f"{v:.4f} ms"
 
 
-def work(B: int, F: int, H: int):
-    """(FLOPs, bytes) the fused block needs: the GEMM plus a 6-op epilogue per
-    output; each input read once and the output written once, in f32."""
-    return 2 * B * F * H + 6 * B * H, 4 * (B * F + F * H + 5 * H + B * H)
+def f32_ms(flops: float) -> float:
+    """Least time in ms of ``flops`` f32 operations on the FMA units."""
+    return flops / PEAK_F32_FLOPS * 1e3
 
 
-def bound_ms(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+def bound_ms(ops_ms: float, nbytes: float):
+    """The least time of a call (ms) and what sets it: its operations' least
+    time against its bytes over the memory rate."""
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return max(ops_ms, t_bytes), ("operations" if ops_ms >= t_bytes else "bytes")
+
+
+def b2_route() -> str:
+    """The route of B2's main loop as its module states it: "3xtf32" (three
+    TF32 tensor-core products) or "f32" (FMAs; a kernel whose module states
+    no route, the first one-block-per-tile design, is f32)."""
+    from flexynesis_torch.kernels import fused_linear
+
+    return getattr(fused_linear, "B2_MAIN_LOOP", "f32")
+
+
+def work_b2(B: int, F: int, H: int, route: str):
+    """(least time of the operations in ms, bytes) of one B2 call by the route
+    of its main loop: 3xTF32 runs the product three times on the tensor cores
+    (495 TFLOP/s), f32 once on the FMA units (67 TFLOP/s); the 6-op epilogue
+    per output runs on the FMA units either way. Each input read once and the
+    output written once, in f32."""
+    gemm, epilogue = 2 * B * F * H, 6 * B * H
+    if route == "3xtf32":
+        ops_ms = 3 * gemm / PEAK_TF32_FLOPS * 1e3 + f32_ms(epilogue)
+    else:
+        ops_ms = f32_ms(gemm + epilogue)
+    return ops_ms, 4 * (B * F + F * H + 5 * H + B * H)
 
 
 def check_kernel(shapes):
-    """Hold B2 against its plain version at each shape; returns per-shape rows."""
+    """Hold B2 against its plain version at each (label, (B, F, H)): within
+    TOL, one launch per call, two calls bit for bit. Times the kernel (CUDA
+    events, profiler device time, host issue), the plain version and
+    torch.addmm of the same GEMM (CUDA events and device time; a yardstick,
+    not the same function). Returns per-shape rows."""
     import torch
-    from flexynesis_torch.kernels.fused_linear import (
-        fused_linear_bn_relu_eval as kernel,
-        fused_linear_bn_relu_eval_ref as plain,
-    )
+    from flexynesis_torch.kernels import fused_linear
 
+    kernel = fused_linear.fused_linear_bn_relu_eval
+    plain = fused_linear.fused_linear_bn_relu_eval_ref
+    # an earlier kernel without a planner ran one block per 64 x 64 tile; the
+    # phase measures it too, so that two versions compare in one call
+    planner = getattr(fused_linear, "plan_b2", None)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    route = b2_route()
     rows = []
     for label, (B, F, H) in shapes:
         g = torch.Generator(device="cuda").manual_seed(B * 7 + F * 3 + H)
@@ -205,8 +246,11 @@ def check_kernel(shapes):
         gamma = torch.rand(H, device="cuda", generator=g) + 0.5
         rv = torch.rand(H, device="cuda", generator=g) + 0.5
         args = (x, w, b, gamma, be, rm, rv)
+        before = kernel.launches
         y = kernel(*args)
         torch.cuda.synchronize()
+        if kernel.launches != before + 1:
+            fail(f"B2 made {kernel.launches - before} launches at {label}")
         ref = plain(*args)
         diff = (y - ref).abs()
         max_abs = diff.max().item()
@@ -214,23 +258,108 @@ def check_kernel(shapes):
         if not torch.allclose(y, ref, **TOL):
             fail(f"B2 disagrees with its plain version at {label} B={B} F={F} H={H}: "
                  f"max abs {max_abs:.3e}, max rel {max_rel:.3e}, tolerance {TOL}")
+        if not torch.equal(y, kernel(*args)):
+            fail(f"B2 is not deterministic at {label}")
         reps = 10 if B * F * H > 1e10 else 30
         ms = cuda_ms(lambda: kernel(*args), reps)
-        dev_ms, _ = device_ms(lambda: kernel(*args), reps)
+        dev_ms, dev_ops = device_ms(lambda: kernel(*args), reps)
+        issue_ms = host_ms(lambda: kernel(*args))
         plain_ms = cuda_ms(lambda: plain(*args), reps)
         addmm_ms = cuda_ms(lambda: torch.addmm(b, x, w), reps)
-        flops, nbytes = work(B, F, H)
-        bms, by = bound_ms(flops, nbytes)
-        rows.append(dict(label=label, B=B, F=F, H=H, max_abs_err=max_abs,
-                         max_rel_err=max_rel, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
-                         addmm_ms=addmm_ms, flops=flops, bytes=nbytes,
-                         bound_ms=bms, bound_by=by))
-        print(f"B2 {label:>16} B={B:5d} F={F:6d} H={H:5d}  max_abs_err={max_abs:.3e} "
-              f"normwise_rel_err={max_rel:.3e} (tol {TOL})  kernel {ms:.4f} ms "
-              f"(device {fmt_ms(dev_ms)})  plain {plain_ms:.4f} ms  addmm(GEMM only) "
-              f"{addmm_ms:.4f} ms  bound {bms:.4f} ms ({by})  {flops / ms / 1e9:.2f} TFLOP/s",
-              flush=True)
+        addmm_dev, _ = device_ms(lambda: torch.addmm(b, x, w), reps)
+        ops_ms, nbytes = work_b2(B, F, H, route)
+        f32_ops_ms = work_b2(B, F, H, "f32")[0]
+        bms, by = bound_ms(ops_ms, nbytes)
+        f32_bms = bound_ms(f32_ops_ms, nbytes)[0]
+        flops = 2 * B * F * H + 6 * B * H
+        if planner is None:
+            split, ctas = None, -(-B // 64) * -(-H // 64)
+        else:
+            plan = planner(B, F, H, sms)
+            split, ctas = plan.split, plan.ctas
+        rows.append(dict(label=label, B=B, F=F, H=H, split=split, ctas=ctas,
+                         max_abs_err=max_abs, max_rel_err=max_rel, ms=ms, device_ms=dev_ms,
+                         host_ms=issue_ms, plain_ms=plain_ms, addmm_ms=addmm_ms,
+                         addmm_device_ms=addmm_dev, flops=flops, bytes=nbytes, ops_ms=ops_ms,
+                         f32_ops_ms=f32_ops_ms, bound_ms=bms, bound_by=by,
+                         f32_bound_ms=f32_bms))
+        print(f"B2 {label:>16} B={B:5d} F={F:6d} H={H:5d} (cluster {split}, {ctas} CTAs)  "
+              f"max_abs_err={max_abs:.3e} normwise_rel_err={max_rel:.3e} (tol {TOL}) "
+              f"deterministic, 1 launch  kernel {ms:.4f} ms (device {fmt_ms(dev_ms)}, "
+              f"{dev_ops:g} device ops; host issue {issue_ms:.4f} ms)  plain {plain_ms:.4f} ms  "
+              f"addmm(GEMM only) {addmm_ms:.4f} ms (device {fmt_ms(addmm_dev)})  bound "
+              f"{bms:.4f} ms ({route}, {by}; f32 bound {f32_bms:.4f} ms)  "
+              f"{flops / ms / 1e9:.2f} TFLOP/s", flush=True)
     return rows
+
+
+def b2_blocks():
+    """(name, (F, H)) of the three B2 calls of one DirectPred eval forward."""
+    return [("encoder_gex", (GEX, int(GEX * HIDDEN_FACTOR))),
+            ("encoder_cnv", (CNV, int(CNV * HIDDEN_FACTOR))),
+            ("head_subtype", (LATENT, SUP_HIDDEN))]
+
+
+def b2_pass_rows():
+    """(pass, rows) of one eval forward at each batch size the paths give B2:
+    the served cohort, a 64-row request (serving's ``predict batch64``), the
+    validation split and the test cohort of the training phase."""
+    return [("cohort", N_TEST), ("request", BATCH),
+            ("validation", int(math.ceil(FIT_TRAIN * VAL_SIZE))), ("test", FIT_TEST)]
+
+
+def b2_passes(rows):
+    """Each pass of ``b2_pass_rows`` summed over its three calls: the three
+    timings, the plain version, addmm, the route's bound and the f32 bound."""
+    route = b2_route()
+    blocks = [fh for _, fh in b2_blocks()]
+    passes = {}
+    for name, n in b2_pass_rows():
+        by_shape = {(r["F"], r["H"]): r for r in rows if r["B"] == n}
+        sel = [by_shape[fh] for fh in blocks if fh in by_shape]
+        if len(sel) != len(blocks):
+            continue
+        total = {k: sum(r[k] for r in sel)
+                 for k in ("ms", "host_ms", "plain_ms", "addmm_ms", "ops_ms", "f32_ops_ms",
+                           "bytes")}
+        for k in ("device_ms", "addmm_device_ms"):
+            total[k] = None if any(r[k] is None for r in sel) else sum(r[k] for r in sel)
+        bms, by = bound_ms(total["ops_ms"], total["bytes"])
+        passes[name] = dict(rows=n, ms=total["ms"], device_ms=total["device_ms"],
+                            host_ms=total["host_ms"], plain_ms=total["plain_ms"],
+                            addmm_ms=total["addmm_ms"],
+                            addmm_device_ms=total["addmm_device_ms"], bound_ms=bms,
+                            bound_by=by, route=route,
+                            f32_bound_ms=bound_ms(total["f32_ops_ms"], total["bytes"])[0])
+        print(f"B2 pass {name} ({n} rows, {len(sel)} calls): device {fmt_ms(total['device_ms'])}"
+              f"  CUDA events {total['ms']:.4f} ms  host issue {total['host_ms']:.4f} ms  "
+              f"bound {bms:.4f} ms ({route}, {by})  f32 bound {passes[name]['f32_bound_ms']:.4f}"
+              f" ms  plain {total['plain_ms']:.4f} ms  addmm(GEMM only) {total['addmm_ms']:.4f}"
+              f" ms (device {fmt_ms(total['addmm_device_ms'])})", flush=True)
+    return passes
+
+
+def check_b2():
+    """B2 at every pass of ``b2_pass_rows``, then one shape per cluster size
+    its planner picks beyond those, an F and H that take 4-byte copies, one
+    row, a ragged shape and a large single-model encoder. Returns (rows,
+    passes)."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    shapes, seen = [], set()
+    for name, n in b2_pass_rows():
+        for block, (F, H) in b2_blocks():
+            if (n, F, H) not in seen:
+                seen.add((n, F, H))
+                shapes.append((f"{block}_n{n}", (n, F, H)))
+    h_gex = int(GEX * HIDDEN_FACTOR)
+    shapes += [("split2_f128", (BATCH, 128, h_gex)), ("split4_f256", (BATCH, 256, h_gex)),
+               ("unaligned", (BATCH, GEX - 1, h_gex + 1)), ("one_row", (1, GEX, h_gex)),
+               ("ragged", (37, 129, 67)), ("large_encoder", (1024, 16384, int(16384 * 0.3)))]
+    rows = check_kernel(shapes)
+    return rows, b2_passes(rows)
 
 
 def work_b1(B: int, F: int, H: int):
@@ -280,7 +409,7 @@ def check_b1(shapes, grad_shapes):
         plain_ms = cuda_ms(lambda: plain(*args), reps)
         addmm_ms = cuda_ms(lambda: torch.addmm(b, x, w), reps)
         flops, nbytes = work_b1(B, F, H)
-        bms, by = bound_ms(flops, nbytes)
+        bms, by = bound_ms(f32_ms(flops), nbytes)
         grad_err = None
         if (B, F, H) in grad_shapes:
             gy = torch.randn(B, H, device="cuda", generator=g)
@@ -299,8 +428,8 @@ def check_b1(shapes, grad_shapes):
         rows.append(dict(label=label, B=B, F=F, H=H, split=plan.split, ctas=plan.ctas,
                          max_abs_err=max_abs, grad_max_abs_err=grad_err, ms=ms,
                          device_ms=dev_ms, host_ms=issue_ms, plain_ms=plain_ms,
-                         addmm_ms=addmm_ms, flops=flops, bytes=nbytes, bound_ms=bms,
-                         bound_by=by))
+                         addmm_ms=addmm_ms, flops=flops, bytes=nbytes, ops_ms=f32_ms(flops),
+                         bound_ms=bms, bound_by=by))
         print(f"B1 {label:>16} B={B:5d} F={F:6d} H={H:5d} (cluster {plan.split}, slice "
               f"{plan.slice}, {plan.ctas} CTAs)  max_abs_err={max_abs:.3e} "
               f"grad_max_abs_err={'n/a' if grad_err is None else f'{grad_err:.3e}'} "
@@ -377,7 +506,7 @@ def check_b3(shapes, grad_shapes):
         dev_ms, dev_ops = device_ms(lambda: kernel(x, y), reps)
         plain_ms = cuda_ms(lambda: plain(x, y), reps)
         flops, nbytes = work_b3(N, M, d)
-        bms, by = bound_ms(flops, nbytes)
+        bms, by = bound_ms(f32_ms(flops), nbytes)
         g_err = None
         if (N, M, d) in grad_shapes:
             g_err = max(
@@ -389,7 +518,8 @@ def check_b3(shapes, grad_shapes):
             )
         rows.append(dict(label=label, shape=[N, M, d], max_abs_err=err,
                          grad_max_abs_err=g_err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
-                         flops=flops, bytes=nbytes, bound_ms=bms, bound_by=by))
+                         flops=flops, bytes=nbytes, ops_ms=f32_ms(flops), bound_ms=bms,
+                         bound_by=by))
         print(f"B3 {label:>16} N={N:5d} M={M:5d} d={d:4d}  mean={float(out):.7f} "
               f"abs_err={err:.3e} (tol {B3_TOL}) deterministic "
               f"grad_max_abs_err={'n/a' if g_err is None else f'{g_err:.3e}'}  "
@@ -453,7 +583,7 @@ def check_mmd_term(shapes, grad_shapes):
         issue_ms = host_ms(lambda: compute_mmd_fused(x, y))
         plain_ms = cuda_ms(lambda: plain(x, y), reps)
         flops, nbytes = work_term(N, M, d)
-        bms, by = bound_ms(flops, nbytes)
+        bms, by = bound_ms(f32_ms(flops), nbytes)
         g_err = None
         if (N, M, d) in grad_shapes:
             g_err = max(b3_grad_err(compute_mmd_fused, plain, (x, y), "the MMD term"),
@@ -461,8 +591,8 @@ def check_mmd_term(shapes, grad_shapes):
                                     (y,), "the MMD term in the batch"))
         rows.append(dict(label=label, shape=[N, M, d], max_abs_err=max(mean_err, mmd_err),
                          grad_max_abs_err=g_err, ms=ms, device_ms=dev_ms, host_ms=issue_ms,
-                         plain_ms=plain_ms, flops=flops, bytes=nbytes, bound_ms=bms,
-                         bound_by=by))
+                         plain_ms=plain_ms, flops=flops, bytes=nbytes, ops_ms=f32_ms(flops),
+                         bound_ms=bms, bound_by=by))
         print(f"B3 term {label:>12} N={N:5d} M={M:5d} d={d:4d}  mmd={float(out[3]):.7e} "
               f"means_abs_err={mean_err:.3e} (tol {B3_TOL}) mmd_abs_err={mmd_err:.3e} "
               f"(tol {MMD_TOL}) deterministic, 1 launch  "
@@ -658,6 +788,8 @@ def serve(workdir: Path):
               f"{busy_us:.0f} us ({100 * busy_us / wall_us:.1f}%); top: "
               + "; ".join(f"{e.key[:48]} {e.self_device_time_total:.0f} us" for e in top),
               flush=True)
+        print("serving: the port's kernels in the profiled predict: " + port_kernels(device, 1),
+              flush=True)
     else:
         print("serving: profiled predict: the profiler saw no device time (not measured)")
 
@@ -745,6 +877,19 @@ def check_card_matches_cpu(model, cohort):
           f"first-step gradients max abs diff {grad_err:.3e} (rtol/atol 1e-4)", flush=True)
 
 
+def port_kernels(events, calls: int) -> str:
+    """The port's kernels among a profile's device ``events``, by the names
+    of their CUDA functions: device time and launches per one of ``calls``."""
+    mine = {}
+    for e in events:
+        for name in KERNEL_FUNCTIONS:
+            if name in e.key:
+                n, us = mine.get(name, (0, 0.0))
+                mine[name] = (n + e.count, us + e.self_device_time_total)
+    return ", ".join(f"{k} {us / calls:.2f} us in {n / calls:g} launches"
+                     for k, (n, us) in mine.items()) or "none"
+
+
 def time_steps(model, cohort):
     """Median host-clock time of one training step (synchronised), and a
     profiled run of PROFILED_STEPS steps with its device-busy share."""
@@ -802,16 +947,8 @@ def time_steps(model, cohort):
               "operations per step; top: "
               + "; ".join(f"{e.key[:48]} {e.self_device_time_total:.0f} us" for e in top),
               flush=True)
-        # the port's own kernels, by the names of their CUDA functions
-        mine = {}
-        for e in device:
-            for name in KERNEL_FUNCTIONS:
-                if name in e.key:
-                    n, us = mine.get(name, (0, 0.0))
-                    mine[name] = (n + e.count, us + e.self_device_time_total)
         print(f"{model.model_name} training: the port's kernels per step (device time): "
-              + (", ".join(f"{k} {us / PROFILED_STEPS:.2f} us in {n / PROFILED_STEPS:g} launches"
-                           for k, (n, us) in mine.items()) or "none"), flush=True)
+              + port_kernels(device, PROFILED_STEPS), flush=True)
     else:
         print(f"{model.model_name} training: profiled steps: the profiler saw no device "
               "time (not measured)")
@@ -1040,12 +1177,14 @@ def build_all(names):
             print(log.read_text().strip(), flush=True)
 
 
-def kernel_entry(name, source, replaces, rows, path_rows, launches, by_path, per_path=1):
+def kernel_entry(name, source, replaces, rows, path_rows, launches, by_path, per_path=1,
+                 extra=None):
     """The kernel's line: times and work summed over ``path_rows`` (the calls
-    of one pass of its path), times ``per_path`` where the pass repeats them."""
-    flops = per_path * sum(r["flops"] for r in path_rows)
+    of one pass of its path), times ``per_path`` where the pass repeats them;
+    ``extra`` adds keys of the kernel's own."""
+    ops_ms = per_path * sum(r["ops_ms"] for r in path_rows)
     nbytes = per_path * sum(r["bytes"] for r in path_rows)
-    bms, by = bound_ms(flops, nbytes)
+    bms, by = bound_ms(ops_ms, nbytes)
     entry = {
         "name": name,
         "route": "cuda",
@@ -1067,30 +1206,24 @@ def kernel_entry(name, source, replaces, rows, path_rows, launches, by_path, per
         entry["host_ms"] = per_path * sum(r["host_ms"] for r in path_rows)
     if "addmm_ms" in path_rows[0]:
         entry["gemm_only_addmm_ms"] = sum(r["addmm_ms"] for r in path_rows)
+    entry.update(extra or {})
     return entry
 
 
 def check_kernels():
     """Build the kernels, then hold B2, B1 and B3 against their plain
-    versions at their path shapes and more; returns the shape lists of the
-    paths and each kernel's per-shape rows."""
+    versions at their path shapes and more; returns the training path's
+    shapes, B2's rows and passes, and the per-shape rows of B1, B3 and the
+    MMD term."""
     import torch
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     build_all(["fused_linear_eval", "fused_linear_train", "mmd_kernel"])
 
-    h_gex, h_cnv = int(GEX * HIDDEN_FACTOR), int(CNV * HIDDEN_FACTOR)
-    serving_shapes = [
-        ("encoder_gex", (N_TEST, GEX, h_gex)),
-        ("encoder_cnv", (N_TEST, CNV, h_cnv)),
-        ("head_subtype", (N_TEST, LATENT, SUP_HIDDEN)),
-    ]
-    request_shapes = [(f"{n}_b{BATCH}", (BATCH, F, H)) for n, (_, F, H) in serving_shapes]
-    extra_shapes = [("ragged", (37, 129, 67)),
-                    ("large_encoder", (1024, 16384, int(16384 * 0.3)))]
-    rows = check_kernel(serving_shapes + request_shapes + extra_shapes)
+    rows, passes = check_b2()
 
+    h_gex, h_cnv = int(GEX * HIDDEN_FACTOR), int(CNV * HIDDEN_FACTOR)
     train_shapes = [
         ("encoder_gex", (BATCH, GEX, h_gex)),
         ("encoder_cnv", (BATCH, CNV, h_cnv)),
@@ -1122,7 +1255,7 @@ def check_kernels():
         term_train + [(f"val{val_rows}", (200, val_rows, LATENT)), ("ragged", (37, 129, 17)),
                       ("one_row", (1, 1, 16))],
         [shape for _, shape in term_train])
-    return serving_shapes, train_shapes, rows, b1_rows, b3_rows, term_rows
+    return train_shapes, rows, passes, b1_rows, b3_rows, term_rows
 
 
 def main() -> int:
@@ -1139,7 +1272,7 @@ def main() -> int:
     card = card_line()
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
     t_start = time.perf_counter()
-    serving_shapes, train_shapes, rows, b1_rows, b3_rows, term_rows = check_kernels()
+    train_shapes, rows, passes, b1_rows, b3_rows, term_rows = check_kernels()
 
     workdir = REPO / "build" / "chip_smoke"
     shutil.rmtree(workdir, ignore_errors=True)
@@ -1149,7 +1282,7 @@ def main() -> int:
     # B2 at the shapes the training phase gave it that serving did not
     checked = {(r["B"], r["F"], r["H"]) for r in rows}
     rows += check_kernel([(f"{n}_n{B}", (B, F, H)) for B in b2_train_rows
-                          for n, (_, F, H) in serving_shapes if (B, F, H) not in checked])
+                          for n, (F, H) in b2_blocks() if (B, F, H) not in checked])
     vae_b3 = train_vae(workdir, "supervised_vae", FIT_EPOCHS)
     cm_b3 = train_vae(workdir, "CrossModalPred", CM_EPOCHS,
                       ("--input_layers", "gex", "--output_layers", "cnv"), timed=False)
@@ -1161,8 +1294,11 @@ def main() -> int:
                      train_b1, {"training": train_b1}),
         kernel_entry("fused_linear_bn_relu_eval", "flexynesis_torch/csrc/fused_linear_eval.cu",
                      "flexynesis_tpu/ops/pallas/fused_linear.py:223", rows,
-                     rows[:len(serving_shapes)],  # one eval forward over the cohort
-                     serve_b2, {"serving": serve_b2, "training": train_b2}),
+                     rows[:len(b2_blocks())],  # one eval forward over the cohort
+                     serve_b2, {"serving": serve_b2, "training": train_b2},
+                     extra={"main_loop": b2_route(), "f32_bound_ms": passes["cohort"]["f32_bound_ms"],
+                            "gemm_only_addmm_device_ms": passes["cohort"]["addmm_device_ms"],
+                            "passes": passes}),
         kernel_entry("gaussian_kernel_mean", "flexynesis_torch/csrc/mmd_kernel.cu",
                      "flexynesis_tpu/ops/pallas/mmd_kernel.py:66", b3_rows + term_rows,
                      term_rows[:1], vae_b3,

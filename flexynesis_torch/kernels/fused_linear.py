@@ -7,13 +7,20 @@
   JAX ``_bwd`` formula in PyTorch ops (the JAX package has no backward kernel
   either).
 * ``fused_linear_bn_relu_eval`` (B2, running statistics) replaces
-  ``fused_linear_bn_relu_eval`` there with ``csrc/fused_linear_eval.cu``.
+  ``fused_linear_bn_relu_eval`` there with ``csrc/fused_linear_eval.cu``: a
+  64 x 64 tile of y per cluster of CTAs that split F, the product on the
+  tensor cores in 3xTF32 (about f32 accuracy), loads through a ``cp.async``
+  ring, the split's partials summed in rank order through distributed shared
+  memory, and bias, BatchNorm and ReLU in the epilogue.
 
 Both keep the JAX signatures and the ``(F, H)`` weight layout; each source's
-header says what bounds the kernel and how its design answers that.
+header says what bounds the kernel and how its design answers that. Both
+split F over a thread-block cluster as the pure-Python planners ``plan_b1``
+and ``plan_b2`` say, per launch.
 
 A wrapper takes the plain version only for tensors on the CPU. For CUDA
-tensors it launches the kernel or raises; there is no size ceiling and no
+tensors it launches the kernel on the current stream of the tensors' device
+(which must be the current device) or raises; there is no size ceiling and no
 fallback. ``<wrapper>.launches`` counts the CUDA launches of its kernels.
 """
 
@@ -25,6 +32,85 @@ from typing import NamedTuple
 import torch
 
 from .build import current_stream, launcher
+
+# the tilings of csrc/fused_linear_train.cu (B1: 64-row x 32-column tiles of
+# h; above ROW_TILE rows each row tile writes partial statistics that a
+# second launch merges) and csrc/fused_linear_eval.cu (B2: 64 x 64 tiles of
+# y); they walk F in 16- and 32-deep stages and split it over a cluster of
+# CTAs
+ROW_TILE = 64
+COL_TILE = 32
+B2_COL_TILE = 64
+K_STAGE = 16
+B2_K_STAGE = 32
+MAX_SPLIT = 8  # the portable cluster size
+MIN_SLICE = 64  # the least depth of F worth a CTA of its own
+H100_SMS = 132
+# the CTAs of B2 one SM holds at once (the minimum of its __launch_bounds__;
+# its registers and shared memory allow 3): B2 is split until the grid fills
+# these slots, since one CTA (a warp per scheduler) cannot hide the latency
+# of its mma.sync and shared-memory loads
+B2_CTAS_PER_SM = 3
+# the route of B2's main loop: each f32 product as three TF32 products on the
+# tensor cores (3xTF32)
+B2_MAIN_LOOP = "3xtf32"
+
+
+class SplitPlan(NamedTuple):
+    """How one B1 or B2 launch splits its work: ``split`` CTAs (a cluster)
+    share each of the ``tiles`` output tiles, CTA r over depth
+    [r * slice, min(F, (r + 1) * slice)) of F."""
+
+    split: int
+    slice: int
+    tiles: int
+
+    @property
+    def ctas(self) -> int:
+        return self.split * self.tiles
+
+
+def _slice(F: int, split: int, k_stage: int) -> int:
+    """The depth of each of ``split`` slices of F, rounded up to whole stages."""
+    return -(-(-(-F // split)) // k_stage) * k_stage
+
+
+def _plan(B: int, F: int, H: int, col_tile: int, k_stage: int, slots: int) -> SplitPlan:
+    """Double the split of F while the grid has fewer CTAs than ``slots``,
+    each slice keeps at least MIN_SLICE of depth and the last CTA still has
+    depth of its own, up to MAX_SPLIT. Slices are whole stages, so no
+    16-byte copy straddles two CTAs."""
+    tiles = -(-B // ROW_TILE) * -(-H // col_tile)
+    split = 1
+    while (split < MAX_SPLIT and tiles * split < slots and F >= 2 * split * MIN_SLICE
+           and (2 * split - 1) * _slice(F, 2 * split, k_stage) < F):
+        split *= 2
+    return SplitPlan(split, _slice(F, split, k_stage), tiles)
+
+
+def plan_b1(B: int, F: int, H: int, sms: int = H100_SMS) -> SplitPlan:
+    """Cluster size and slice depth of a B1 launch (64 x 32 tiles of h), split
+    until the grid has a CTA per SM. A shape with many tiles (a large batch)
+    or a shallow F (the 64-wide head) keeps split 1."""
+    return _plan(B, F, H, COL_TILE, K_STAGE, sms)
+
+
+def plan_b2(B: int, F: int, H: int, sms: int = H100_SMS) -> SplitPlan:
+    """Cluster size and slice depth of a B2 launch (64 x 64 tiles of y), split
+    until the grid fills the B2_CTAS_PER_SM slots of every SM: split 8 at the
+    encoders of 64-, 400- and 500-row batches, 2 and 4 at the 2000-row
+    cohort's encoders (which also spreads their tiles evenly over the SMs),
+    1 at the 64-deep head."""
+    return _plan(B, F, H, B2_COL_TILE, B2_K_STAGE, B2_CTAS_PER_SM * sms)
+
+
+_SMS: dict = {}
+
+
+def _sm_count(device) -> int:
+    if device not in _SMS:
+        _SMS[device] = torch.cuda.get_device_properties(device).multi_processor_count
+    return _SMS[device]
 
 
 def fused_linear_bn_relu_eval_ref(x, w, b, gamma, beta, running_mean,
@@ -56,7 +142,8 @@ def fused_linear_bn_relu_eval(x, w, b, gamma, beta, running_mean, running_var,
                               eps: float = 1e-5):
     """relu((x @ w + b - running_mean) * rsqrt(running_var + eps) * gamma + beta).
 
-    x (B, F), w (F, H), vectors (H,), all float32; returns y (B, H).
+    x (B, F), w (F, H), vectors (H,), all float32; returns y (B, H). On the
+    card: one launch per call, split as ``plan_b2`` says.
     ``fused_linear_bn_relu_eval.launches`` counts kernel launches."""
     if x.device.type == "cpu":
         return fused_linear_bn_relu_eval_ref(
@@ -69,20 +156,20 @@ def fused_linear_bn_relu_eval(x, w, b, gamma, beta, running_mean, running_var,
     _check(x, w, vectors)
     B, F = x.shape
     H = w.shape[1]
+    stream = current_stream(x.device)
     y = torch.empty((B, H), device=x.device, dtype=torch.float32)
     if B == 0 or H == 0:
         return y
+    plan = plan_b2(B, F, H, _sm_count(x.device))
     fn = launcher("fused_linear_eval", "fused_linear_bn_relu_eval_f32",
-                  [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p])
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), gamma.data_ptr(),
-                beta.data_ptr(), running_mean.data_ptr(), running_var.data_ptr(),
-                y.data_ptr(), B, F, H, float(eps), stream)
+                  [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
+    rc = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), gamma.data_ptr(),
+            beta.data_ptr(), running_mean.data_ptr(), running_var.data_ptr(),
+            y.data_ptr(), B, F, H, plan.split, plan.slice, float(eps), stream)
     if rc != 0:
         raise RuntimeError(
             f"fused_linear_bn_relu_eval kernel launch failed: CUDA error {rc} "
-            f"(B={B}, F={F}, H={H})"
+            f"(B={B}, F={F}, H={H}, {plan})"
         )
     fused_linear_bn_relu_eval.launches += 1
     return y
@@ -105,53 +192,6 @@ def fused_linear_bn_relu_ref(x, w, b, gamma, beta, eps: float = 1e-5):
     var = centered.square().mean(dim=0)
     y = torch.relu(centered * torch.rsqrt(var + eps) * gamma + beta)
     return y, h, mu, var
-
-
-# the tiling of csrc/fused_linear_train.cu: a 64-row x 32-column tile of h per
-# cluster of CTAs, F walked in 16-deep stages; above ROW_TILE rows each row
-# tile writes partial statistics that a second launch merges
-ROW_TILE = 64
-COL_TILE = 32
-K_STAGE = 16
-MAX_SPLIT = 8  # the portable cluster size
-MIN_SLICE = 64  # the least depth of F worth a CTA of its own (4 stages)
-H100_SMS = 132
-
-
-class B1Plan(NamedTuple):
-    """How one B1 launch splits its work: ``split`` CTAs (a cluster) share
-    each of the ``tiles`` 64 x 32 tiles of h, CTA r over depth
-    [r * slice, min(F, (r + 1) * slice)) of F."""
-
-    split: int
-    slice: int
-    tiles: int
-
-    @property
-    def ctas(self) -> int:
-        return self.split * self.tiles
-
-
-def plan_b1(B: int, F: int, H: int, sms: int = H100_SMS) -> B1Plan:
-    """Cluster size and slice depth of a B1 launch: double the split of F
-    while the grid has fewer CTAs than the card has SMs and each slice keeps
-    at least MIN_SLICE of depth, up to MAX_SPLIT. A shape with many tiles
-    (a large batch) or a shallow F (the 64-wide head) keeps split 1."""
-    tiles = -(-B // ROW_TILE) * -(-H // COL_TILE)
-    split = 1
-    while split < MAX_SPLIT and tiles * split < sms and F >= 2 * split * MIN_SLICE:
-        split *= 2
-    depth = -(-F // split)
-    return B1Plan(split, -(-depth // K_STAGE) * K_STAGE, tiles)
-
-
-_SMS: dict = {}
-
-
-def _sm_count(device) -> int:
-    if device not in _SMS:
-        _SMS[device] = torch.cuda.get_device_properties(device).multi_processor_count
-    return _SMS[device]
 
 
 def fused_linear_bn_relu_forward(x, w, b, gamma, beta, eps: float = 1e-5):

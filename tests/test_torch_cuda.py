@@ -23,6 +23,7 @@ from flexynesis_torch.kernels.fused_linear import (
     fused_linear_bn_relu_forward,
     fused_linear_bn_relu_ref,
     plan_b1,
+    plan_b2,
 )
 from flexynesis_torch.kernels.mmd import (
     GaussianKernelMean,
@@ -54,9 +55,12 @@ def _inputs(B, F, H, device):
     return [t.to(device) for t in (x, w, vec[0], 1 + vec[1], vec[2], vec[3], rv)]
 
 
+# kernel B2: ragged edges, one row, no depth, and an F and H whose rows take
+# 4-byte copies; each one launch and the same bits on repeat
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,F,H", [(1, 1, 1), (5, 37, 19), (37, 129, 67),
-                                   (130, 300, 257), (64, 2000, 600)])
+                                   (130, 300, 257), (64, 2000, 600), (64, 1999, 601),
+                                   (1, 2000, 600), (64, 0, 5)])
 def test_kernel_matches_plain_version(card, B, F, H):
     args = _inputs(B, F, H, card)
     before = fused_linear_bn_relu_eval.launches
@@ -65,6 +69,26 @@ def test_kernel_matches_plain_version(card, B, F, H):
     assert fused_linear_bn_relu_eval.launches == before + 1
     torch.testing.assert_close(y, fused_linear_bn_relu_eval_ref(*args),
                                rtol=1e-4, atol=1e-4)
+    assert torch.equal(y, fused_linear_bn_relu_eval(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split,B,F,H", [(1, 64, 64, 16), (2, 64, 128, 600), (4, 64, 256, 600),
+                                         (8, 64, 2000, 600), (8, 64, 1000, 300),
+                                         (8, 400, 2000, 600), (8, 500, 1000, 300),
+                                         (2, 2000, 2000, 600), (4, 2000, 1000, 300),
+                                         (1, 2000, 64, 16), (8, 64, 1999, 601)])
+def test_b2_reaches_each_cluster_size(card, split, B, F, H):
+    assert plan_b2(B, F, H, torch.cuda.get_device_properties(card).multi_processor_count
+                   ).split == split
+    args = _inputs(B, F, H, card)
+    before = fused_linear_bn_relu_eval.launches
+    y = fused_linear_bn_relu_eval(*args)
+    again = fused_linear_bn_relu_eval(*args)
+    torch.cuda.synchronize()
+    assert fused_linear_bn_relu_eval.launches == before + 2  # one launch per call
+    torch.testing.assert_close(y, fused_linear_bn_relu_eval_ref(*args), rtol=1e-4, atol=1e-4)
+    assert torch.equal(y, again)  # fixed cluster order
 
 
 @pytest.mark.cuda

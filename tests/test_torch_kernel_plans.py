@@ -1,6 +1,7 @@
-"""How kernels B1 and B3 of the port cut their work, in pure Python that runs
-without a card: B1's planner (``kernels/fused_linear.py::plan_b1``: the
-cluster size and slice of F per launch) and B3's enumeration of the tiles of
+"""How kernels B1, B2 and B3 of the port cut their work, in pure Python that
+runs without a card: B1's and B2's planners (``kernels/fused_linear.py::
+plan_b1`` and ``plan_b2``: the cluster size and slice of F per launch) and
+B3's enumeration of the tiles of
 its pair sets (``kernels/mmd.py::decode_tile``, the mirror of the kernel's
 ``decode_tile``); and the name of a built library, which must change with
 any header the sources share. The kernels themselves run in
@@ -12,12 +13,17 @@ import pytest
 
 from flexynesis_torch.kernels import build
 from flexynesis_torch.kernels.fused_linear import (
+    B2_COL_TILE,
+    B2_CTAS_PER_SM,
+    B2_K_STAGE,
     COL_TILE,
+    H100_SMS,
     K_STAGE,
     MAX_SPLIT,
     MIN_SLICE,
     ROW_TILE,
     plan_b1,
+    plan_b2,
 )
 from flexynesis_torch.kernels.mmd import (
     TILE,
@@ -58,12 +64,10 @@ def test_small_depth_or_many_tiles_keep_split_one(B, F, H):
     assert plan_b1(B, F, H).split == 1
 
 
-@pytest.mark.parametrize("B,F,H", PATH_SHAPES + OTHER_SHAPES)
-def test_slices_cover_f_exactly_once(B, F, H):
-    plan = plan_b1(B, F, H)
-    assert plan.split in (1, 2, 4, 8) and COL_TILE % plan.split == 0
-    assert plan.slice % K_STAGE == 0
-    assert plan.tiles == -(-B // ROW_TILE) * -(-H // COL_TILE)
+def _check_slices(plan, F, k_stage):
+    """The slices of ``plan`` are whole stages and cover F exactly once."""
+    assert plan.split in (1, 2, 4, 8)
+    assert plan.slice % k_stage == 0
     covered = []
     for r in range(plan.split):  # CTA r's depth, as the kernel computes it
         begin = min(F, r * plan.slice)
@@ -74,6 +78,14 @@ def test_slices_cover_f_exactly_once(B, F, H):
         assert -(-F // plan.split) >= MIN_SLICE
 
 
+@pytest.mark.parametrize("B,F,H", PATH_SHAPES + OTHER_SHAPES)
+def test_slices_cover_f_exactly_once(B, F, H):
+    plan = plan_b1(B, F, H)
+    assert COL_TILE % plan.split == 0
+    assert plan.tiles == -(-B // ROW_TILE) * -(-H // COL_TILE)
+    _check_slices(plan, F, K_STAGE)
+
+
 @pytest.mark.parametrize("sms,want", [(1, 1), (19, 1), (38, 2), (132, 8), (1000, 8)])
 def test_split_follows_the_sm_count_up_to_the_portable_cluster(sms, want):
     assert plan_b1(64, 2000, 600, sms).split == want  # 19 tiles of h
@@ -82,6 +94,65 @@ def test_split_follows_the_sm_count_up_to_the_portable_cluster(sms, want):
 def test_planner_reaches_every_cluster_size():
     # the cluster sizes chip_smoke.py and the card tests exercise
     assert [plan_b1(64, F, 600).split for F in (64, 128, 256, 2000)] == [1, 2, 4, 8]
+
+
+# ------------------------------------------------------------------ B2 plans
+
+# (F, H) of the three B2 calls of one DirectPred eval forward at the headline
+# width, and the batch sizes the paths give them: a 64-row request, the
+# 400-row validation split, the 500-row test cohort, the 2000-row cohort
+B2_BLOCKS = [(2000, 600), (1000, 300), (64, 16)]
+B2_ROWS = [64, 400, 500, 2000]
+B2_PATH = [(B, F, H) for B in B2_ROWS for F, H in B2_BLOCKS]
+
+
+@pytest.mark.parametrize("B,F,H", B2_PATH)
+def test_b2_grid_has_at_least_the_one_block_per_tile_grid(B, F, H):
+    plan = plan_b2(B, F, H)
+    assert plan.tiles == _old_grid(B, H)  # 64 x 64 tiles of y, as before the split
+    assert plan.ctas >= _old_grid(B, H)
+
+
+@pytest.mark.parametrize("B,F,H,split", [
+    *[(B, F, H, 8) for B in (64, 400, 500) for F, H in B2_BLOCKS[:2]],
+    (2000, 2000, 600, 2), (2000, 1000, 300, 4),   # 320 and 160 tiles for 396 slots
+    *[(B, 64, 16, 1) for B in B2_ROWS]])           # the 64-deep head
+def test_b2_split_at_each_path_shape(B, F, H, split):
+    assert plan_b2(B, F, H).split == split
+
+
+@pytest.mark.parametrize("B", B2_ROWS)
+def test_b2_grids_are_split_until_they_fill_every_slot(B):
+    slots = B2_CTAS_PER_SM * H100_SMS
+    for F, H in B2_BLOCKS[:2]:
+        plan = plan_b2(B, F, H)
+        assert plan.tiles < slots and (plan.ctas >= slots or plan.split == MAX_SPLIT)
+
+
+@pytest.mark.parametrize("B,F,H", B2_PATH + OTHER_SHAPES)
+def test_b2_slices_cover_f_exactly_once(B, F, H):
+    plan = plan_b2(B, F, H)
+    assert B2_COL_TILE % plan.split == 0
+    assert plan.tiles == -(-B // ROW_TILE) * -(-H // B2_COL_TILE)
+    _check_slices(plan, F, B2_K_STAGE)
+
+
+@pytest.mark.parametrize("planner,k_stage", [(plan_b1, K_STAGE), (plan_b2, B2_K_STAGE)])
+def test_no_cta_of_a_cluster_is_idle_at_any_depth(planner, k_stage):
+    # rounding slices up to whole stages must never leave the last rank
+    # without depth (F = 513 at split 8 would, with 96-deep slices of B2)
+    for F in range(0, 4097):
+        _check_slices(planner(64, F, 600), F, k_stage)
+
+
+def test_b2_planner_reaches_every_cluster_size():
+    # the cluster sizes chip_smoke.py and the card tests exercise
+    assert [plan_b2(64, F, 600).split for F in (64, 128, 256, 2000)] == [1, 2, 4, 8]
+
+
+@pytest.mark.parametrize("sms,want", [(1, 1), (3, 1), (4, 2), (7, 4), (132, 8)])
+def test_b2_split_follows_the_sm_count(sms, want):
+    assert plan_b2(64, 2000, 600, sms).split == want  # 10 tiles of y, 3 slots per SM
 
 
 # ------------------------------------------------------------------ B3 tiles
@@ -157,5 +228,5 @@ def test_library_hash_covers_the_source_and_every_header(tmp_path, monkeypatch):
 
 def test_the_port_sources_share_a_header():
     assert (build.CSRC_DIR / "cp_async.cuh").exists()
-    for name in ("fused_linear_train", "mmd_kernel"):
+    for name in ("fused_linear_eval", "fused_linear_train", "mmd_kernel"):
         assert '#include "cp_async.cuh"' in (build.CSRC_DIR / f"{name}.cu").read_text()
