@@ -198,27 +198,16 @@ def bound_ms(ops_ms: float, nbytes: float):
     return max(ops_ms, t_bytes), ("operations" if ops_ms >= t_bytes else "bytes")
 
 
-def b2_route() -> str:
-    """The route of B2's main loop as its module states it: "3xtf32" (three
-    TF32 tensor-core products) or "f32" (FMAs; a kernel whose module states
-    no route, the first one-block-per-tile design, is f32)."""
-    from flexynesis_torch.kernels import fused_linear
-
-    return getattr(fused_linear, "B2_MAIN_LOOP", "f32")
-
-
-def work_b2(B: int, F: int, H: int, route: str):
-    """(least time of the operations in ms, bytes) of one B2 call by the route
-    of its main loop: 3xTF32 runs the product three times on the tensor cores
-    (495 TFLOP/s), f32 once on the FMA units (67 TFLOP/s); the 6-op epilogue
-    per output runs on the FMA units either way. Each input read once and the
-    output written once, in f32."""
+def work_b2(B: int, F: int, H: int):
+    """(least time of the operations in ms, the same in f32, bytes) of one B2
+    call. B2's main loop is 3xTF32: the product three times on the tensor
+    cores (495 TFLOP/s); the f32 time is the product once on the FMA units
+    (67 TFLOP/s), the bound of an FMA kernel, printed beside it. The 6-op
+    epilogue per output runs on the FMA units either way. Each input read
+    once and the output written once, in f32."""
     gemm, epilogue = 2 * B * F * H, 6 * B * H
-    if route == "3xtf32":
-        ops_ms = 3 * gemm / PEAK_TF32_FLOPS * 1e3 + f32_ms(epilogue)
-    else:
-        ops_ms = f32_ms(gemm + epilogue)
-    return ops_ms, 4 * (B * F + F * H + 5 * H + B * H)
+    ops_ms = 3 * gemm / PEAK_TF32_FLOPS * 1e3 + f32_ms(epilogue)
+    return ops_ms, f32_ms(gemm + epilogue), 4 * (B * F + F * H + 5 * H + B * H)
 
 
 def check_kernel(shapes):
@@ -232,11 +221,7 @@ def check_kernel(shapes):
 
     kernel = fused_linear.fused_linear_bn_relu_eval
     plain = fused_linear.fused_linear_bn_relu_eval_ref
-    # an earlier kernel without a planner ran one block per 64 x 64 tile; the
-    # phase measures it too, so that two versions compare in one call
-    planner = getattr(fused_linear, "plan_b2", None)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    route = b2_route()
     rows = []
     for label, (B, F, H) in shapes:
         g = torch.Generator(device="cuda").manual_seed(B * 7 + F * 3 + H)
@@ -267,29 +252,23 @@ def check_kernel(shapes):
         plain_ms = cuda_ms(lambda: plain(*args), reps)
         addmm_ms = cuda_ms(lambda: torch.addmm(b, x, w), reps)
         addmm_dev, _ = device_ms(lambda: torch.addmm(b, x, w), reps)
-        ops_ms, nbytes = work_b2(B, F, H, route)
-        f32_ops_ms = work_b2(B, F, H, "f32")[0]
+        ops_ms, f32_ops_ms, nbytes = work_b2(B, F, H)
         bms, by = bound_ms(ops_ms, nbytes)
         f32_bms = bound_ms(f32_ops_ms, nbytes)[0]
         flops = 2 * B * F * H + 6 * B * H
-        if planner is None:
-            split, ctas = None, -(-B // 64) * -(-H // 64)
-        else:
-            plan = planner(B, F, H, sms)
-            split, ctas = plan.split, plan.ctas
-        rows.append(dict(label=label, B=B, F=F, H=H, split=split, ctas=ctas,
+        plan = fused_linear.plan_b2(B, F, H, sms)
+        rows.append(dict(label=label, B=B, F=F, H=H, split=plan.split, ctas=plan.ctas,
                          max_abs_err=max_abs, max_rel_err=max_rel, ms=ms, device_ms=dev_ms,
                          host_ms=issue_ms, plain_ms=plain_ms, addmm_ms=addmm_ms,
                          addmm_device_ms=addmm_dev, flops=flops, bytes=nbytes, ops_ms=ops_ms,
-                         f32_ops_ms=f32_ops_ms, bound_ms=bms, bound_by=by,
-                         f32_bound_ms=f32_bms))
-        print(f"B2 {label:>16} B={B:5d} F={F:6d} H={H:5d} (cluster {split}, {ctas} CTAs)  "
-              f"max_abs_err={max_abs:.3e} normwise_rel_err={max_rel:.3e} (tol {TOL}) "
-              f"deterministic, 1 launch  kernel {ms:.4f} ms (device {fmt_ms(dev_ms)}, "
-              f"{dev_ops:g} device ops; host issue {issue_ms:.4f} ms)  plain {plain_ms:.4f} ms  "
-              f"addmm(GEMM only) {addmm_ms:.4f} ms (device {fmt_ms(addmm_dev)})  bound "
-              f"{bms:.4f} ms ({route}, {by}; f32 bound {f32_bms:.4f} ms)  "
-              f"{flops / ms / 1e9:.2f} TFLOP/s", flush=True)
+                         f32_ops_ms=f32_ops_ms))
+        print(f"B2 {label:>16} B={B:5d} F={F:6d} H={H:5d} (cluster {plan.split}, "
+              f"{plan.ctas} CTAs)  max_abs_err={max_abs:.3e} normwise_rel_err={max_rel:.3e} "
+              f"(tol {TOL}) deterministic, 1 launch  kernel {ms:.4f} ms (device "
+              f"{fmt_ms(dev_ms)}, {dev_ops:g} device ops; host issue {issue_ms:.4f} ms)  "
+              f"plain {plain_ms:.4f} ms  addmm(GEMM only) {addmm_ms:.4f} ms (device "
+              f"{fmt_ms(addmm_dev)})  bound {bms:.4f} ms (3xTF32, {by}; f32 bound "
+              f"{f32_bms:.4f} ms)  {flops / ms / 1e9:.2f} TFLOP/s", flush=True)
     return rows
 
 
@@ -310,8 +289,8 @@ def b2_pass_rows():
 
 def b2_passes(rows):
     """Each pass of ``b2_pass_rows`` summed over its three calls: the three
-    timings, the plain version, addmm, the route's bound and the f32 bound."""
-    route = b2_route()
+    timings, the plain version and addmm; the pass's printed line adds the
+    3xTF32 bound and the f32 bound."""
     blocks = [fh for _, fh in b2_blocks()]
     passes = {}
     for name, n in b2_pass_rows():
@@ -325,17 +304,16 @@ def b2_passes(rows):
         for k in ("device_ms", "addmm_device_ms"):
             total[k] = None if any(r[k] is None for r in sel) else sum(r[k] for r in sel)
         bms, by = bound_ms(total["ops_ms"], total["bytes"])
+        f32_bms = bound_ms(total["f32_ops_ms"], total["bytes"])[0]
         passes[name] = dict(rows=n, ms=total["ms"], device_ms=total["device_ms"],
                             host_ms=total["host_ms"], plain_ms=total["plain_ms"],
                             addmm_ms=total["addmm_ms"],
-                            addmm_device_ms=total["addmm_device_ms"], bound_ms=bms,
-                            bound_by=by, route=route,
-                            f32_bound_ms=bound_ms(total["f32_ops_ms"], total["bytes"])[0])
+                            addmm_device_ms=total["addmm_device_ms"])
         print(f"B2 pass {name} ({n} rows, {len(sel)} calls): device {fmt_ms(total['device_ms'])}"
               f"  CUDA events {total['ms']:.4f} ms  host issue {total['host_ms']:.4f} ms  "
-              f"bound {bms:.4f} ms ({route}, {by})  f32 bound {passes[name]['f32_bound_ms']:.4f}"
-              f" ms  plain {total['plain_ms']:.4f} ms  addmm(GEMM only) {total['addmm_ms']:.4f}"
-              f" ms (device {fmt_ms(total['addmm_device_ms'])})", flush=True)
+              f"bound {bms:.4f} ms (3xTF32, {by})  f32 bound {f32_bms:.4f} ms  plain "
+              f"{total['plain_ms']:.4f} ms  addmm(GEMM only) {total['addmm_ms']:.4f} ms (device "
+              f"{fmt_ms(total['addmm_device_ms'])})", flush=True)
     return passes
 
 
@@ -360,6 +338,34 @@ def check_b2():
                ("ragged", (37, 129, 67)), ("large_encoder", (1024, 16384, int(16384 * 0.3)))]
     rows = check_kernel(shapes)
     return rows, b2_passes(rows)
+
+
+def b2_forward_times():
+    """{pass: (host issue ms, CUDA-event ms)} of one eval forward (B2's three
+    calls back to back) at each pass of ``b2_pass_rows``. It calls only the
+    public wrapper, so it times whichever ``flexynesis_torch`` is imported:
+    that of an earlier commit too, when two trees are compared in one call."""
+    import torch
+    from flexynesis_torch.kernels.fused_linear import fused_linear_bn_relu_eval as kernel
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    times = {}
+    for name, n in b2_pass_rows():
+        calls = []
+        for _, (F, H) in b2_blocks():
+            x = torch.randn(n, F, device="cuda", generator=g)
+            w = torch.randn(F, H, device="cuda", generator=g) / math.sqrt(F)
+            vecs = [torch.rand(H, device="cuda", generator=g) + 0.5 for _ in range(5)]
+            calls.append((x, w, *vecs))
+
+        def forward():
+            for args in calls:
+                kernel(*args)
+
+        times[name] = (host_ms(forward), cuda_ms(forward, 30))
+        print(f"B2 forward {name} ({n} rows): host issue {times[name][0]:.4f} ms  "
+              f"CUDA events {times[name][1]:.4f} ms", flush=True)
+    return times
 
 
 def work_b1(B: int, F: int, H: int):
@@ -1296,8 +1302,7 @@ def main() -> int:
                      "flexynesis_tpu/ops/pallas/fused_linear.py:223", rows,
                      rows[:len(b2_blocks())],  # one eval forward over the cohort
                      serve_b2, {"serving": serve_b2, "training": train_b2},
-                     extra={"main_loop": b2_route(), "f32_bound_ms": passes["cohort"]["f32_bound_ms"],
-                            "gemm_only_addmm_device_ms": passes["cohort"]["addmm_device_ms"],
+                     extra={"gemm_only_addmm_device_ms": passes["cohort"]["addmm_device_ms"],
                             "passes": passes}),
         kernel_entry("gaussian_kernel_mean", "flexynesis_torch/csrc/mmd_kernel.cu",
                      "flexynesis_tpu/ops/pallas/mmd_kernel.py:66", b3_rows + term_rows,

@@ -62,6 +62,8 @@
 // wgmma would need a transposed copy of w that the port does not hold. That,
 // and TMA loads with mbarriers, are later work.
 
+#include <atomic>
+
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -342,10 +344,19 @@ cudaError_t launch(unsigned blocks, cudaStream_t stream, const float* x, const f
                    const float* running_mean, const float* running_var, float* y, int B,
                    int F, int H, int split, int slice, int col_tiles, float eps) {
   auto kernel = fused_linear_bn_relu_eval_kernel<VEC_X, VEC_W>;
-  // above 48 KB a block's shared memory must be allowed per function
-  cudaError_t rc = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                        RING_BYTES);
+  // above 48 KB a block's shared memory must be allowed per function and
+  // device: once, at the first launch on each device (a bit per device; a
+  // device past the 64th sets it every launch)
+  static std::atomic<unsigned long long> allowed{0};
+  int dev = 0;
+  cudaError_t rc = cudaGetDevice(&dev);
   if (rc != cudaSuccess) return rc;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
+  if (!(allowed.load(std::memory_order_relaxed) & bit)) {
+    rc = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, RING_BYTES);
+    if (rc != cudaSuccess) return rc;
+    allowed.fetch_or(bit, std::memory_order_relaxed);
+  }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(blocks);
   cfg.blockDim = dim3(THREADS);

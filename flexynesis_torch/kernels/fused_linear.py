@@ -27,6 +27,7 @@ fallback. ``<wrapper>.launches`` counts the CUDA launches of its kernels.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -51,9 +52,6 @@ H100_SMS = 132
 # these slots, since one CTA (a warp per scheduler) cannot hide the latency
 # of its mma.sync and shared-memory loads
 B2_CTAS_PER_SM = 3
-# the route of B2's main loop: each f32 product as three TF32 products on the
-# tensor cores (3xTF32)
-B2_MAIN_LOOP = "3xtf32"
 
 
 class SplitPlan(NamedTuple):
@@ -75,11 +73,13 @@ def _slice(F: int, split: int, k_stage: int) -> int:
     return -(-(-(-F // split)) // k_stage) * k_stage
 
 
+@functools.lru_cache(maxsize=1024)
 def _plan(B: int, F: int, H: int, col_tile: int, k_stage: int, slots: int) -> SplitPlan:
     """Double the split of F while the grid has fewer CTAs than ``slots``,
     each slice keeps at least MIN_SLICE of depth and the last CTA still has
     depth of its own, up to MAX_SPLIT. Slices are whole stages, so no
-    16-byte copy straddles two CTAs."""
+    16-byte copy straddles two CTAs. Cached per shape: a wrapper plans every
+    call."""
     tiles = -(-B // ROW_TILE) * -(-H // col_tile)
     split = 1
     while (split < MAX_SPLIT and tiles * split < slots and F >= 2 * split * MIN_SLICE
