@@ -59,7 +59,26 @@ Phases (any failure exits nonzero):
 7. CrossModalPred, gex encoded and cnv decoded, 3 epochs: B3's launch
    counts, ``fit.cnv_decoded.csv`` with 500 x 1000 values in [0, 1], and the
    saved model (with its decoded layer) served on the card and on the CPU
-   agree.
+   agree;
+8. the K-stacked HPO trial engine (after phase 5, on its folder and
+   import): B1 and B2 with a trial axis against their plain versions (with
+   phase 3) at K = 16 over the three blocks (B1's batch rows shared and per
+   trial, B2 over the 400-row validation split), K = 1 (the same bits as
+   without the axis) and a ragged K = 3, one launch per stacked call, B1's
+   gradients; three stacked steps of K = 4 (f32 parameters and moments,
+   four lrs) against four single-trial Trainer steps and against the CPU;
+   SR-bf16 Adam on the card against the CPU (the engine's optimizer, with
+   fixed SR seeds): three Adam steps on the same gradients bit for bit,
+   clipped and unclipped, and three SR-bf16 stacked steps of a
+   same-architecture round and of a padded mixed round (element masks,
+   padded entries exactly zero); one stacked step's time and a profiled
+   run; then three training CLI runs of 16 suggestions: a
+   same-architecture round (``--hpo_batch 0`` must resolve to 16, ``lr``
+   free) whose B1 and B2 launches grow with the steps
+   and not with K and whose retrained model serves alike on the card and
+   the CPU, the same 16 trials one at a time (``--hpo_batch 1``), and a
+   mixed-architecture round (the default space, fused off) that must take
+   the padded path and retrain its best; trials/h of each.
 
 Every kernel check prints the kernel's CUDA-event time per call, beside its
 device time per call from a torch.profiler trace (``device_ms``), the plain
@@ -105,6 +124,7 @@ B1_PER_STEP = 3  # two encoders and one head
 EVAL_FORWARDS = 4  # transform and predict, of train and of test
 PROFILED_STEPS = 7
 CM_EPOCHS = 3  # the CrossModalPred run, cut to 3 epochs
+TRIALS = 16  # suggestions per GP round: --hpo_batch 0 on the card, hpo_iter 16
 DEVICE = "cuda"  # the training phase's device (a CPU rehearsal sets "cpu")
 # the CUDA functions of the port's kernels, as the profiles name them: B1
 # (and its merge launch above 64 rows), B2 and B3
@@ -443,6 +463,139 @@ def check_b1(shapes, grad_shapes):
               f"{dev_ops:g} device ops; host issue {issue_ms:.4f} ms)  plain {plain_ms:.4f} ms  "
               f"addmm(GEMM only) {addmm_ms:.4f} ms  bound {bms:.4f} ms ({by})  "
               f"{flops / ms / 1e9:.2f} TFLOP/s", flush=True)
+    return rows
+
+
+def _trial_inputs(K, B, F, H, per_trial, seed, eval_mode):
+    """Seeded operands of one trial-axis call: x (K, B, F) or one (B, F), w
+    (K, F, H) and the vectors (K, H) (five for B2, three for B1)."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(*((K,) if per_trial else ()), B, F, device="cuda", generator=g)
+    w = (torch.rand(K, F, H, device="cuda", generator=g) * 2 - 1) / math.sqrt(max(F, 1))
+    b, be = (torch.randn(K, H, device="cuda", generator=g) * 0.1 for _ in range(2))
+    gamma = torch.rand(K, H, device="cuda", generator=g) + 0.5
+    if not eval_mode:
+        return (x, w, b, gamma, be)
+    rm = torch.randn(K, H, device="cuda", generator=g) * 0.1
+    rv = torch.rand(K, H, device="cuda", generator=g) + 0.5
+    return (x, w, b, gamma, be, rm, rv)
+
+
+def check_trial_kernels():
+    """B1 and B2 with a trial axis against their plain versions: B1 at the
+    three blocks of a 16-trial DirectPred training step (x shared and x per
+    trial), B2 at the three blocks of a 16-trial validation of 400 rows (x
+    shared), K = 1 (the same bits as the call without the axis) and a ragged
+    K = 3; within TOL, two calls bit for bit, one launch per stacked call (two
+    above 64 rows for B1), B1's gradients against autograd through the plain
+    version. Prints CUDA-event, device and host-issue times per stacked call
+    and the bound; returns per-shape rows."""
+    import torch
+    from flexynesis_torch.kernels.fused_linear import (
+        ROW_TILE,
+        fused_linear_bn_relu,
+        fused_linear_bn_relu_eval,
+        fused_linear_bn_relu_eval_ref,
+        fused_linear_bn_relu_forward,
+        fused_linear_bn_relu_ref,
+        plan_b1,
+        plan_b2,
+    )
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    h_gex, h_cnv = int(GEX * HIDDEN_FACTOR), int(CNV * HIDDEN_FACTOR)
+    blocks = [("encoder_gex", GEX, h_gex), ("encoder_cnv", CNV, h_cnv),
+              ("head_subtype", LATENT, SUP_HIDDEN)]
+    val_rows = int(math.ceil(FIT_TRAIN * VAL_SIZE))
+    cases = []  # (kernel, label, K, B, F, H, x per trial)
+    for name, F, H in blocks:
+        cases += [("B1", f"{name}_shared_x", TRIALS, BATCH, F, H, False),
+                  ("B1", f"{name}_x_per_trial", TRIALS, BATCH, F, H, True)]
+    cases += [("B1", "k1_encoder_gex", 1, BATCH, GEX, h_gex, False),
+              ("B1", "k3_ragged", 3, 37, 129, 67, True),
+              ("B1", "k3_ragged_b130", 3, 130, 129, 67, False)]
+    cases += [("B2", f"{name}_val{val_rows}", TRIALS, val_rows, F, H, False)
+              for name, F, H in blocks]
+    cases += [("B2", "k1_encoder_gex", 1, val_rows, GEX, h_gex, False),
+              ("B2", "k3_ragged", 3, 37, 129, 67, True)]
+    rows = []
+    for kind, label, K, B, F, H, per_trial in cases:
+        args = _trial_inputs(K, B, F, H, per_trial, K * 7 + B * 5 + F * 3 + H, kind == "B2")
+        if kind == "B2":
+            kernel, plain, counter = (fused_linear_bn_relu_eval, fused_linear_bn_relu_eval_ref,
+                                      fused_linear_bn_relu_eval)
+            per_call, plan = 1, plan_b2(B, F, H, sms, K)
+            ops_ms = K * work_b2(B, F, H)[0]  # 3xTF32, as work_b2 counts it
+            nbytes = 4 * ((K if per_trial else 1) * B * F + K * (F * H + 5 * H + B * H))
+            flops = K * (2 * B * F * H + 6 * B * H)
+        else:
+            kernel, plain, counter = (fused_linear_bn_relu_forward, fused_linear_bn_relu_ref,
+                                      fused_linear_bn_relu)
+            per_call, plan = (1 if B <= ROW_TILE else 2), plan_b1(B, F, H, sms, K)
+            flops = K * work_b1(B, F, H)[0]
+            nbytes = 4 * ((K if per_trial else 1) * B * F + K * (F * H + 2 * B * H + 5 * H))
+            ops_ms = f32_ms(flops)
+        before = counter.launches
+        out = kernel(*args)
+        torch.cuda.synchronize()
+        if counter.launches != before + per_call:
+            fail(f"{kind} with a trial axis made {counter.launches - before} launches at {label}, "
+                 f"expected {per_call}")
+        ref = plain(*args)
+        outs, refs = ((out,), (ref,)) if kind == "B2" else (out, ref)
+        max_abs = 0.0
+        for got, want in zip(outs, refs):
+            max_abs = max(max_abs, float((got - want).abs().max()))
+            if not torch.allclose(got, want, **TOL):
+                fail(f"{kind} with a trial axis disagrees with its plain version at {label} "
+                     f"K={K} B={B} F={F} H={H}: max abs {max_abs:.3e}, tolerance {TOL}")
+        again = kernel(*args)
+        if not all(torch.equal(a, c) for a, c in zip(outs, (again,) if kind == "B2" else again)):
+            fail(f"{kind} with a trial axis is not deterministic at {label}")
+        if K == 1:  # the stacked call of one trial is the call without the axis
+            flat = [a[0] if a.dim() == 3 or (a.dim() == 2 and i > 0) else a
+                    for i, a in enumerate(args)]
+            single = kernel(*flat)
+            singles = (single,) if kind == "B2" else single
+            if not all(torch.equal(a[0], c) for a, c in zip(outs, singles)):
+                fail(f"{kind}: K = 1 differs from the call without a trial axis at {label}")
+        grad_err = None
+        if kind == "B1" and B == BATCH and K == TRIALS:
+            gy = torch.randn(K, B, H, device="cuda", generator=torch.Generator(
+                device="cuda").manual_seed(B + F))
+            grads = []
+            for fn in (lambda *a: fused_linear_bn_relu(*a)[0], lambda *a: plain(*a)[0]):
+                leaves = [t.clone().requires_grad_() for t in args]
+                (fn(*leaves) * gy).sum().backward()
+                grads.append([t.grad for t in leaves])
+            grad_err = 0.0
+            for name, got, want in zip(("dx", "dw", "db", "dgamma", "dbeta"), *grads):
+                err = float((got - want).abs().max())
+                grad_err = max(grad_err, err)
+                if not torch.allclose(got, want, **TOL):
+                    fail(f"B1 trial-axis gradient {name} disagrees with autograd through the "
+                         f"plain version at {label}: max abs {err:.3e}, tolerance {TOL}")
+        reps = 30
+        ms = cuda_ms(lambda: kernel(*args), reps)
+        dev_ms, dev_ops = device_ms(lambda: kernel(*args), reps)
+        issue_ms = host_ms(lambda: kernel(*args))
+        plain_ms = cuda_ms(lambda: plain(*args), reps)
+        bms, by = bound_ms(ops_ms, nbytes)
+        rows.append(dict(kernel=kind, label=label, K=K, B=B, F=F, H=H, per_trial=per_trial,
+                         launches=per_call, split=plan.split, ctas=plan.ctas,
+                         max_abs_err=max_abs,
+                         grad_max_abs_err=grad_err, ms=ms, device_ms=dev_ms, host_ms=issue_ms,
+                         plain_ms=plain_ms, flops=flops, bytes=nbytes, ops_ms=ops_ms,
+                         bound_ms=bms, bound_by=by))
+        print(f"{kind} trials {label:>22} K={K:3d} B={B:4d} F={F:5d} H={H:4d} x "
+              f"{'per trial' if per_trial else 'shared'} (cluster {plan.split}, {plan.ctas} CTAs) "
+              f"max_abs_err={max_abs:.3e} grad_max_abs_err="
+              f"{'n/a' if grad_err is None else f'{grad_err:.3e}'} (tol {TOL}) deterministic, "
+              f"{per_call} launch(es) per call  kernel {ms:.4f} ms (device {fmt_ms(dev_ms)}, "
+              f"{dev_ops:g} device ops; host issue {issue_ms:.4f} ms)  plain {plain_ms:.4f} ms  "
+              f"bound {bms:.5f} ms ({by}{', 3xTF32' if kind == 'B2' else ', f32'})", flush=True)
     return rows
 
 
@@ -962,8 +1115,9 @@ def time_steps(model, cohort):
 
 
 def train(workdir: Path):
-    """The training phase; returns (B1 launches, B2 launches) of the CLI run
-    and the batch sizes the run gave B2 (validation, train and test cohorts)."""
+    """The training phase; returns (B1 launches, B2 launches) of the CLI run,
+    the batch sizes the run gave B2 (validation, train and test cohorts) and
+    the test cohort as the saved model's artifacts import it."""
     import numpy as np
     from flexynesis_torch.__main__ import main as cli, parse_args, run_training
     from flexynesis_torch.data.inference_importer import DataImporterInference
@@ -1060,7 +1214,572 @@ def train(workdir: Path):
                                    verbose=False).import_data()
     check_card_matches_cpu(model, cohort)
     time_steps(model, cohort)
-    return launches, b2_rows
+    return launches, b2_rows, cohort
+
+
+class ImportOnce:
+    """Memoise the training CLI's import (``__main__._build_importer``) per
+    argument set while active: the trial phase's CLI runs reuse the import
+    of phase 5's folder (14-17 s of CSV parsing each) instead of repeating
+    it; the first import of a set runs as usual."""
+
+    KEYS = ("data_path", "data_types", "covariates", "log_transform", "fusion_type",
+            "restrict_to_features", "features_min", "features_top_percentile",
+            "correlation_threshold", "variance_threshold", "subsample")
+
+    def __init__(self):
+        self.done = {}
+
+    def __enter__(self):
+        from flexynesis_torch import __main__ as cli
+
+        self.cli, self.build = cli, cli._build_importer
+
+        def build(args, device):
+            key = (*(getattr(args, k) for k in self.KEYS), str(device))
+            if key not in self.done:
+                importer = self.build(args, device)
+                self.done[key] = (importer, importer.import_data())
+            importer, datasets = self.done[key]
+            return _Imported(importer, datasets)
+
+        cli._build_importer = build
+        return self
+
+    def __exit__(self, *exc):
+        self.cli._build_importer = self.build
+
+
+class _Imported:
+    """An importer whose ``import_data`` returns the datasets it already made."""
+
+    def __init__(self, importer, datasets):
+        self._importer, self._datasets = importer, datasets
+
+    def import_data(self):
+        return self._datasets
+
+    def __getattr__(self, name):
+        return getattr(self._importer, name)
+
+
+class Tee:
+    """Copy what is printed to standard output while active into ``text``."""
+
+    def __enter__(self):
+        self.stdout, self.parts = sys.stdout, []
+        sys.stdout = self
+        return self
+
+    def write(self, s):
+        self.parts.append(s)
+        return self.stdout.write(s)
+
+    def flush(self):
+        self.stdout.flush()
+
+    def __exit__(self, *exc):
+        sys.stdout = self.stdout
+
+    @property
+    def text(self) -> str:
+        return "".join(self.parts)
+
+
+def _shift_atol(name: str, steps: int, lr: float):
+    """The bound on a DirectPred bias whose only effect is a constant shift
+    of a batch-statistics BatchNorm's input (the blocks' layer_1 bias, the
+    encoders' output bias and the fusion bias, through linear layers),
+    2 x steps x lr: its gradient is zero in exact arithmetic, so two runs
+    step on their own rounding noise, which Adam scales to about lr per step.
+    A running mean takes the running average's share of such a shift,
+    (1 - 0.9^steps) of it. None for every other entry."""
+    if (name.endswith(("layer_1.bias", "layer_1_bias")) or name == "fusion_block.bias"
+            or (name.startswith("encoder_") and name.endswith("layer_out.bias"))):
+        return 2 * steps * lr
+    if name.endswith("running_mean"):
+        return (1 - (1 - 0.1) ** steps) * 2 * steps * lr  # BN momentum 0.1
+    return None
+
+
+def _state_err(got: dict, want: dict, lr: float, steps: int, what: str):
+    """(max abs difference of two DirectPred states outside the shift-only
+    entries, the largest shift-only difference as a share of its bound);
+    fails outside rtol/atol 1e-4, plus the shift bound for shift-only
+    entries (rtol 0 for the biases)."""
+    import torch
+
+    err, share = 0.0, 0.0
+    for name, a in got.items():
+        if name.endswith("num_batches_tracked"):
+            continue
+        b = want[name].to(a.device, a.dtype)
+        diff = float((a - b).abs().max())
+        shift = _shift_atol(name, steps, lr)
+        if shift is None:
+            tol = TOL
+            err = max(err, diff)
+        else:
+            bias = not name.endswith("running_mean")
+            tol = dict(rtol=0.0 if bias else TOL["rtol"],
+                       atol=shift if bias else TOL["atol"] + shift)
+            share = max(share, diff / shift)
+        if not torch.allclose(a, b, **tol):
+            fail(f"{what}: {name} differs by {diff:.3e} (tol {tol})")
+    return err, share
+
+
+def _no_dropout(model):
+    from flexynesis_torch.ops.fused_mlp import FusedMLP
+    from flexynesis_torch.ops.mlp import MLP
+
+    for block in model.module.modules():
+        if isinstance(block, (MLP, FusedMLP)):
+            block.dropout_rate = 0.0
+    return model
+
+
+def check_stacked_steps(config, cohort):
+    """Three stacked steps of K = 4 trials (f32 parameters and moments,
+    dropout 0, one initialisation, four lrs) against four unstacked Trainer
+    steps (ClippedAdam) on the card, and against the same stacked steps on
+    the CPU: losses rtol 1e-4, states rtol/atol 1e-4 (shift-only entries
+    within 2 x steps x lr)."""
+    import torch
+    from flexynesis_torch.models.direct_pred import DirectPred
+    from flexynesis_torch.parallel.stacked import StackedDirectPred
+    from flexynesis_torch.parallel.trials import _Round, _gather
+    from flexynesis_torch.train.trainer import Trainer, gather
+
+    K, steps = 4, 3
+    lrs = [1e-4, 3e-4, 1e-3, 3e-3]
+    perm = torch.randperm(len(cohort), generator=torch.Generator().manual_seed(5))
+    perm = perm[: steps * BATCH].reshape(steps, BATCH)
+
+    def model_on(device):
+        m = DirectPred(config, cohort, target_variables=["subtype"], device=device)
+        m.init_params(seed=3)
+        return _no_dropout(m)
+
+    stacked_runs = {}
+    for device in (DEVICE, "cpu"):
+        m = model_on(device)
+        stacked = StackedDirectPred(m, K)
+        state = {n: t.clone() for n, t in m.module.state_dict().items()}
+        params, buffers = stacked.stack([state] * K)
+        trial_round = _Round(m, params, buffers, lrs=lrs, seeds=[0] * K,
+                             param_dtype="float32")
+        data = m.make_batch(cohort)
+        losses = [trial_round.step(_gather(data, p.to(device))).cpu() for p in perm]
+        states = [stacked.trial_state(trial_round.params, trial_round.buffers, k)
+                  for k in range(K)]
+        stacked_runs[device] = (torch.stack(losses), states)
+
+    singles = []
+    for k in range(K):
+        m = model_on(DEVICE)
+        data = m.make_batch(cohort)
+        trainer = Trainer(m.module, m.loss_fn, lr=lrs[k])
+        gen = torch.Generator().manual_seed(0)
+        losses = [float(trainer.train_step(gather(data, p.to(DEVICE)), gen)) for p in perm]
+        singles.append((losses, {n: t.detach() for n, t in m.module.state_dict().items()}))
+
+    card_losses, card_states = stacked_runs[DEVICE]
+    single_losses = torch.tensor([s[0] for s in singles]).T
+    if not torch.allclose(card_losses, single_losses, rtol=1e-4, atol=0):
+        fail(f"stacked steps: losses {card_losses.tolist()} differ from the single-trial "
+             f"Trainer's {single_losses.tolist()} (rtol 1e-4)")
+    err_single, share_single = map(max, zip(*(
+        _state_err(card_states[k], singles[k][1], lrs[k], steps,
+                   f"stacked trial {k} against its Trainer") for k in range(K))))
+    cpu_losses, cpu_states = stacked_runs["cpu"]
+    if not torch.allclose(card_losses, cpu_losses, rtol=1e-4, atol=0):
+        fail(f"stacked steps: card losses {card_losses.tolist()} differ from the CPU's "
+             f"{cpu_losses.tolist()} (rtol 1e-4)")
+    err_cpu, share_cpu = map(max, zip(*(
+        _state_err(card_states[k], cpu_states[k], lrs[k], steps,
+                   f"stacked trial {k} card against cpu") for k in range(K))))
+    print(f"trials: {steps} stacked steps of K={K} (lrs {lrs}, f32 parameters and moments) "
+          f"equal {K} Trainer steps on the card: losses max rel diff "
+          f"{float(((card_losses - single_losses) / single_losses).abs().max()):.3e}, states "
+          f"max abs diff {err_single:.3e}; and the CPU: losses max rel diff "
+          f"{float(((card_losses - cpu_losses) / cpu_losses).abs().max()):.3e}, states "
+          f"{err_cpu:.3e} (rtol/atol 1e-4); shift-only entries at most {share_single:.3f} "
+          f"and {share_cpu:.3f} of their bounds (biases 2 x steps x lr, running means "
+          f"(1 - 0.9^steps) of that)", flush=True)
+
+
+# four suggestions of the default DirectPred space, padded into one round
+MIXED_GROUP = [
+    {"latent_dim": 64, "hidden_dim_factor": 0.3, "supervisor_hidden_dim": 16, "lr": 1e-3},
+    {"latent_dim": 128, "hidden_dim_factor": 0.5, "supervisor_hidden_dim": 32, "lr": 3e-3},
+    {"latent_dim": 32, "hidden_dim_factor": 0.2, "supervisor_hidden_dim": 8, "lr": 3e-4},
+    {"latent_dim": 96, "hidden_dim_factor": 0.4, "supervisor_hidden_dim": 24, "lr": 1e-4},
+]
+
+
+def _sr_rounds(config, cohort, device):
+    """{name: (round, per-step SR seeds)} of the two SR-bf16 rounds of
+    check_sr_steps on ``device``, dropout 0: a same-architecture round of
+    K = 4 trials from one initialisation (fused, one SR seed for all trials)
+    and the padded round of MIXED_GROUP (unfused, a seed per trial, element
+    masks)."""
+    import numpy as np
+    import torch
+    from flexynesis_torch.models.direct_pred import DirectPred
+    from flexynesis_torch.parallel.hetero import build_padded_trials, max_config
+    from flexynesis_torch.parallel.trials import _init_stacked, _Round
+
+    K = len(MIXED_GROUP)
+    lrs = [c["lr"] for c in MIXED_GROUP]
+    seeds = np.arange(3, 3 + K)
+
+    def model(cfg):
+        return _no_dropout(DirectPred(cfg, cohort, target_variables=["subtype"], device=device))
+
+    same = model(config)
+    params, buffers = _init_stacked(same, [3] * K)
+    dims = [len(cohort.features[k]) for k in cohort.dat]
+    group = [dict(config, fused_kernels=False, **c) for c in MIXED_GROUP]
+    padded = model(max_config(group, dims))
+    trials = build_padded_trials(padded, group, seeds)
+
+    def sr_seeds(n):  # per step, near 2^32 so the seed mixing wraps
+        return [torch.tensor([2 ** 32 - 1 - 97 * s - t for t in range(n)]) for s in range(3)]
+
+    return {"same-architecture": (_Round(same, params, buffers, lrs=lrs, seeds=[3] * K),
+                                  sr_seeds(1)),
+            "padded": (_Round(padded, trials["params"], trials["buffers"], lrs=lrs,
+                              seeds=seeds, masks=trials["masks"]), sr_seeds(K))}
+
+
+def _bf16_ulps(a, b, pad):
+    """|a - b| in bfloat16 ulps of max(|a|, |b|) + pad, elementwise."""
+    import torch
+
+    a, b = a.detach().float().cpu(), b.detach().float().cpu()
+    _, e = torch.frexp(torch.maximum(a.abs(), b.abs()) + pad)
+    return (a - b).abs() / torch.exp2((e - 8).float())
+
+
+def _bits(t):
+    import torch
+
+    t = t.detach().cpu().contiguous()
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+def _padded_zero(trial_round, what: str) -> None:
+    """Fails unless every masked-out parameter entry is exactly zero."""
+    for view, m in zip(trial_round.views, trial_round.masks):
+        if bool(((view.float() * (1 - m)) != 0).any()):
+            fail(f"{what}: a padded entry left zero")
+
+
+def check_sr_steps(config, cohort):
+    """SR-bf16 Adam, the trial rounds' optimizer, on the card against the
+    CPU with the same fixed SR seeds (the two devices' generators draw
+    different streams). (1) ``sr_adam_step`` on the same (K, ...) leaves,
+    masks and gradients, three steps, parameters and moments bit for bit:
+    unclipped on 1e-5 x N(0, 1) gradients, and clipped on gradients of
+    +-2^-4 or 0, whose squares sum exactly in any order, so that both
+    devices clip by the same scale. (2) Three SR-bf16 stacked steps of each
+    round of ``_sr_rounds`` on the cohort, where the gradients differ in
+    their last bits between the devices: losses rtol 1e-4; bfloat16 leaves:
+    at most 1% of the entries differ (the same SR bits round almost every
+    entry alike; a wrong seed or hash would change about half), and each
+    within 3 bfloat16 ulps of max(|card|, |cpu|) + 3 x the trial's lr (each
+    step's stochastic rounding may land one ulp apart at the value's
+    magnitude during the steps, which steps of about lr keep within 3 x lr
+    of the final value's), except at most 1e-4 of the entries, whose
+    gradient is rounding noise (as a shift-only bias's), within 2 x 3 x lr;
+    float32 leaves and running statistics rtol/atol 1e-4 (shift-only entries
+    within their bound); the padded entries exactly zero on both devices."""
+    import torch
+    from flexynesis_torch.ops.sr_adam import sr_adam_init, sr_adam_step
+    from flexynesis_torch.parallel.trials import _gather
+
+    rounds = {"card": _sr_rounds(config, cohort, DEVICE),
+              "cpu": _sr_rounds(config, cohort, "cpu")}
+    gen = torch.Generator().manual_seed(11)
+    for name, (card_round, seeds) in rounds["card"].items():
+        cpu_round = rounds["cpu"][name][0]
+        n_bf16 = sum(v.dtype == torch.bfloat16 for v in card_round.views)
+        if n_bf16 == 0:
+            fail(f"trials: the {name} round stores no leaf in bfloat16")
+        for clipped in (False, True):
+            runs = {}
+            grads = []
+            for _ in seeds:
+                g = [torch.randn(v.shape, generator=gen) for v in cpu_round.views]
+                if clipped:  # exact squares: each trial's norm is one value on both devices
+                    g = [torch.sign(x) * (x.abs() > 0.5) * 2.0 ** -4 for x in g]
+                else:  # a per-trial norm near 0.02: the clip scale is exactly 1
+                    g = [x * 1e-5 for x in g]
+                grads.append(g)
+            for side, r in (("card", card_round), ("cpu", cpu_round)):
+                leaves = [v.detach().clone() for v in r.views]
+                state = sr_adam_init(leaves)
+                for g, seed in zip(grads, seeds):
+                    leaves, state = sr_adam_step(
+                        leaves, state, [x.to(r.device) for x in g], r.lrs, seed.to(r.device),
+                        masks=r.masks, trial_axis=True)
+                runs[side] = [*leaves, *state.m, *state.v]
+            for i, (a, b) in enumerate(zip(runs["card"], runs["cpu"])):
+                if not torch.equal(_bits(a), _bits(b)):
+                    fail(f"trials: {name} sr_adam_step ({'clipped' if clipped else 'unclipped'})"
+                         f": leaf {i} of (parameters, m, v) differs between card and CPU, max "
+                         f"abs {float((a.cpu().float() - b.float()).abs().max()):.3e}")
+        print(f"trials: sr_adam_step ({name}, K={card_round.K}, {n_bf16} bfloat16 leaves"
+              f"{', masked' if card_round.masks else ''}): card = CPU bit for bit over 3 "
+              "steps, unclipped and clipped", flush=True)
+
+    perm = torch.randperm(len(cohort), generator=torch.Generator().manual_seed(6))
+    perm = perm[: 3 * BATCH].reshape(3, BATCH)
+    for name, (card_round, seeds) in rounds["card"].items():
+        cpu_round = rounds["cpu"][name][0]
+        losses = {}
+        for side, r in (("card", card_round), ("cpu", cpu_round)):
+            data = r.model.make_batch(cohort)
+            losses[side] = torch.stack([
+                r.step(_gather(data, p.to(r.device)), seed.to(r.device)).cpu()
+                for p, seed in zip(perm, seeds)])
+            if r.masks is not None:
+                _padded_zero(r, f"trials: {name} SR-bf16 steps on the {side}")
+        if not torch.allclose(losses["card"], losses["cpu"], rtol=1e-4, atol=0):
+            fail(f"trials: {name} SR-bf16 steps: card losses {losses['card'].tolist()} "
+                 f"differ from the CPU's {losses['cpu'].tolist()} (rtol 1e-4)")
+        worst, err, share = 0.0, 0.0, 0.0
+        for k in range(card_round.K):
+            lr = float(card_round.lrs[k])
+            got = {**{n: t[k] for n, t in card_round.params.items()
+                      if t.dtype != torch.bfloat16},
+                   **{n: t[k] for n, t in card_round.buffers.items()}}
+            want = {n: t[k] for n, t in {**cpu_round.params, **cpu_round.buffers}.items()}
+            e, sh = _state_err(got, want, lr, 3, f"trials: {name} SR-bf16 trial {k} card "
+                                                   "against cpu")
+            err, share = max(err, e), max(share, sh)
+        n_diff = n_all = n_noise = 0
+        for n, t in card_round.params.items():
+            if t.dtype != torch.bfloat16:
+                continue
+            want = cpu_round.params[n]
+            lr = card_round.lrs.cpu().reshape((-1,) + (1,) * (t.dim() - 1))
+            ulps = _bf16_ulps(t, want, 3 * lr)
+            n_diff += int((ulps > 0).sum())
+            n_all += ulps.numel()
+            noise = ulps > 3
+            n_noise += int(noise.sum())
+            worst = max(worst, float(torch.where(noise, 0.0, ulps).max()))
+            gap = (t.detach().float().cpu() - want.float()).abs()
+            if bool((gap > 6 * lr)[noise].any()):
+                i = int(torch.where(noise, gap / (6 * lr), 0).argmax())
+                k = i // (ulps.numel() // t.shape[0])
+                fail(f"trials: {name} SR-bf16 steps: {n} differs by {float(gap.flatten()[i])} "
+                     f"between card and CPU, beyond 3 bfloat16 ulps and 2 x 3 x lr: trial {k} "
+                     f"(lr {float(lr.flatten()[k]):.3g}), {float(t.flatten()[i])} against "
+                     f"{float(want.flatten()[i])}")
+        if n_diff > 0.01 * n_all or n_noise > 1e-4 * n_all:
+            fail(f"trials: {name} SR-bf16 steps: {n_diff} of {n_all} bfloat16 entries differ "
+                 f"between card and CPU (at most 1%), {n_noise} beyond 3 ulps (at most 1e-4)")
+        print(f"trials: 3 SR-bf16 stacked steps ({name}, K={card_round.K}) card against CPU: "
+              f"losses max rel diff "
+              f"{float(((losses['card'] - losses['cpu']) / losses['cpu']).abs().max()):.3e}, "
+              f"{n_diff} of {n_all} bfloat16 entries differ, by at most {worst:.2f} ulps "
+              f"({n_noise} noise entries beyond 3 ulps, within 2 x 3 x lr), "
+              f"float32 leaves and statistics max "
+              f"abs diff {err:.3e}, shift-only entries at most {share:.3f} of their bounds"
+              f"{'; padded entries exactly zero' if card_round.masks else ''}", flush=True)
+
+
+def time_stacked_steps(config, cohort, K: int = TRIALS):
+    """Median host-clock time of one stacked training step of K trials (the
+    same-architecture round's engine: SR-bf16 Adam, one seed) and a profiled
+    run of PROFILED_STEPS such steps with its device-busy share. Returns the
+    median in ms."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from flexynesis_torch.models.direct_pred import DirectPred
+    from flexynesis_torch.parallel.trials import _gather, _init_stacked, _Round
+
+    m = DirectPred(config, cohort, target_variables=["subtype"], device=DEVICE)
+    params, buffers = _init_stacked(m, np.zeros(K, np.int64))
+    trial_round = _Round(m, params, buffers, lrs=np.geomspace(1e-4, 1e-2, K), seeds=[0] * K)
+    data = m.make_batch(cohort)
+    perm = torch.randperm(len(cohort), generator=torch.Generator().manual_seed(9))
+    batches = [_gather(data, perm[i:i + BATCH].to(DEVICE))
+               for i in range(0, len(cohort) - BATCH + 1, BATCH)]
+    for b in batches[:3]:
+        trial_round.step(b)
+    times = []
+    for i in range(30):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        trial_round.step(batches[i % len(batches)])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    med = statistics.median(times)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for b in batches[:PROFILED_STEPS]:
+            trial_round.step(b)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t) * 1e6
+    print(f"trials: stacked step of K={K} (SR-bf16 Adam, batch {BATCH}) x30: median "
+          f"{med * 1e3:.3f} ms (min {min(times) * 1e3:.3f}, max {max(times) * 1e3:.3f}; host "
+          f"clock, synchronised), {K * BATCH / med:.0f} trial-samples/s", flush=True)
+    device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in device)
+    if busy_us > 0:
+        top = sorted(device, key=lambda e: -e.self_device_time_total)[:8]
+        print(f"trials: profiled {PROFILED_STEPS} stacked steps: wall {wall_us:.0f} us, device "
+              f"busy {busy_us:.0f} us ({100 * busy_us / wall_us:.1f}%), "
+              f"{sum(e.count for e in device) / PROFILED_STEPS:.0f} device operations per step; "
+              "top: " + "; ".join(f"{e.key[:48]} {e.self_device_time_total:.0f} us"
+                                  for e in top), flush=True)
+        print("trials: the port's kernels per stacked step (device time): "
+              + port_kernels(device, PROFILED_STEPS), flush=True)
+    else:
+        print("trials: profiled stacked steps: the profiler saw no device time (not measured)")
+    return med * 1e3
+
+
+TRIAL_CONFIG = """DirectPred:
+  - {type: Categorical, categories: [%d], name: latent_dim}
+  - {type: Categorical, categories: [%s], name: hidden_dim_factor}
+  - {type: Real, low: 0.0001, high: 0.01, prior: log-uniform, name: lr}
+  - {type: Categorical, categories: [%d], name: supervisor_hidden_dim}
+  - {type: Categorical, categories: [%d], name: epochs}
+  - {type: Categorical, categories: [%d], name: batch_size}
+  - {type: Categorical, categories: [true], name: fused_kernels}
+"""
+# the default DirectPred space (flexynesis_torch/config.py) with epochs and
+# batch size fixed, fused_kernels off: every suggestion lands in one bucket
+MIXED_EPOCHS = 5
+MIXED_CONFIG = """DirectPred:
+  - {type: Integer, low: 16, high: 128, quantize: 16, name: latent_dim}
+  - {type: Real, low: 0.2, high: 0.5, name: hidden_dim_factor}
+  - {type: Real, low: 0.0001, high: 0.01, prior: log-uniform, name: lr}
+  - {type: Integer, low: 8, high: 32, quantize: 8, name: supervisor_hidden_dim}
+  - {type: Categorical, categories: [%d], name: epochs}
+  - {type: Categorical, categories: [%d], name: batch_size}
+"""
+
+
+def hpo_run(workdir: Path, name: str, config_text: str, extra=()):
+    """One training CLI run of TRIALS GP suggestions on phase 5's folder;
+    returns (model, its CLI phases, (B1, B2) launches, the log)."""
+    from flexynesis_torch.__main__ import parse_args, run_training
+    from flexynesis_torch.kernels.fused_linear import (
+        fused_linear_bn_relu as b1,
+        fused_linear_bn_relu_eval as b2,
+    )
+
+    config = workdir / f"{name}.yaml"
+    config.write_text(config_text)
+    out = workdir / f"{name}_out"
+    args = train_args(workdir / "fit_data", config, out, DEVICE)
+    args[args.index("--hpo_iter") + 1] = str(TRIALS)
+    b1.launches = b2.launches = 0
+    with Tee() as log:
+        model = run_training(*parse_args([*args, *extra]))
+    launches = (b1.launches, b2.launches)
+    missing = [f for f in ("fit.stats.csv", "fit.predicted_labels.csv", "fit.embeddings_test.csv",
+                           "fit.final_model.safetensors") if not (out / f).exists()]
+    if missing:
+        fail(f"trials: the {name} CLI run did not write {missing}")
+    phases = model.cli_phases
+    print(f"trials: {name}: CLI phases (host clock, s): "
+          + json.dumps({k: round(v, 4) for k, v in phases.items()})
+          + f"; {TRIALS} trials in hpo_fit: {TRIALS / phases['hpo_fit'] * 3600:.0f} trials/h; "
+          f"launches B1 {launches[0]}, B2 {launches[1]}", flush=True)
+    return model, phases, launches, log.text, out
+
+
+def train_trials(workdir: Path, importer_cache: ImportOnce, cohort):
+    """The trial phase on phase 5's folder: the stacked steps against single
+    trials, one stacked step's time and profile, a same-architecture round of
+    TRIALS suggestions through the CLI (--hpo_batch 0, fused kernels) against
+    the same TRIALS trials one at a time (--hpo_batch 1), and a
+    mixed-architecture round (default space, fused off). Returns the
+    launches (B1, B2) of each CLI run and the summary numbers."""
+    import numpy as np
+    from flexynesis_torch.__main__ import main as cli
+
+    h_config = {"latent_dim": LATENT, "hidden_dim_factor": HIDDEN_FACTOR,
+                "supervisor_hidden_dim": SUP_HIDDEN, "lr": 1e-3, "epochs": FIT_EPOCHS,
+                "batch_size": BATCH, "fused_kernels": True}
+    check_stacked_steps(h_config, cohort)
+    check_sr_steps(h_config, cohort)
+    step_ms = time_stacked_steps(h_config, cohort)
+
+    same = TRIAL_CONFIG % (LATENT, HIDDEN_FACTOR, SUP_HIDDEN, FIT_EPOCHS, BATCH)
+    with importer_cache:
+        model, phases, launches, log, out = hpo_run(workdir, "hpo_batched", same)
+        seq_model, seq_phases, seq_launches, _, _ = hpo_run(
+            workdir, "hpo_sequential", same, ("--hpo_batch", "1"))
+        mixed, mixed_phases, mixed_launches, mixed_log, _ = hpo_run(
+            workdir, "hpo_mixed", MIXED_CONFIG % (MIXED_EPOCHS, BATCH))
+
+    if f"HPO trial fan-out: {TRIALS} suggestions per GP round" not in log:
+        fail(f"trials: --hpo_batch 0 did not resolve to {TRIALS} on the card")
+    if f"Training {TRIALS} same-architecture trials concurrently (stacked)" not in log:
+        fail("trials: the same-architecture round did not train stacked")
+    n = FIT_TRAIN
+    n_fit = n - int(np.ceil(n * VAL_SIZE))
+    round_steps = FIT_EPOCHS * (n_fit // BATCH)  # patience 10 > 10 epochs: no early stop
+    retrain_steps = model.train_result.epochs_run * (n // BATCH)
+    want = (B1_PER_STEP * (round_steps + retrain_steps),
+            B2_PER_FORWARD * (FIT_EPOCHS + EVAL_FORWARDS))
+    if launches != want:
+        fail(f"trials: batched round launches (B1, B2) = {launches}, expected {want}: "
+             f"{B1_PER_STEP} per stacked step x ({round_steps} round steps + {retrain_steps} "
+             f"retrain steps), {B2_PER_FORWARD} per eval forward x ({FIT_EPOCHS} stacked "
+             f"validations + {EVAL_FORWARDS} evaluation forwards)")
+    seq_want = (B1_PER_STEP * TRIALS * round_steps,
+                B2_PER_FORWARD * (TRIALS * FIT_EPOCHS + EVAL_FORWARDS))
+    if seq_launches != seq_want:
+        fail(f"trials: sequential launches (B1, B2) = {seq_launches}, expected {seq_want}")
+    print(f"trials: {TRIALS} trials batched: B1 {launches[0]} launches = {B1_PER_STEP} x "
+          f"({round_steps} stacked steps + {retrain_steps} retrain steps), B2 {launches[1]}; "
+          f"one at a time: B1 {seq_launches[0]} = {B1_PER_STEP} x {TRIALS} x {round_steps}, "
+          f"B2 {seq_launches[1]}", flush=True)
+
+    # the retrained best model serves alike on the card and on the CPU
+    data = workdir / "fit_data"
+    for device in (DEVICE, "cpu"):
+        if cli(["--pretrained_model", str(out / "fit.final_model.safetensors"),
+                "--artifacts", str(out / "fit.artifacts.json"),
+                "--data_path_test", str(data / "test"),
+                "--outdir", str(workdir / f"hpo_served_{device}"),
+                "--prefix", "smoke", "--disable_marker_finding", "--device", device]) != 0:
+            fail(f"trials: serving the batched round's model on {device} returned nonzero")
+    encoder = json.loads((out / "fit.artifacts.json").read_text())["label_encoders"]["subtype"]
+    compare_outputs(workdir / f"hpo_served_{DEVICE}", workdir / "hpo_served_cpu", FIT_TEST,
+                    len(encoder["categories"][0]), "trials: the batched round's model served")
+
+    if f"Training {TRIALS} mixed-architecture trials concurrently (padded, stacked)" \
+            not in mixed_log:
+        fail("trials: the mixed round did not take the padded path")
+    if "Final full-data training with best params" not in mixed_log:
+        fail("trials: the mixed round did not retrain its best configuration")
+    if mixed_launches != (0, 0):
+        fail(f"trials: the unfused mixed round launched B1/B2 {mixed_launches} times")
+    rate = {k: TRIALS / p["hpo_fit"] * 3600
+            for k, p in (("batched", phases), ("sequential", seq_phases),
+                         ("mixed", mixed_phases))}
+    print(f"trials: hpo_fit trials/h: batched {rate['batched']:.0f}, one at a time "
+          f"{rate['sequential']:.0f} ({rate['batched'] / rate['sequential']:.2f}x), mixed "
+          f"architectures ({MIXED_EPOCHS} epochs, unfused) {rate['mixed']:.0f}; best "
+          f"val-chosen lr batched {model.config['lr']:.3g}, sequential "
+          f"{seq_model.config['lr']:.3g}", flush=True)
+    return ({"hpo_batched": launches, "hpo_sequential": seq_launches,
+             "hpo_mixed": mixed_launches},
+            {"trials_per_hour": rate, "stacked_step_ms": step_ms})
 
 
 def train_vae(workdir: Path, model_class: str, epochs: int, layer_args=(), timed=True):
@@ -1183,6 +1902,22 @@ def build_all(names):
             print(log.read_text().strip(), flush=True)
 
 
+def trial_entry(rows, label_part: str):
+    """The trial axis of B1 or B2 in the kernels line: one stacked pass of
+    TRIALS trials over the path's three blocks (the rows whose label holds
+    ``label_part``), summed."""
+    path = [r for r in rows if r["K"] == TRIALS and label_part in r["label"]]
+    ops_ms, nbytes = sum(r["ops_ms"] for r in path), sum(r["bytes"] for r in path)
+    bms, by = bound_ms(ops_ms, nbytes)
+    return {"K": TRIALS, "launches_per_pass": sum(r["launches"] for r in path),
+            "ms": sum(r["ms"] for r in path),
+            "device_ms": (None if any(r["device_ms"] is None for r in path)
+                          else sum(r["device_ms"] for r in path)),
+            "host_ms": sum(r["host_ms"] for r in path),
+            "plain_ms": sum(r["plain_ms"] for r in path), "bound_ms": bms, "bound_by": by,
+            "shapes": [[r["K"], r["B"], r["F"], r["H"]] for r in path]}
+
+
 def kernel_entry(name, source, replaces, rows, path_rows, launches, by_path, per_path=1,
                  extra=None):
     """The kernel's line: times and work summed over ``path_rows`` (the calls
@@ -1261,7 +1996,8 @@ def check_kernels():
         term_train + [(f"val{val_rows}", (200, val_rows, LATENT)), ("ragged", (37, 129, 17)),
                       ("one_row", (1, 1, 16))],
         [shape for _, shape in term_train])
-    return train_shapes, rows, passes, b1_rows, b3_rows, term_rows
+    trial_rows = check_trial_kernels()
+    return train_shapes, rows, passes, b1_rows, b3_rows, term_rows, trial_rows
 
 
 def main() -> int:
@@ -1278,38 +2014,47 @@ def main() -> int:
     card = card_line()
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
     t_start = time.perf_counter()
-    train_shapes, rows, passes, b1_rows, b3_rows, term_rows = check_kernels()
+    train_shapes, rows, passes, b1_rows, b3_rows, term_rows, trial_rows = check_kernels()
 
     workdir = REPO / "build" / "chip_smoke"
     shutil.rmtree(workdir, ignore_errors=True)
     workdir.mkdir(parents=True)
     serve_b2 = serve(workdir)
-    (train_b1, train_b2), b2_train_rows = train(workdir)
+    importer_cache = ImportOnce()
+    with importer_cache:  # phase 5 imports its folder once for the trial phase too
+        (train_b1, train_b2), b2_train_rows, cohort = train(workdir)
     # B2 at the shapes the training phase gave it that serving did not
     checked = {(r["B"], r["F"], r["H"]) for r in rows}
     rows += check_kernel([(f"{n}_n{B}", (B, F, H)) for B in b2_train_rows
                           for n, (F, H) in b2_blocks() if (B, F, H) not in checked])
+    hpo_launches, hpo_summary = train_trials(workdir, importer_cache, cohort)
     vae_b3 = train_vae(workdir, "supervised_vae", FIT_EPOCHS)
     cm_b3 = train_vae(workdir, "CrossModalPred", CM_EPOCHS,
                       ("--input_layers", "gex", "--output_layers", "cnv"), timed=False)
 
+    trial_b1 = [r for r in trial_rows if r["kernel"] == "B1"]
+    trial_b2 = [r for r in trial_rows if r["kernel"] == "B2"]
     entries = [
         kernel_entry("fused_linear_bn_relu", "flexynesis_torch/csrc/fused_linear_train.cu",
-                     "flexynesis_tpu/ops/pallas/fused_linear.py:115", b1_rows,
+                     "flexynesis_tpu/ops/pallas/fused_linear.py:115", b1_rows + trial_b1,
                      b1_rows[:len(train_shapes)],  # one training forward
-                     train_b1, {"training": train_b1}),
+                     train_b1, {"training": train_b1,
+                                **{k: v[0] for k, v in hpo_launches.items()}},
+                     extra={"trial_axis": trial_entry(trial_b1, "shared_x")}),
         kernel_entry("fused_linear_bn_relu_eval", "flexynesis_torch/csrc/fused_linear_eval.cu",
-                     "flexynesis_tpu/ops/pallas/fused_linear.py:223", rows,
+                     "flexynesis_tpu/ops/pallas/fused_linear.py:223", rows + trial_b2,
                      rows[:len(b2_blocks())],  # one eval forward over the cohort
-                     serve_b2, {"serving": serve_b2, "training": train_b2},
+                     serve_b2, {"serving": serve_b2, "training": train_b2,
+                                **{k: v[1] for k, v in hpo_launches.items()}},
                      extra={"gemm_only_addmm_device_ms": passes["cohort"]["addmm_device_ms"],
-                            "passes": passes}),
+                            "passes": passes, "trial_axis": trial_entry(trial_b2, "_val")}),
         kernel_entry("gaussian_kernel_mean", "flexynesis_torch/csrc/mmd_kernel.cu",
                      "flexynesis_tpu/ops/pallas/mmd_kernel.py:66", b3_rows + term_rows,
                      term_rows[:1], vae_b3,
                      {"supervised_vae_training": vae_b3, "crossmodal_training": cm_b3},
                      per_path=2),  # one training step: an MMD term per decoded layer
     ]
+    print("trials: summary " + json.dumps(hpo_summary), flush=True)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": entries}))
     print(card)

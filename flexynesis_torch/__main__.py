@@ -5,8 +5,10 @@ unless ``--device cpu`` is given.
 
 * Training mode (``--data_path``, ``--model_class`` DirectPred,
   supervised_vae or CrossModalPred, ``--data_types``, targets): imports the
-  CSV folder and selects features, runs sequential GP hyperparameter search,
-  trains with Adam and early stopping, writes
+  CSV folder and selects features, runs GP hyperparameter search (DirectPred
+  trains ``--hpo_batch`` suggestions per round at once on the K-stacked
+  trial engine, then retrains the best on the whole training set; the other
+  classes one trial at a time), trains with Adam and early stopping, writes
   ``<prefix>.feature_logs.<layer>.csv``, ``<prefix>.embeddings_{train,test}.csv``,
   ``<prefix>.predicted_labels.csv`` and ``<prefix>.stats.csv``, and saves
   ``<prefix>.final_model.safetensors``, its ``final_model_config.json`` and
@@ -232,6 +234,7 @@ def run_training(args, device):
     phases["import_and_feature_selection"] = time.perf_counter() - t0
 
     t = time.perf_counter()
+    batch_ask = resolve_hpo_batch(args, device)
     tuner = HyperparameterTuning(
         dataset=train_dataset,
         model_class=MODEL_REGISTRY[args.model_class],
@@ -247,6 +250,8 @@ def run_training(args, device):
         device=device,
         input_layers=_split(args.input_layers),
         output_layers=_split(args.output_layers),
+        batch_ask=batch_ask,
+        pipeline_ask=args.hpo_pipeline == "True",
     )
     model, best_params = tuner.perform_tuning(hpo_patience=args.hpo_patience)
     phases["hpo_fit"] = time.perf_counter() - t
@@ -311,14 +316,30 @@ def _check_training_args(parser, args) -> None:
             "joblib artifacts hold pickled sklearn objects that flexynesis_torch "
             "does not write; pass --safetensors for JSON artifacts"
         )
-    if args.hpo_batch > 1:
+    if args.hpo_batch > 1 and args.model_class != "DirectPred":
         raise NotImplementedError(
-            "--hpo_batch > 1 needs the K-stacked trial engine, not ported to "
-            "flexynesis_torch yet (ROADMAP A.8)"
+            f"--hpo_batch > 1 for {args.model_class} needs the VAE-MMD trial engine "
+            "(B3's trial axis, supervised_vae_trial_mask, masked_mmd_loss), not "
+            "ported to flexynesis_torch yet (ROADMAP A item 1, formerly A.8)"
         )
-    if args.hpo_batch == 0:
-        print("[INFO] --hpo_batch 0 resolves to 1 (sequential trials): the "
-              "K-stacked trial engine is not ported yet (ROADMAP A.8)")
+
+
+def resolve_hpo_batch(args, device) -> int:
+    """Suggestions per GP round (flexynesis_tpu/__main__.py:185-199):
+    ``--hpo_batch 0`` (the default) trains min(16, hpo_iter) DirectPred
+    suggestions at once on the card and one at a time on the CPU. The VAE-MMD
+    classes train one at a time until their trial engine is ported."""
+    if args.hpo_batch > 0:
+        return args.hpo_batch
+    if args.model_class != "DirectPred":
+        print(f"[INFO] --hpo_batch 0 resolves to 1 for {args.model_class} (sequential "
+              "trials): its batched rounds are not ported yet (ROADMAP A item 1)")
+        return 1
+    batch = min(16, args.hpo_iter) if device.type == "cuda" else 1
+    if batch > 1:
+        print(f"[INFO] HPO trial fan-out: {batch} suggestions per GP round "
+              "(stacked; --hpo_batch 1 restores sequential trials)")
+    return batch
 
 
 def _write_eval_outputs(args, model, train_dataset, test_dataset) -> None:

@@ -1,8 +1,11 @@
 """Carry weights between flexynesis_tpu's Flax trees and the port's modules.
 
 ``from_flax(params, batch_stats)`` returns a ``state_dict`` for the port's
-model module; ``to_flax(module)`` returns ``(params, batch_stats)`` as nested
-dicts of numpy arrays, the layout flexynesis_tpu saves and loads. The port's
+model module, or, for a tree whose every leaf has a leading trial axis K (the
+JAX trial engine's stacked tree), each entry stacked on that axis, the layout
+``parallel/stacked.py`` trains; ``to_flax(module)`` returns ``(params,
+batch_stats)`` as nested dicts of numpy arrays, the layout flexynesis_tpu
+saves and loads. The port's
 submodules carry the Flax names, so both walk the tree and map its leaves:
 
 * a Dense group ``{kernel[, bias]}`` is an ``nn.Linear`` (the kernel
@@ -32,7 +35,7 @@ def _t(a) -> torch.Tensor:
 
 
 def _dense_from_flax(prefix: str, p: dict, out: dict) -> None:
-    out[f"{prefix}.weight"] = _t(np.asarray(p["kernel"]).T)
+    out[f"{prefix}.weight"] = _t(np.swapaxes(np.asarray(p["kernel"]), -1, -2))
     if "bias" in p:
         out[f"{prefix}.bias"] = _t(p["bias"])
 

@@ -6,6 +6,12 @@
 // x (B, F), w (F, H), b/gamma/beta/running_mean/running_var (H,), y (B, H);
 // all float32, row-major, contiguous.
 //
+// A trial axis: K independent problems in one launch (the K-stacked HPO
+// trials' validation), trial k in blockIdx.y; the cluster spans x only. w,
+// the vectors and y carry a leading K axis ((K, F, H), (K, H), (K, B, H)); x
+// is (K, B, F) or one (B, F) that every trial reads (trial stride 0: the
+// validation split is the same for every trial). K = 1 is the single model.
+//
 // Replaces flexynesis_tpu/ops/pallas/fused_linear.py:223 (the pallas_call of
 // fused_linear_bn_relu_eval; its kernel body is fused_linear.py:215-220). As
 // there, the pre-activation h = x @ w + b never reaches device memory: bias,
@@ -179,7 +185,7 @@ fused_linear_bn_relu_eval_kernel(const float* __restrict__ x,
                                  const float* __restrict__ running_var,
                                  float* __restrict__ y,
                                  int B, int F, int H, int split, int slice, int col_tiles,
-                                 float eps) {
+                                 long long x_stride, float eps) {
   // the ring of stages (RING_BYTES); after the main loop, this CTA's partial
   // tile
   extern __shared__ __align__(16) float smem[];
@@ -194,6 +200,16 @@ fused_linear_bn_relu_eval_kernel(const float* __restrict__ x,
   const int lane = tid % 32, warp = tid / 32;
   const int g = lane / 4, t = lane % 4;  // the mma fragments' row group and column
   const int wr = (warp / (BN / WN)) * WM, wc = (warp % (BN / WN)) * WN;
+  // this CTA's trial: every operand moves to its slice
+  const long long trial = blockIdx.y;
+  x += trial * x_stride;
+  w += trial * F * H;
+  b += trial * H;
+  gamma += trial * H;
+  beta += trial * H;
+  running_mean += trial * H;
+  running_var += trial * H;
+  y += trial * B * H;
   const int tile = blockIdx.x / split;
   const int row0 = (tile / col_tiles) * BM;
   const int col0 = (tile % col_tiles) * BN;
@@ -339,10 +355,11 @@ fused_linear_bn_relu_eval_kernel(const float* __restrict__ x,
 }
 
 template <bool VEC_X, bool VEC_W>
-cudaError_t launch(unsigned blocks, cudaStream_t stream, const float* x, const float* w,
-                   const float* b, const float* gamma, const float* beta,
+cudaError_t launch(unsigned blocks, unsigned trials, cudaStream_t stream, const float* x,
+                   const float* w, const float* b, const float* gamma, const float* beta,
                    const float* running_mean, const float* running_var, float* y, int B,
-                   int F, int H, int split, int slice, int col_tiles, float eps) {
+                   int F, int H, int split, int slice, int col_tiles, long long x_stride,
+                   float eps) {
   auto kernel = fused_linear_bn_relu_eval_kernel<VEC_X, VEC_W>;
   // above 48 KB a block's shared memory must be allowed per function and
   // device: once, at the first launch on each device (a bit per device; a
@@ -358,7 +375,7 @@ cudaError_t launch(unsigned blocks, cudaStream_t stream, const float* x, const f
     allowed.fetch_or(bit, std::memory_order_relaxed);
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(blocks);
+  cfg.gridDim = dim3(blocks, trials);
   cfg.blockDim = dim3(THREADS);
   cfg.dynamicSmemBytes = RING_BYTES;
   cfg.stream = stream;
@@ -370,7 +387,7 @@ cudaError_t launch(unsigned blocks, cudaStream_t stream, const float* x, const f
   cfg.attrs = attr;
   cfg.numAttrs = split > 1 ? 1 : 0;  // split 1 needs no cluster
   return cudaLaunchKernelEx(&cfg, kernel, x, w, b, gamma, beta, running_mean, running_var, y,
-                            B, F, H, split, slice, col_tiles, eps);
+                            B, F, H, split, slice, col_tiles, x_stride, eps);
 }
 
 }  // namespace
@@ -380,15 +397,17 @@ cudaError_t launch(unsigned blocks, cudaStream_t stream, const float* x, const f
 // each 64 x 64 tile of y, CTA r over depth [r * slice, (r + 1) * slice) of F,
 // so `slice` is a multiple of 32 with split * slice >= F and, for split > 1,
 // (split - 1) * slice < F: no CTA of a cluster is idle (the wrapper's
-// planner, kernels/fused_linear.py::plan_b2, picks both). The caller checks
-// shapes, types and layout.
+// planner, kernels/fused_linear.py::plan_b2, picks both). `trials` (K >= 1)
+// problems run in one launch; x_per_trial says whether x is (K, B, F) or one
+// (B, F) for all. The caller checks shapes, types and layout.
 extern "C" int fused_linear_bn_relu_eval_f32(const void* x, const void* w, const void* b,
                                              const void* gamma, const void* beta,
                                              const void* running_mean,
-                                             const void* running_var, void* y, int B, int F,
-                                             int H, int split, int slice, float eps,
-                                             void* stream) {
-  if (B <= 0 || H <= 0 || F < 0) return (int)cudaErrorInvalidValue;
+                                             const void* running_var, void* y, int trials,
+                                             int x_per_trial, int B, int F, int H, int split,
+                                             int slice, float eps, void* stream) {
+  if (trials <= 0 || trials > 65535 || B <= 0 || H <= 0 || F < 0)
+    return (int)cudaErrorInvalidValue;
   if (split != 1 && split != 2 && split != 4 && split != MAX_SPLIT)
     return (int)cudaErrorInvalidValue;
   if (slice < 0 || slice % BK != 0 || (long long)split * slice < F ||
@@ -397,16 +416,21 @@ extern "C" int fused_linear_bn_relu_eval_f32(const void* x, const void* w, const
   const long long col_tiles = (H + BN - 1) / BN;
   const long long blocks = (B + BM - 1) / BM * col_tiles * split;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const bool vec_x = F % 4 == 0 && reinterpret_cast<unsigned long long>(x) % 16 == 0;
-  const bool vec_w = H % 4 == 0 && reinterpret_cast<unsigned long long>(w) % 16 == 0;
+  const long long x_stride = x_per_trial ? (long long)B * F : 0;
+  // a 16-byte copy needs every trial's rows 16-byte aligned: the base, the
+  // row stride and the trial stride (F * H for w) in whole float4s
+  const bool vec_x = F % 4 == 0 && x_stride % 4 == 0 &&
+                     reinterpret_cast<unsigned long long>(x) % 16 == 0;
+  const bool vec_w = H % 4 == 0 && ((long long)F * H) % 4 == 0 &&
+                     reinterpret_cast<unsigned long long>(w) % 16 == 0;
   auto run = vec_x ? (vec_w ? &launch<true, true> : &launch<true, false>)
                    : (vec_w ? &launch<false, true> : &launch<false, false>);
-  int rc = (int)run((unsigned)blocks, static_cast<cudaStream_t>(stream),
+  int rc = (int)run((unsigned)blocks, (unsigned)trials, static_cast<cudaStream_t>(stream),
                     static_cast<const float*>(x), static_cast<const float*>(w),
                     static_cast<const float*>(b), static_cast<const float*>(gamma),
                     static_cast<const float*>(beta), static_cast<const float*>(running_mean),
                     static_cast<const float*>(running_var), static_cast<float*>(y), B, F, H,
-                    split, slice, (int)col_tiles, eps);
+                    split, slice, (int)col_tiles, x_stride, eps);
   if (rc == 0) rc = (int)cudaGetLastError();
   return rc;
 }

@@ -9,6 +9,13 @@
 // x (B, F), w (F, H), b/gamma/beta (H,); outputs y and h (B, H), mu and var
 // (H,); all float32, row-major, contiguous. h is kept for the backward pass.
 //
+// A trial axis: K independent problems in one launch (the K-stacked HPO
+// trials), trial k in blockIdx.y. w, the vectors and every output carry a
+// leading K axis ((K, F, H), (K, H), (K, B, H)); x is (K, B, F), or one
+// (B, F) that every trial reads (a trial stride of 0: same-architecture
+// trials share their batch rows). The JAX engine gets this axis from vmap over
+// the pallas_call, which adds a grid dimension. K = 1 is the single model.
+//
 // Replaces flexynesis_tpu/ops/pallas/fused_linear.py::_fused_forward (the
 // Pallas kernel body _fused_fwd_kernel, fused_linear.py:59-80). The Pallas
 // kernel keeps the whole batch of a column tile in VMEM and falls back to
@@ -130,7 +137,7 @@ fused_linear_bn_relu_train_split_kernel(const float* __restrict__ x,
                                         float* __restrict__ part_mean,
                                         float* __restrict__ part_m2,
                                         int B, int F, int H, int split, int slice,
-                                        int col_tiles, float eps) {
+                                        int col_tiles, long long x_stride, float eps) {
   __shared__ __align__(16) float xs[NSTAGE][BM][BK];
   __shared__ __align__(16) float ws[NSTAGE][BK][BN];
   __shared__ float part[BM][BN + 1];  // this CTA's partial tile, read by its cluster
@@ -144,6 +151,22 @@ fused_linear_bn_relu_train_split_kernel(const float* __restrict__ x,
   const int tid = threadIdx.x;
   const int tx = tid % THREADS_X;
   const int ty = tid / THREADS_X;
+  // this CTA's trial: every operand moves to its slice
+  const long long trial = blockIdx.y;
+  const int row_tiles = (B + BM - 1) / BM;
+  x += trial * x_stride;
+  w += trial * F * H;
+  b += trial * H;
+  gamma += trial * H;
+  beta += trial * H;
+  h += trial * B * H;
+  y += trial * B * H;
+  mean += trial * H;
+  var += trial * H;
+  if (part_mean != nullptr) {
+    part_mean += trial * row_tiles * H;
+    part_m2 += trial * row_tiles * H;
+  }
   const int tile = blockIdx.x / split;
   const int row_tile = tile / col_tiles;
   const int row0 = row_tile * BM;
@@ -274,6 +297,15 @@ bn_relu_merge_kernel(const float* __restrict__ h,
                      float* __restrict__ mean,
                      float* __restrict__ var,
                      int B, int H, int n_tiles, int col_blocks, float eps) {
+  const long long trial = blockIdx.y;  // as in the split kernel
+  h += trial * B * H;
+  y += trial * B * H;
+  part_mean += trial * n_tiles * H;
+  part_m2 += trial * n_tiles * H;
+  gamma += trial * H;
+  beta += trial * H;
+  mean += trial * H;
+  var += trial * H;
   __shared__ float s_mean[MERGE_COLS];
   __shared__ float s_scale[MERGE_COLS];  // rsqrt(var + eps) * gamma
   __shared__ float s_beta[MERGE_COLS];
@@ -315,13 +347,13 @@ bn_relu_merge_kernel(const float* __restrict__ h,
 }
 
 template <bool VEC_X, bool VEC_W>
-cudaError_t launch_split(unsigned blocks, cudaStream_t stream, const float* x,
+cudaError_t launch_split(unsigned blocks, unsigned trials, cudaStream_t stream, const float* x,
                          const float* w, const float* b, const float* gamma,
                          const float* beta, float* h, float* y, float* mean, float* var,
                          float* part_mean, float* part_m2, int B, int F, int H, int split,
-                         int slice, int col_tiles, float eps) {
+                         int slice, int col_tiles, long long x_stride, float eps) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(blocks);
+  cfg.gridDim = dim3(blocks, trials);
   cfg.blockDim = dim3(THREADS);
   cfg.dynamicSmemBytes = 0;
   cfg.stream = stream;
@@ -334,7 +366,7 @@ cudaError_t launch_split(unsigned blocks, cudaStream_t stream, const float* x,
   cfg.numAttrs = split > 1 ? 1 : 0;  // split 1 needs no cluster
   return cudaLaunchKernelEx(&cfg, fused_linear_bn_relu_train_split_kernel<VEC_X, VEC_W>, x,
                             w, b, gamma, beta, h, y, mean, var, part_mean, part_m2, B, F, H,
-                            split, slice, col_tiles, eps);
+                            split, slice, col_tiles, x_stride, eps);
 }
 
 }  // namespace
@@ -343,15 +375,18 @@ cudaError_t launch_split(unsigned blocks, cudaStream_t stream, const float* x,
 // launched). Pointers are device pointers. `split` (1, 2, 4 or 8) CTAs share
 // each 64 x 32 tile of h, CTA r over depth [r * slice, (r + 1) * slice) of F,
 // so `slice` is a multiple of 16 with split * slice >= F (the wrapper's
-// planner, kernels/fused_linear.py::plan_b1, picks both). part_mean and
-// part_m2 hold (ceil(B / 64), H) floats when B > 64 and may be null
-// otherwise. The caller checks shapes, types and layout.
+// planner, kernels/fused_linear.py::plan_b1, picks both). `trials` (K >= 1)
+// problems run in one launch; x_per_trial says whether x is (K, B, F) or one
+// (B, F) for all. part_mean and part_m2 hold (K, ceil(B / 64), H) floats when
+// B > 64 and may be null otherwise. The caller checks shapes, types and
+// layout.
 extern "C" int fused_linear_bn_relu_train_f32(
     const void* x, const void* w, const void* b, const void* gamma,
     const void* beta, void* h, void* y, void* mean, void* var,
-    void* part_mean, void* part_m2, int B, int F, int H, int split, int slice,
-    float eps, void* stream) {
-  if (B <= 0 || H <= 0 || F < 0) return (int)cudaErrorInvalidValue;
+    void* part_mean, void* part_m2, int trials, int x_per_trial, int B, int F, int H,
+    int split, int slice, float eps, void* stream) {
+  if (trials <= 0 || trials > 65535 || B <= 0 || H <= 0 || F < 0)
+    return (int)cudaErrorInvalidValue;
   if (split != 1 && split != 2 && split != 4 && split != MAX_SPLIT)
     return (int)cudaErrorInvalidValue;
   if (slice < 0 || slice % BK != 0 || (long long)split * slice < F)
@@ -365,21 +400,27 @@ extern "C" int fused_linear_bn_relu_train_f32(
   if (row_tiles > 1 && (part_mean == nullptr || part_m2 == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool vec_x = F % 4 == 0 && reinterpret_cast<unsigned long long>(x) % 16 == 0;
-  const bool vec_w = H % 4 == 0 && reinterpret_cast<unsigned long long>(w) % 16 == 0;
+  const long long x_stride = x_per_trial ? (long long)B * F : 0;
+  // a 16-byte copy needs every trial's rows 16-byte aligned: the base, the
+  // row stride and the trial stride (F * H for w) in whole float4s
+  const bool vec_x = F % 4 == 0 && x_stride % 4 == 0 &&
+                     reinterpret_cast<unsigned long long>(x) % 16 == 0;
+  const bool vec_w = H % 4 == 0 && ((long long)F * H) % 4 == 0 &&
+                     reinterpret_cast<unsigned long long>(w) % 16 == 0;
   auto run = vec_x ? (vec_w ? &launch_split<true, true> : &launch_split<true, false>)
                    : (vec_w ? &launch_split<false, true> : &launch_split<false, false>);
-  int rc = (int)run((unsigned)blocks, s, static_cast<const float*>(x),
+  int rc = (int)run((unsigned)blocks, (unsigned)trials, s, static_cast<const float*>(x),
                     static_cast<const float*>(w), static_cast<const float*>(b),
                     static_cast<const float*>(gamma), static_cast<const float*>(beta),
                     static_cast<float*>(h), static_cast<float*>(y),
                     static_cast<float*>(mean), static_cast<float*>(var),
                     static_cast<float*>(part_mean), static_cast<float*>(part_m2), B, F, H,
-                    split, slice, (int)col_tiles, eps);
+                    split, slice, (int)col_tiles, x_stride, eps);
   if (rc == 0) rc = (int)cudaGetLastError();
   if (rc != 0 || row_tiles == 1) return rc;
   // MERGE_ROWS == BM: one block of rows per row tile
-  bn_relu_merge_kernel<<<(unsigned)(row_tiles * merge_cols), MERGE_THREADS, 0, s>>>(
+  bn_relu_merge_kernel<<<dim3((unsigned)(row_tiles * merge_cols), (unsigned)trials),
+                         MERGE_THREADS, 0, s>>>(
       static_cast<const float*>(h), static_cast<const float*>(part_mean),
       static_cast<const float*>(part_m2), static_cast<const float*>(gamma),
       static_cast<const float*>(beta), static_cast<float*>(y),

@@ -18,6 +18,12 @@ header says what bounds the kernel and how its design answers that. Both
 split F over a thread-block cluster as the pure-Python planners ``plan_b1``
 and ``plan_b2`` say, per launch.
 
+Both take a leading trial axis, the counterpart of ``vmap`` over the
+``pallas_call`` in the JAX trial engine: ``w`` (K, F, H), the vectors (K, H)
+and the outputs (K, B, H) and (K, H); ``x`` is (K, B, F), or one (B, F) that
+every trial reads. The K trials run in one launch (trial k in the grid's y),
+and a call without the axis is the launch of K = 1.
+
 A wrapper takes the plain version only for tensors on the CPU. For CUDA
 tensors it launches the kernel on the current stream of the tensors' device
 (which must be the current device) or raises; there is no size ceiling and no
@@ -74,13 +80,14 @@ def _slice(F: int, split: int, k_stage: int) -> int:
 
 
 @functools.lru_cache(maxsize=1024)
-def _plan(B: int, F: int, H: int, col_tile: int, k_stage: int, slots: int) -> SplitPlan:
+def _plan(B: int, F: int, H: int, col_tile: int, k_stage: int, slots: int,
+          trials: int = 1) -> SplitPlan:
     """Double the split of F while the grid has fewer CTAs than ``slots``,
     each slice keeps at least MIN_SLICE of depth and the last CTA still has
     depth of its own, up to MAX_SPLIT. Slices are whole stages, so no
-    16-byte copy straddles two CTAs. Cached per shape: a wrapper plans every
-    call."""
-    tiles = -(-B // ROW_TILE) * -(-H // col_tile)
+    16-byte copy straddles two CTAs. The tiles of all ``trials`` count
+    together. Cached per shape: a wrapper plans every call."""
+    tiles = trials * -(-B // ROW_TILE) * -(-H // col_tile)
     split = 1
     while (split < MAX_SPLIT and tiles * split < slots and F >= 2 * split * MIN_SLICE
            and (2 * split - 1) * _slice(F, 2 * split, k_stage) < F):
@@ -88,20 +95,22 @@ def _plan(B: int, F: int, H: int, col_tile: int, k_stage: int, slots: int) -> Sp
     return SplitPlan(split, _slice(F, split, k_stage), tiles)
 
 
-def plan_b1(B: int, F: int, H: int, sms: int = H100_SMS) -> SplitPlan:
-    """Cluster size and slice depth of a B1 launch (64 x 32 tiles of h), split
-    until the grid has a CTA per SM. A shape with many tiles (a large batch)
-    or a shallow F (the 64-wide head) keeps split 1."""
-    return _plan(B, F, H, COL_TILE, K_STAGE, sms)
+def plan_b1(B: int, F: int, H: int, sms: int = H100_SMS, trials: int = 1) -> SplitPlan:
+    """Cluster size and slice depth of a B1 launch (64 x 32 tiles of h, for
+    each of ``trials`` trials), split until the grid has a CTA per SM. A
+    shape with many tiles (a large batch, or 16 trials of an encoder) or a
+    shallow F (the 64-wide head) keeps split 1."""
+    return _plan(B, F, H, COL_TILE, K_STAGE, sms, trials)
 
 
-def plan_b2(B: int, F: int, H: int, sms: int = H100_SMS) -> SplitPlan:
-    """Cluster size and slice depth of a B2 launch (64 x 64 tiles of y), split
-    until the grid fills the B2_CTAS_PER_SM slots of every SM: split 8 at the
-    encoders of 64-, 400- and 500-row batches, 2 and 4 at the 2000-row
-    cohort's encoders (which also spreads their tiles evenly over the SMs),
-    1 at the 64-deep head."""
-    return _plan(B, F, H, B2_COL_TILE, B2_K_STAGE, B2_CTAS_PER_SM * sms)
+def plan_b2(B: int, F: int, H: int, sms: int = H100_SMS, trials: int = 1) -> SplitPlan:
+    """Cluster size and slice depth of a B2 launch (64 x 64 tiles of y, for
+    each of ``trials`` trials), split until the grid fills the
+    B2_CTAS_PER_SM slots of every SM: split 8 at the encoders of 64-, 400-
+    and 500-row batches, 2 and 4 at the 2000-row cohort's encoders (which
+    also spreads their tiles evenly over the SMs), 1 at the 64-deep head and
+    at 16 trials of a 400-row validation."""
+    return _plan(B, F, H, B2_COL_TILE, B2_K_STAGE, B2_CTAS_PER_SM * sms, trials)
 
 
 _SMS: dict = {}
@@ -115,17 +124,29 @@ def _sm_count(device) -> int:
 
 def fused_linear_bn_relu_eval_ref(x, w, b, gamma, beta, running_mean,
                                   running_var, eps: float = 1e-5):
-    """Plain PyTorch version of the kernel: the CPU path and the oracle."""
-    h = x @ w + b
-    return torch.relu((h - running_mean) * torch.rsqrt(running_var + eps) * gamma + beta)
+    """Plain PyTorch version of the kernel: the CPU path and the oracle. With a
+    trial axis, ``x @ w`` broadcasts a (B, F) x over the K trials."""
+    h = x @ w + b.unsqueeze(-2)
+    return torch.relu((h - running_mean.unsqueeze(-2))
+                      * torch.rsqrt(running_var + eps).unsqueeze(-2)
+                      * gamma.unsqueeze(-2) + beta.unsqueeze(-2))
 
 
 def _check(x, w, vectors):
-    if x.dim() != 2 or w.dim() != 2 or w.shape[0] != x.shape[1]:
+    """Shapes, devices, types and layout of a call; returns (lead, K,
+    x_per_trial, B, F, H): ``lead`` is (K,) with a trial axis and () without,
+    where K is 1."""
+    stacked = w.dim() == 3
+    K = w.shape[0] if stacked else 1
+    F = w.shape[-2] if w.dim() >= 2 else -1
+    ok = (w.dim() in (2, 3) and x.dim() in (2, 3) and x.shape[-1] == F
+          and (x.dim() == 2 or (stacked and x.shape[0] == K)))
+    if not ok:
         raise ValueError(
-            f"expected x (B, F) and w (F, H); got {tuple(x.shape)} and {tuple(w.shape)}"
+            "expected x (B, F) and w (F, H), or w (K, F, H) with x (B, F) or "
+            f"(K, B, F); got {tuple(x.shape)} and {tuple(w.shape)}"
         )
-    H = w.shape[1]
+    H = w.shape[-1]
     for name, t in (("x", x), ("w", w), *vectors):
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
@@ -133,18 +154,22 @@ def _check(x, w, vectors):
             raise TypeError(f"{name} must be float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    want = (K, H) if stacked else (H,)
     for name, t in vectors:
-        if tuple(t.shape) != (H,):
-            raise ValueError(f"{name} must have shape ({H},), got {tuple(t.shape)}")
+        if tuple(t.shape) != want:
+            raise ValueError(f"{name} must have shape {want}, got {tuple(t.shape)}")
+    return (K,) if stacked else (), K, x.dim() == 3, x.shape[-2], F, H
 
 
 def fused_linear_bn_relu_eval(x, w, b, gamma, beta, running_mean, running_var,
                               eps: float = 1e-5):
     """relu((x @ w + b - running_mean) * rsqrt(running_var + eps) * gamma + beta).
 
-    x (B, F), w (F, H), vectors (H,), all float32; returns y (B, H). On the
-    card: one launch per call, split as ``plan_b2`` says.
-    ``fused_linear_bn_relu_eval.launches`` counts kernel launches."""
+    x (B, F), w (F, H), vectors (H,), all float32; returns y (B, H). With a
+    trial axis: w (K, F, H), vectors (K, H), x (B, F) for every trial or
+    (K, B, F); returns (K, B, H). On the card: one launch per call, split as
+    ``plan_b2`` says. ``fused_linear_bn_relu_eval.launches`` counts kernel
+    launches."""
     if x.device.type == "cpu":
         return fused_linear_bn_relu_eval_ref(
             x, w, b, gamma, beta, running_mean, running_var, eps
@@ -153,23 +178,22 @@ def fused_linear_bn_relu_eval(x, w, b, gamma, beta, running_mean, running_var,
         raise ValueError(f"no kernel for device {x.device}")
     vectors = (("b", b), ("gamma", gamma), ("beta", beta),
                ("running_mean", running_mean), ("running_var", running_var))
-    _check(x, w, vectors)
-    B, F = x.shape
-    H = w.shape[1]
+    lead, K, per_trial, B, F, H = _check(x, w, vectors)
     stream = current_stream(x.device)
-    y = torch.empty((B, H), device=x.device, dtype=torch.float32)
-    if B == 0 or H == 0:
+    y = torch.empty((*lead, B, H), device=x.device, dtype=torch.float32)
+    if y.numel() == 0:
         return y
-    plan = plan_b2(B, F, H, _sm_count(x.device))
+    plan = plan_b2(B, F, H, _sm_count(x.device), K)
     fn = launcher("fused_linear_eval", "fused_linear_bn_relu_eval_f32",
-                  [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
+                  [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p])
     rc = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), gamma.data_ptr(),
             beta.data_ptr(), running_mean.data_ptr(), running_var.data_ptr(),
-            y.data_ptr(), B, F, H, plan.split, plan.slice, float(eps), stream)
+            y.data_ptr(), K, int(per_trial), B, F, H, plan.split, plan.slice,
+            float(eps), stream)
     if rc != 0:
         raise RuntimeError(
             f"fused_linear_bn_relu_eval kernel launch failed: CUDA error {rc} "
-            f"(B={B}, F={F}, H={H}, {plan})"
+            f"(K={K}, B={B}, F={F}, H={H}, {plan})"
         )
     fused_linear_bn_relu_eval.launches += 1
     return y
@@ -184,18 +208,20 @@ fused_linear_bn_relu_eval.launches = 0
 def fused_linear_bn_relu_ref(x, w, b, gamma, beta, eps: float = 1e-5):
     """Plain PyTorch version of kernel B1 (the unfused math of
     ``fused_linear.py:93-101``): returns ``(y, h, batch_mean, batch_var)``
-    with the biased batch variance. Differentiable by autograd; the CPU path
-    and the oracle."""
-    h = x @ w + b
-    mu = h.mean(dim=0)
-    centered = h - mu
-    var = centered.square().mean(dim=0)
-    y = torch.relu(centered * torch.rsqrt(var + eps) * gamma + beta)
+    with the biased batch variance, per trial where there is a trial axis.
+    Differentiable by autograd; the CPU path and the oracle."""
+    h = x @ w + b.unsqueeze(-2)
+    mu = h.mean(dim=-2)
+    centered = h - mu.unsqueeze(-2)
+    var = centered.square().mean(dim=-2)
+    y = torch.relu(centered * torch.rsqrt(var + eps).unsqueeze(-2) * gamma.unsqueeze(-2)
+                   + beta.unsqueeze(-2))
     return y, h, mu, var
 
 
 def fused_linear_bn_relu_forward(x, w, b, gamma, beta, eps: float = 1e-5):
-    """Forward of B1 without autograd: ``(y, h, batch_mean, batch_var)``.
+    """Forward of B1 without autograd: ``(y, h, batch_mean, batch_var)``,
+    with or without a trial axis.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel."""
     if x.device.type == "cpu":
@@ -203,36 +229,35 @@ def fused_linear_bn_relu_forward(x, w, b, gamma, beta, eps: float = 1e-5):
             return fused_linear_bn_relu_ref(x, w, b, gamma, beta, eps)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
-    _check(x, w, (("b", b), ("gamma", gamma), ("beta", beta)))
-    B, F = x.shape
-    H = w.shape[1]
+    lead, K, per_trial, B, F, H = _check(x, w, (("b", b), ("gamma", gamma), ("beta", beta)))
     if B == 0:
         raise ValueError("batch statistics need at least one row")
     stream = current_stream(x.device)
     row_tiles = -(-B // ROW_TILE)
-    # one allocation: y and h (B, H), mean and var (H,), and above one row
-    # tile the per-tile (mean, M2) partials (2, row_tiles, H)
-    n_part = 2 * row_tiles * H if row_tiles > 1 else 0
-    buf = torch.empty(2 * B * H + 2 * H + n_part, device=x.device, dtype=torch.float32)
-    y, h = buf[: 2 * B * H].view(2, B, H)
-    mu, var = buf[2 * B * H: 2 * B * H + 2 * H].view(2, H)
-    if H == 0:
+    # one allocation: y and h (K, B, H), mean and var (K, H), and above one
+    # row tile the per-tile (mean, M2) partials (2, K, row_tiles, H)
+    n_part = 2 * K * row_tiles * H if row_tiles > 1 else 0
+    buf = torch.empty(2 * K * B * H + 2 * K * H + n_part, device=x.device,
+                      dtype=torch.float32)
+    y, h = buf[: 2 * K * B * H].view(2, *lead, B, H)
+    mu, var = buf[2 * K * B * H: 2 * K * B * H + 2 * K * H].view(2, *lead, H)
+    if H == 0 or K == 0:
         return y, h, mu, var
-    plan = plan_b1(B, F, H, _sm_count(x.device))
-    part = buf[2 * B * H + 2 * H:].view(2, row_tiles, H) if n_part else None
+    plan = plan_b1(B, F, H, _sm_count(x.device), K)
+    part = buf[2 * K * B * H + 2 * K * H:].view(2, K, row_tiles, H) if n_part else None
     fn = launcher("fused_linear_train", "fused_linear_bn_relu_train_f32",
-                  [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
+                  [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
                   + [ctypes.c_float, ctypes.c_void_p])
     rc = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), gamma.data_ptr(),
             beta.data_ptr(), h.data_ptr(), y.data_ptr(), mu.data_ptr(),
             var.data_ptr(),
             None if part is None else part[0].data_ptr(),
             None if part is None else part[1].data_ptr(),
-            B, F, H, plan.split, plan.slice, float(eps), stream)
+            K, int(per_trial), B, F, H, plan.split, plan.slice, float(eps), stream)
     if rc != 0:
         raise RuntimeError(
             f"fused_linear_bn_relu kernel launch failed: CUDA error {rc} "
-            f"(B={B}, F={F}, H={H}, {plan})"
+            f"(K={K}, B={B}, F={F}, H={H}, {plan})"
         )
     # the cluster kernel, and the merge kernel where the batch spans row tiles
     fused_linear_bn_relu.launches += 1 if part is None else 2
@@ -240,7 +265,8 @@ def fused_linear_bn_relu_forward(x, w, b, gamma, beta, eps: float = 1e-5):
 
 
 class FusedLinearBNReLU(torch.autograd.Function):
-    """Kernel B1 forward with the JAX ``_bwd`` backward (fused_linear.py:160-179).
+    """Kernel B1 forward with the JAX ``_bwd`` backward (fused_linear.py:160-179),
+    per trial where there is a trial axis: batched matrix products over K.
 
     The batch mean and variance are outputs without gradient: the JAX
     backward ignores their cotangents."""
@@ -256,17 +282,22 @@ class FusedLinearBNReLU(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gy, _gmu, _gvar):
         x, w, gamma, beta, h, mu, var = ctx.saved_tensors
-        inv = torch.rsqrt(var + ctx.eps)
-        hn = (h - mu) * inv
-        g = gy * (hn * gamma + beta > 0).to(gy.dtype)
-        dgamma = (g * hn).sum(dim=0)
-        dbeta = g.sum(dim=0)
-        ghn = g * gamma
-        dh = (ghn - ghn.mean(dim=0, keepdim=True)
-              - hn * (ghn * hn).mean(dim=0, keepdim=True)) * inv
-        dx = dh @ w.T if ctx.needs_input_grad[0] else None
-        dw = x.T @ dh if ctx.needs_input_grad[1] else None
-        db = dh.sum(dim=0)
+        inv = torch.rsqrt(var + ctx.eps).unsqueeze(-2)
+        hn = (h - mu.unsqueeze(-2)) * inv
+        g = gy * (hn * gamma.unsqueeze(-2) + beta.unsqueeze(-2) > 0).to(gy.dtype)
+        dgamma = (g * hn).sum(dim=-2)
+        dbeta = g.sum(dim=-2)
+        ghn = g * gamma.unsqueeze(-2)
+        dh = (ghn - ghn.mean(dim=-2, keepdim=True)
+              - hn * (ghn * hn).mean(dim=-2, keepdim=True)) * inv
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = dh @ w.mT
+            if dx.dim() > x.dim():  # one x read by every trial
+                dx = dx.sum(dim=0)
+        if ctx.needs_input_grad[1]:
+            dw = x.mT @ dh
+        db = dh.sum(dim=-2)
         return dx, dw, db, dgamma, dbeta, None
 
 
@@ -274,9 +305,12 @@ def fused_linear_bn_relu(x, w, b, gamma, beta, eps: float = 1e-5):
     """relu(batchnorm(x @ w + b)) with batch statistics, differentiable.
 
     x (B, F), w (F, H), vectors (H,), float32 on the card; returns
-    ``(y, batch_mean, batch_var)`` with the biased variance.
-    ``fused_linear_bn_relu.launches`` counts CUDA launches: one per forward,
-    two where B > 64 (the cluster kernel and the merge of the split reduction)."""
+    ``(y, batch_mean, batch_var)`` with the biased variance. With a trial
+    axis: w (K, F, H), vectors (K, H), x (B, F) for every trial or (K, B, F);
+    returns (K, B, H), (K, H) and (K, H), each trial's own statistics.
+    ``fused_linear_bn_relu.launches`` counts CUDA launches: one per forward
+    (of all K trials), two where B > 64 (the cluster kernel and the merge of
+    the split reduction)."""
     return FusedLinearBNReLU.apply(x, w, b, gamma, beta, eps)
 
 

@@ -9,7 +9,8 @@ statistics as the JAX block does: ``ra = 0.9 * ra + 0.1 * mean`` and
 ``ra_var = 0.9 * ra_var + 0.1 * var * n / max(n - 1, 1)`` (torch's unbiased
 convention, unlike ``MLP``). Dropout is applied outside the kernel, from the
 caller's ``torch.Generator``. In eval mode the block runs kernel B2. Both
-kernels live in ``kernels/fused_linear.py``; CPU tensors take their plain
+kernels live in ``kernels/fused_linear.py`` and take a leading trial axis, as
+``forward_with`` does (see ``ops/mlp.py``); CPU tensors take their plain
 versions.
 """
 
@@ -20,7 +21,7 @@ from torch import nn
 
 from ..kernels.fused_linear import fused_linear_bn_relu, fused_linear_bn_relu_eval
 from .initializers import reset_linear_, torch_linear_uniform_
-from .mlp import BN_EPS, BN_MOMENTUM, dropout
+from .mlp import BN_EPS, Dropout, Tensors, linear, module_forward, update_running_
 
 
 class FusedMLP(nn.Module):
@@ -50,22 +51,21 @@ class FusedMLP(nn.Module):
 
     def forward(self, x: torch.Tensor, generator: torch.Generator = None) -> torch.Tensor:
         """``generator`` draws the dropout mask in training mode."""
-        if self.training:
-            if generator is None:
-                raise ValueError("training-mode dropout needs a torch.Generator")
-            h, mu, var = fused_linear_bn_relu(
-                x, self.layer_1_kernel, self.layer_1_bias, self.bn_scale,
-                self.bn_bias, BN_EPS,
-            )
-            n = x.shape[0]
-            with torch.no_grad():
-                self.running_mean.mul_(1 - BN_MOMENTUM).add_(BN_MOMENTUM * mu)
-                self.running_var.mul_(1 - BN_MOMENTUM).add_(
-                    (BN_MOMENTUM * n / max(n - 1, 1)) * var
-                )
-            return self.layer_out(dropout(h, self.dropout_rate, generator))
-        h = fused_linear_bn_relu_eval(
-            x, self.layer_1_kernel, self.layer_1_bias, self.bn_scale,
-            self.bn_bias, self.running_mean, self.running_var, BN_EPS,
-        )
-        return self.layer_out(h)
+        return module_forward(self, x, generator)
+
+    def forward_with(self, params: Tensors, buffers: Tensors, x: torch.Tensor,
+                     train: bool, drop: Dropout) -> torch.Tensor:
+        """The block on ``params`` and ``buffers`` named as the module's own
+        (each with an optional leading trial axis): kernel B1, the running
+        statistics updated in place and ``drop(h, rate)`` in training mode,
+        kernel B2 in eval mode."""
+        args = (x, params["layer_1_kernel"], params["layer_1_bias"], params["bn_scale"],
+                params["bn_bias"])
+        rm, rv = buffers["running_mean"], buffers["running_var"]
+        if train:
+            h, mu, var = fused_linear_bn_relu(*args, BN_EPS)
+            update_running_(rm, rv, mu, var, n=x.shape[-2])
+            h = drop(h, self.dropout_rate)
+        else:
+            h = fused_linear_bn_relu_eval(*args, rm, rv, BN_EPS)
+        return linear(h, params["layer_out.weight"], params.get("layer_out.bias"))

@@ -18,7 +18,12 @@ training mode, not ``torch.nn.BatchNorm1d``: the batch variance is the biased
 statistics as ``new = 0.9 * old + 0.1 * batch``. (``BatchNorm1d`` would update
 ``running_var`` with the unbiased variance.) The ``BatchNorm1d`` submodules
 hold the parameters and running statistics, so the layout ``convert.py``
-maps is unchanged, and they run the eval-mode normalisation.
+maps is unchanged, and the eval-mode normalisation is ``F.batch_norm``'s.
+
+``MLP.forward_with`` (and ``FusedMLP``'s) is the block's function on given
+parameters and running statistics, which may carry a leading trial axis K:
+the module's ``forward`` and the stacked trials of
+``parallel/stacked.py`` run the same body.
 
 Random draws in a forward pass (dropout masks, the VAE's noise) come from an
 explicit ``torch.Generator`` on the generator's device and are moved to the
@@ -28,9 +33,10 @@ the CPU the same numbers.
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Callable, Dict, Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from .initializers import reset_linear_
@@ -50,17 +56,71 @@ def standard_normal(shape, generator: torch.Generator, device) -> torch.Tensor:
     return torch.randn(shape, generator=generator, device=generator.device).to(device)
 
 
+Tensors = Dict[str, torch.Tensor]
+Dropout = Callable[[torch.Tensor, float], torch.Tensor]
+
+
+def linear(x: torch.Tensor, weight: torch.Tensor,
+           bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``nn.Linear``'s function, or K of them: ``weight`` (out, in) or
+    (K, out, in), ``bias`` (out,) or (K, out); with K, ``x`` is (K, B, in) or
+    one (B, in) shared by the trials."""
+    if weight.dim() == 2:
+        return F.linear(x, weight, bias)
+    if x.dim() == 3 and bias is not None:
+        return torch.baddbmm(bias.unsqueeze(-2), x, weight.mT)
+    y = torch.matmul(x, weight.mT)
+    return y if bias is None else y + bias.unsqueeze(-2)
+
+
+def update_running_(running_mean: torch.Tensor, running_var: torch.Tensor,
+                    mu: torch.Tensor, var: torch.Tensor, n: Optional[int] = None) -> None:
+    """``new = 0.9 * old + 0.1 * batch`` in place; ``n`` (the batch's rows)
+    scales the variance by n / (n - 1), torch's unbiased convention."""
+    w = BN_MOMENTUM if n is None else BN_MOMENTUM * n / max(n - 1, 1)
+    with torch.no_grad():
+        running_mean.mul_(1 - BN_MOMENTUM).add_(BN_MOMENTUM * mu)
+        running_var.mul_(1 - BN_MOMENTUM).add_(w * var)
+
+
+def batch_norm_train(h: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
+                     running_mean: torch.Tensor, running_var: torch.Tensor) -> torch.Tensor:
+    """Flax's training-mode BatchNorm over the rows (axis -2) of ``h`` (B, H)
+    or (K, B, H), each trial with its own statistics; updates the running
+    statistics ((H,) or (K, H)) in place."""
+    mu = h.mean(dim=-2)
+    var = torch.clamp((h * h).mean(dim=-2) - mu * mu, min=0.0)
+    update_running_(running_mean, running_var, mu, var)
+    return ((h - mu.unsqueeze(-2)) * torch.rsqrt(var + BN_EPS).unsqueeze(-2)
+            * scale.unsqueeze(-2) + shift.unsqueeze(-2))
+
+
+def batch_norm_eval(h: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
+                    running_mean: torch.Tensor, running_var: torch.Tensor) -> torch.Tensor:
+    """Eval-mode BatchNorm (``F.batch_norm``) of ``h`` (B, H), or of (K, B, H)
+    with (K, H) statistics, as one (B, K * H) call."""
+    rows = h.movedim(-2, 0)
+    y = F.batch_norm(rows.reshape(rows.shape[0], -1), running_mean.reshape(-1),
+                     running_var.reshape(-1), scale.reshape(-1), shift.reshape(-1),
+                     False, 0.0, BN_EPS)
+    return y.reshape(rows.shape).movedim(0, -2)
+
+
 def batch_norm(h: torch.Tensor, bn: nn.BatchNorm1d) -> torch.Tensor:
     """``bn`` applied to ``h``: running statistics in eval mode; in training
     mode Flax's batch statistics and running-statistics update."""
-    if not bn.training:
-        return bn(h)
-    mu = h.mean(dim=0)
-    var = torch.clamp((h * h).mean(dim=0) - mu * mu, min=0.0)
-    with torch.no_grad():
-        bn.running_mean.mul_(1 - BN_MOMENTUM).add_(BN_MOMENTUM * mu)
-        bn.running_var.mul_(1 - BN_MOMENTUM).add_(BN_MOMENTUM * var)
-    return (h - mu) * torch.rsqrt(var + BN_EPS) * bn.weight + bn.bias
+    norm = batch_norm_train if bn.training else batch_norm_eval
+    return norm(h, bn.weight, bn.bias, bn.running_mean, bn.running_var)
+
+
+def module_forward(block: nn.Module, x: torch.Tensor,
+                   generator: Optional[torch.Generator]) -> torch.Tensor:
+    """``block.forward_with`` on the module's own state; ``generator`` draws
+    the dropout mask in training mode."""
+    if block.training and generator is None:
+        raise ValueError("training-mode dropout needs a torch.Generator")
+    return block.forward_with(dict(block.named_parameters()), dict(block.named_buffers()),
+                              x, block.training, lambda h, rate: dropout(h, rate, generator))
 
 
 class MLP(nn.Module):
@@ -81,12 +141,21 @@ class MLP(nn.Module):
 
     def forward(self, x: torch.Tensor, generator: torch.Generator = None) -> torch.Tensor:
         """``generator`` draws the dropout mask in training mode."""
-        if self.training and generator is None:
-            raise ValueError("training-mode dropout needs a torch.Generator")
-        h = torch.relu(batch_norm(self.layer_1(x), self.batchnorm))
-        if self.training:
-            h = dropout(h, self.dropout_rate, generator)
-        return self.layer_out(h)
+        return module_forward(self, x, generator)
+
+    def forward_with(self, params: Tensors, buffers: Tensors, x: torch.Tensor,
+                     train: bool, drop: Dropout) -> torch.Tensor:
+        """The block on ``params`` and ``buffers`` named as the module's own
+        (each with an optional leading trial axis); in training mode batch
+        statistics, the running ones updated in place, and ``drop(h, rate)``."""
+        norm = batch_norm_train if train else batch_norm_eval
+        h = norm(linear(x, params["layer_1.weight"], params["layer_1.bias"]),
+                 params["batchnorm.weight"], params["batchnorm.bias"],
+                 buffers["batchnorm.running_mean"], buffers["batchnorm.running_var"])
+        h = torch.relu(h)
+        if train:
+            h = drop(h, self.dropout_rate)
+        return linear(h, params["layer_out.weight"], params.get("layer_out.bias"))
 
 
 class _HiddenStack(nn.Module):

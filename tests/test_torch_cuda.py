@@ -155,6 +155,77 @@ def test_b1_gradients_match_autograd_through_plain_version(card, B, F, H):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
 
 
+def _trial_inputs(K, B, F, H, per_trial, device):
+    """x (K, B, F) or one (B, F), w (K, F, H), b, gamma, beta, rm, rv (K, H)."""
+    g = torch.Generator().manual_seed(K * 100 + B + F + H)
+    x = torch.randn(*((K,) if per_trial else ()), B, F, generator=g)
+    w = (torch.rand(K, F, H, generator=g) * 2 - 1) / max(F, 1) ** 0.5
+    vec = [torch.randn(K, H, generator=g) * 0.1 for _ in range(4)]
+    rv = torch.rand(K, H, generator=g) + 0.5
+    return [t.to(device) for t in (x, w, vec[0], 1 + vec[1], vec[2], vec[3], rv)]
+
+
+# the trial axis: 16 trials of the headline blocks (x shared and x per
+# trial), a ragged K = 3, and B > 64 for B1's merge launch
+TRIAL_SHAPES = [(16, 64, 2000, 600, False), (16, 64, 1000, 300, True),
+                (16, 64, 64, 16, True), (16, 400, 2000, 600, False), (3, 37, 129, 67, True),
+                (3, 130, 129, 67, False), (2, 64, 1999, 601, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,B,F,H,per_trial", TRIAL_SHAPES)
+def test_b2_trial_axis_matches_plain_version(card, K, B, F, H, per_trial):
+    args = _trial_inputs(K, B, F, H, per_trial, card)
+    before = fused_linear_bn_relu_eval.launches
+    y = fused_linear_bn_relu_eval(*args)
+    torch.cuda.synchronize()
+    assert fused_linear_bn_relu_eval.launches == before + 1  # one launch for K trials
+    assert y.shape == (K, B, H)
+    torch.testing.assert_close(y, fused_linear_bn_relu_eval_ref(*args), rtol=1e-4, atol=1e-4)
+    assert torch.equal(y, fused_linear_bn_relu_eval(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,B,F,H,per_trial", TRIAL_SHAPES)
+def test_b1_trial_axis_matches_plain_version(card, K, B, F, H, per_trial):
+    x, w, b, gamma, beta, _, _ = _trial_inputs(K, B, F, H, per_trial, card)
+    before = fused_linear_bn_relu.launches
+    out = fused_linear_bn_relu_forward(x, w, b, gamma, beta)
+    torch.cuda.synchronize()
+    assert fused_linear_bn_relu.launches == before + (1 if B <= ROW_TILE else 2)
+    for got, want in zip(out, fused_linear_bn_relu_ref(x, w, b, gamma, beta)):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    again = fused_linear_bn_relu_forward(x, w, b, gamma, beta)
+    assert all(torch.equal(a, c) for a, c in zip(out, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,B,F,H,per_trial", [(4, 64, 300, 90, False), (3, 70, 129, 67, True)])
+def test_b1_trial_axis_gradients_match_autograd(card, K, B, F, H, per_trial):
+    base = _trial_inputs(K, B, F, H, per_trial, card)[:5]
+    gy = torch.randn(K, B, H, device=card, generator=torch.Generator(card).manual_seed(1))
+    grads = []
+    for fn in (lambda *a: fused_linear_bn_relu(*a)[0],
+               lambda *a: fused_linear_bn_relu_ref(*a)[0]):
+        args = [t.clone().requires_grad_() for t in base]
+        (fn(*args) * gy).sum().backward()
+        grads.append([a.grad for a in args])
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,F,H", [(64, 2000, 600), (400, 1000, 300), (37, 129, 67)])
+def test_one_trial_gives_the_bits_of_the_call_without_the_axis(card, B, F, H):
+    x, w, b, gamma, beta, rm, rv = _trial_inputs(1, B, F, H, False, card)
+    flat = [w[0], b[0], gamma[0], beta[0], rm[0], rv[0]]
+    assert torch.equal(fused_linear_bn_relu_eval(x, w, b, gamma, beta, rm, rv)[0],
+                       fused_linear_bn_relu_eval(x, *flat))
+    for a, c in zip(fused_linear_bn_relu_forward(x, w, b, gamma, beta),
+                    fused_linear_bn_relu_forward(x, *flat[:4])):
+        assert torch.equal(a[0], c)
+
+
 @pytest.mark.cuda
 def test_fused_block_trains_the_same_on_the_card(card):
     cpu = FusedMLP(40, 12, 3, dropout_rate=0.0)

@@ -230,3 +230,49 @@ def test_the_port_sources_share_a_header():
     assert (build.CSRC_DIR / "cp_async.cuh").exists()
     for name in ("fused_linear_eval", "fused_linear_train", "mmd_kernel"):
         assert '#include "cp_async.cuh"' in (build.CSRC_DIR / f"{name}.cu").read_text()
+
+
+# the trial axis: K trials of one launch count together in the planners' tiles
+
+
+@pytest.mark.parametrize("planner", [plan_b1, plan_b2])
+@pytest.mark.parametrize("B,F,H", PATH_SHAPES + OTHER_SHAPES)
+def test_one_trial_plans_as_the_call_without_the_axis(planner, B, F, H):
+    assert planner(B, F, H, H100_SMS, 1) == planner(B, F, H, H100_SMS)
+
+
+@pytest.mark.parametrize("K", [2, 3, 16])
+@pytest.mark.parametrize("B,F,H", PATH_SHAPES + OTHER_SHAPES)
+def test_trials_multiply_the_tiles(K, B, F, H):
+    for planner, col_tile in ((plan_b1, COL_TILE), (plan_b2, B2_COL_TILE)):
+        plan = planner(B, F, H, H100_SMS, K)
+        assert plan.tiles == K * -(-B // ROW_TILE) * -(-H // col_tile)
+        # more trials never split F further
+        assert plan.split <= planner(B, F, H, H100_SMS).split
+
+
+@pytest.mark.parametrize("B,F,H,split", [
+    (64, 2000, 600, 1),  # 16 x 19 = 304 CTAs: the card is full without a split
+    (64, 1000, 300, 1),  # 160 CTAs
+    (64, 64, 16, 1),     # the head: too shallow to split
+])
+def test_b1_sixteen_trials_of_the_training_step(B, F, H, split):
+    plan = plan_b1(B, F, H, H100_SMS, 16)
+    assert plan.split == split and plan.ctas == plan.tiles * split
+
+
+@pytest.mark.parametrize("B,F,H,tiles", [
+    (400, 2000, 600, 1120),  # 16 x 70 tiles: more than the 3 x 132 slots
+    (400, 1000, 300, 560),
+    (400, 64, 16, 112),      # the head: too shallow to split
+])
+def test_b2_sixteen_trials_of_a_validation_keep_split_one(B, F, H, tiles):
+    plan = plan_b2(B, F, H, H100_SMS, 16)
+    assert plan.split == 1 and plan.tiles == tiles
+
+
+@pytest.mark.parametrize("K", [1, 3, 16])
+def test_trial_plans_keep_covering_f(K):
+    for B, F, H in PATH_SHAPES + OTHER_SHAPES:
+        _check_slices(plan_b1(B, F, H, H100_SMS, K), F, K_STAGE)
+        _check_slices(plan_b2(B, F, H, H100_SMS, K), F, B2_K_STAGE)

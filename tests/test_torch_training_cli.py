@@ -4,7 +4,9 @@
 * a model it trained (fused blocks, kernel B1 in training) loads in the JAX
   package's inference CLI, whose outputs match the port's inference CLI on the
   same test folder;
-* the options that are not ported yet raise ``NotImplementedError``.
+* the options that are not ported yet raise ``NotImplementedError`` (batched
+  GP rounds are ported for DirectPred only, so ``--hpo_batch 4`` raises for
+  supervised_vae).
 
 Tolerance for the two inference CLIs: rtol=1e-4, atol=1e-5 (f32)."""
 
@@ -95,7 +97,7 @@ def test_port_trained_model_serves_in_the_jax_cli(folder, trained):
 
 @pytest.mark.parametrize("extra,item", [
     (["--use_cv"], "A.8"),
-    (["--hpo_batch", "4"], "A.8"),
+    (["--hpo_batch", "4", "--model_class", "supervised_vae"], "A.8"),
     (["--hpo_checkpoint", "ck.json"], "item 9"),
     (["--finetuning_samples", "5"], "A.12"),
     (["--evaluate_baseline_performance"], "item 13"),
