@@ -4,7 +4,8 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases (any failure exits nonzero):
 1. the card's name and power limit; build kernels B1, B2 and B3 with nvcc
-   for sm_90a, one nvcc per source, started together;
+   for sm_90a and the CSV reader (``csrc/fastcsv.cpp``) with g++, one
+   compiler per source, started together;
 2. kernel B2 (eval-mode fused Linear->BN->ReLU) against its plain PyTorch
    version at the three calls of one eval forward at each batch size its
    paths give it (the 2000-sample cohort, a 64-row request, the 400-row
@@ -51,15 +52,19 @@ Phases (any failure exits nonzero):
 6. supervised_vae at the same width (encoders 2000->600 and 1000->300,
    decoders 64->600->2000 and 64->300->1000, latent 64, head 16,
    fused_kernels on) through the training CLI on the card, on the folder of
-   phase 5, one trial of 10 epochs of batch 64: B3 in every training step and
-   validation, B1 and B2 in none, checked by launch counts; the loss falls;
-   the saved model served on the card and on the CPU agrees; three steps
-   agree between the card and the CPU (eps and prior from one CPU
-   generator); step time and a profiled run of steps;
-7. CrossModalPred, gex encoded and cnv decoded, 3 epochs: B3's launch
-   counts, ``fit.cnv_decoded.csv`` with 500 x 1000 values in [0, 1], and the
-   saved model (with its decoded layer) served on the card and on the CPU
-   agree;
+   phase 5, one trial of 10 epochs of batch 64, marker finding on (both
+   methods): B3 in every training step and validation, B1 and B2 in none,
+   checked by launch counts; the loss falls; each importance table holds the
+   target's classes over every input feature, finite, >= 0, positive in sum;
+   the saved model served with marker finding on the card and on the CPU
+   agrees, importance tables too; three steps agree between the card and the
+   CPU (eps and prior from one CPU generator); step time and a profiled run
+   of steps;
+7. CrossModalPred, gex encoded and cnv decoded, 3 epochs, marker finding on
+   (gex only, its input layer): B3's launch counts, the importance tables,
+   ``fit.cnv_decoded.csv`` with 500 x 1000 values in [0, 1], and the saved
+   model (with its decoded layer and its importances) served on the card and
+   on the CPU agree;
 8. the K-stacked HPO trial engine (after phase 5, on its folder and
    import): B1 and B2 with a trial axis against their plain versions (with
    phase 3) at K = 16 over the three blocks (B1's batch rows shared and per
@@ -78,7 +83,20 @@ Phases (any failure exits nonzero):
    and not with K and whose retrained model serves alike on the card and
    the CPU, the same 16 trials one at a time (``--hpo_batch 1``), and a
    mixed-architecture round (the default space, fused off) that must take
-   the padded path and retrain its best; trials/h of each.
+   the padded path and retrain its best; trials/h of each;
+9. marker finding and the CSV reader, on phase 5's folder: its raw matrices
+   read by the native reader and by the Python reader in one process (the
+   seconds of each; the matrices equal, or each differing cell printed with
+   its text and the native value its correctly rounded float32); a default
+   DirectPred (fused_kernels off, as in the JAX package) through the training
+   CLI on the card with both methods (IntegratedGradients and GradientShap),
+   B1, B2 and B3 launched no time, each importance table checked as in phase
+   6; the saved model served with marker finding on the card and on the CPU,
+   the tables within rtol 1e-4 / atol 1e-6; the seconds of each method on the
+   card over the 500-sample test cohort and over the 2000 training samples
+   as a cohort, with a profiled run; a fused DirectPred with marker finding
+   on exits nonzero with the port's refusal, in training and in inference.
+   The fused phases 4, 5 and 8 run with ``--disable_marker_finding``.
 
 Every kernel check prints the kernel's CUDA-event time per call, beside its
 device time per call from a torch.profiler trace (``device_ms``), the plain
@@ -978,14 +996,21 @@ HPO_CONFIG = """%s:
 """
 
 
+def marker_args(markers: bool):
+    """The CLI's marker-finding flags: both methods, or none."""
+    if markers:
+        return ["--feature_importance_method", "Both"]
+    return ["--disable_marker_finding"]
+
+
 def train_args(data: Path, config: Path, outdir: Path, device: str,
-               model_class: str = "DirectPred", extra=()):
+               model_class: str = "DirectPred", extra=(), markers: bool = False):
     return ["--data_path", str(data), "--model_class", model_class, *extra,
             "--data_types", "gex,cnv", "--target_variables", "subtype",
             "--config_path", str(config), "--hpo_iter", "1",
             "--features_top_percentile", str(TOP_PERCENTILE), "--variance_threshold", "0",
             "--features_min", str(FEATURES_MIN),
-            "--safetensors", "--disable_marker_finding", "--device", device,
+            "--safetensors", *marker_args(markers), "--device", device,
             "--outdir", str(outdir), "--prefix", "fit"]
 
 
@@ -1793,6 +1818,7 @@ def train_vae(workdir: Path, model_class: str, epochs: int, layer_args=(), timed
     import numpy as np
     from flexynesis_torch.__main__ import main as cli, parse_args, run_training
     from flexynesis_torch.data.inference_importer import DataImporterInference
+    from flexynesis_torch.interpret.attribution import METHODS
     from flexynesis_torch.kernels.fused_linear import (
         fused_linear_bn_relu as b1,
         fused_linear_bn_relu_eval as b2,
@@ -1809,7 +1835,7 @@ def train_vae(workdir: Path, model_class: str, epochs: int, layer_args=(), timed
     b1.launches = b2.launches = b3.launches = 0
     t = time.perf_counter()
     model = run_training(*parse_args(
-        train_args(data, config, out, DEVICE, model_class, layer_args)))
+        train_args(data, config, out, DEVICE, model_class, layer_args, markers=True)))
     cli_s = time.perf_counter() - t
     launches = (b1.launches, b2.launches, b3.launches)
 
@@ -1817,6 +1843,7 @@ def train_vae(workdir: Path, model_class: str, epochs: int, layer_args=(), timed
     expected_files = [f"fit.{x}.csv" for x in ("embeddings_train", "embeddings_test",
                                                "predicted_labels", "stats")] + [
         f"fit.{ln}_decoded.csv" for ln in decoded] + [
+        f"fit.feature_importance.{m}.csv" for m in METHODS] + [
         "fit.final_model.safetensors", "fit.final_model_config.json", "fit.artifacts.json"]
     missing = [f for f in expected_files if not (out / f).exists()]
     if missing:
@@ -1849,6 +1876,7 @@ def train_vae(workdir: Path, model_class: str, epochs: int, layer_args=(), timed
           + json.dumps({k: round(v, 4) for k, v in model.cli_phases.items()}), flush=True)
     for r in read_table(str(out / "fit.stats.csv"))[2]:
         print(f"{phase}: stats", ",".join(r), flush=True)
+    check_importances(out, "fit", model, phase)
     for ln in decoded:
         _, cols, values = read_matrix(str(out / f"fit.{ln}_decoded.csv"))
         width = {"gex": GEX, "cnv": CNV}[ln]
@@ -1864,11 +1892,12 @@ def train_vae(workdir: Path, model_class: str, epochs: int, layer_args=(), timed
         if cli(["--pretrained_model", str(out / "fit.final_model.safetensors"),
                 "--artifacts", str(out / "fit.artifacts.json"),
                 "--data_path_test", str(data / "test"), "--outdir", str(served[device]),
-                "--prefix", "smoke", "--disable_marker_finding", "--device", device]) != 0:
+                "--prefix", "smoke", *marker_args(True), "--device", device]) != 0:
             fail(f"{phase}: serving the trained model on {device} returned nonzero")
     encoder = json.loads((out / "fit.artifacts.json").read_text())["label_encoders"]["subtype"]
     compare_outputs(served[DEVICE], served["cpu"], FIT_TEST, len(encoder["categories"][0]),
                     f"{phase}: the saved model served")
+    compare_importances(served[DEVICE], served["cpu"], model, f"{phase}: the saved model served")
     for ln in decoded:
         a, b = (read_matrix(str(served[d] / f"smoke.{ln}_decoded.csv"))[2]
                 for d in (DEVICE, "cpu"))
@@ -1885,8 +1914,264 @@ def train_vae(workdir: Path, model_class: str, epochs: int, layer_args=(), timed
     return launches[2]
 
 
+MARKER_TOL = dict(rtol=1e-4, atol=1e-6)  # f32 attributions, different summation orders
+
+
+def read_importances(outdir: Path, prefix: str):
+    """{method: (row keys, importances)} of a run's two importance tables."""
+    import numpy as np
+    from flexynesis_torch.interpret.attribution import METHODS
+    from flexynesis_torch.utils.csvio import read_table
+
+    tables = {}
+    for method in METHODS:
+        path = outdir / f"{prefix}.feature_importance.{method}.csv"
+        if not path.exists():
+            fail(f"{path} was not written")
+        variables, columns, rows = read_table(str(path))
+        if columns != ["target_class", "target_class_label", "layer", "name", "importance"]:
+            fail(f"{path}: columns {columns}")
+        tables[method] = ([(v, *r[:4]) for v, r in zip(variables, rows)],
+                          np.array([float(r[4]) for r in rows]))
+    return tables
+
+
+def check_importances(outdir: Path, prefix: str, model, phase: str):
+    """Each table holds the target's classes (N_CLASSES, one more where the
+    attributed cohort has missing labels) in order, each over every input
+    feature, with finite importances >= 0 and a positive sum."""
+    import numpy as np
+
+    n_features = sum(model.input_dims)
+    tables = read_importances(outdir, prefix)
+    for method, (keys, imp) in tables.items():
+        classes = [int(k[1]) for k in keys[::n_features]]
+        if (len(keys) != len(classes) * n_features or classes != list(range(len(classes)))
+                or len(classes) not in (N_CLASSES, N_CLASSES + 1)):
+            fail(f"{phase}: {method} table of {len(keys)} rows, classes {classes}, "
+                 f"expected {N_CLASSES} (+1) x {n_features}")
+        if not (np.isfinite(imp).all() and (imp >= 0).all() and imp.sum() > 0):
+            fail(f"{phase}: {method} importances not finite, >= 0 and positive in sum")
+        print(f"{phase}: {prefix}.feature_importance.{method}.csv {len(classes)} classes x "
+              f"{n_features} features, importance in [{imp.min():.3e}, {imp.max():.3e}], "
+              f"sum {imp.sum():.4f}", flush=True)
+    return tables
+
+
+def compare_importances(out_card: Path, out_cpu: Path, model, phase: str) -> None:
+    """The two runs' tables: the same rows, importances within MARKER_TOL."""
+    import numpy as np
+    from flexynesis_torch.interpret.attribution import METHODS
+
+    card = check_importances(out_card, "smoke", model, f"{phase} on {DEVICE}")
+    cpu = check_importances(out_cpu, "smoke", model, f"{phase} on cpu")
+    for method in METHODS:
+        (keys, a), (keys_cpu, b) = card[method], cpu[method]
+        if keys != keys_cpu:
+            fail(f"{phase}: the {method} tables of cuda and cpu hold different rows")
+        err = float(np.abs(a - b).max())
+        if not np.allclose(a, b, **MARKER_TOL):
+            fail(f"{phase}: {method} importances differ between cuda and cpu: max abs diff "
+                 f"{err:.3e}, max rel {float((np.abs(a - b) / np.abs(b).clip(1e-30)).max()):.3e}")
+        print(f"{phase}: {method} importances cuda vs cpu max abs diff {err:.3e} "
+              f"(tol {MARKER_TOL})", flush=True)
+
+
+def read_raw_folder(data: Path):
+    """Phase 5's raw matrices through the native reader and through the Python
+    reader in this process: seconds of each, and the matrices held against each
+    other. The Python reader rounds a cell twice (float64, then float32), so a
+    cell may differ only where that lands on the other side of a float32
+    midpoint: each differing cell is printed with its text and must equal the
+    correctly rounded float32 of that text, as the native reader's should."""
+    from fractions import Fraction
+
+    import numpy as np
+    from flexynesis_torch.data.fastcsv import read_matrix_csv
+    from flexynesis_torch.utils.csvio import read_matrix
+
+    def exact_f32(text: str) -> np.float32:
+        """The float32 nearest to the decimal ``text`` (ties to even)."""
+        q = Fraction(text)
+        near = np.float32(float(q))  # within one float32 ulp of q
+        best = min((near, np.nextafter(near, np.float32(np.inf)),
+                    np.nextafter(near, np.float32(-np.inf))),
+                   key=lambda f: (abs(Fraction(float(f)) - q),
+                                  int(np.array(f).view(np.uint32)) & 1))
+        return np.float32(best)
+
+    seconds = {"native": 0.0, "python": 0.0}
+    for split in ("train", "test"):
+        for layer in ("gex", "cnv"):
+            path = data / split / f"{layer}.csv"
+            t = time.perf_counter()
+            native = read_matrix_csv(str(path))
+            t_native = time.perf_counter() - t
+            t = time.perf_counter()
+            names, columns, mat = read_matrix(str(path))
+            py = mat.astype(np.float32)
+            t_python = time.perf_counter() - t
+            seconds["native"] += t_native
+            seconds["python"] += t_python
+            if (native[0], native[1]) != (names, columns) or native[2].shape != py.shape:
+                fail(f"readers: {path}: the readers give different names or shapes")
+            a, b = native[2], py
+            nan = np.isnan(a)
+            if not np.array_equal(nan, np.isnan(b)):
+                fail(f"readers: {path}: missing cells differ between the readers")
+            diff = np.argwhere(~nan & (a.view(np.uint32) != b.view(np.uint32)))
+            if len(diff):
+                with open(path) as fh:
+                    lines = fh.read().splitlines()
+                for i, j in diff:
+                    text = lines[i + 1].split(",")[j + 1]
+                    print(f"readers: {path.name} {names[i]},{columns[j]} '{text}': native "
+                          f"{a[i, j]!r}, python {b[i, j]!r}", flush=True)
+                    if a[i, j] != exact_f32(text):
+                        fail(f"readers: the native reader misrounds '{text}'")
+            print(f"readers: {split}/{layer}.csv {a.shape[0]} x {a.shape[1]}: native "
+                  f"{t_native:.3f} s, python {t_python:.3f} s, "
+                  f"{'equal' if not len(diff) else f'{len(diff)} cells differ'}", flush=True)
+    print(f"readers: phase 5's raw folder: native {seconds['native']:.3f} s, python "
+          f"{seconds['python']:.3f} s ({seconds['python'] / seconds['native']:.1f}x)",
+          flush=True)
+    return seconds
+
+
+def marker_seconds(model, cohort, label: str) -> dict:
+    """Host-clock seconds of ``compute_feature_importance`` of each method
+    over ``cohort`` on the card (25 steps or draws), after one warm-up; then
+    a profiled run of IntegratedGradients with the card's busy share."""
+    import torch
+    from flexynesis_torch.interpret.attribution import METHODS
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    var = model.target_variables[0]
+    seconds = {}
+    for method in METHODS:
+        model.compute_feature_importance(cohort, var, method=method, steps_or_samples=25)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        model.compute_feature_importance(cohort, var, method=method, steps_or_samples=25)
+        torch.cuda.synchronize()
+        seconds[method] = time.perf_counter() - t
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        model.compute_feature_importance(cohort, var, steps_or_samples=25)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t) * 1e6
+    device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in device)
+    busy = (f"device busy {busy_us:.0f} us of {wall_us:.0f} us "
+            f"({100 * busy_us / wall_us:.1f}%), {sum(e.count for e in device)} device "
+            "operations; top: " + "; ".join(
+                f"{e.key[:40]} {e.self_device_time_total:.0f} us"
+                for e in sorted(device, key=lambda e: -e.self_device_time_total)[:4])
+            if busy_us > 0 else "the profiler saw no device time (not measured)")
+    print(f"markers: {label} ({len(cohort)} samples): IntegratedGradients "
+          f"{seconds['IntegratedGradients']:.3f} s, GradientShap {seconds['GradientShap']:.3f} s "
+          f"on the card; profiled IntegratedGradients: {busy}", flush=True)
+    return seconds
+
+
+def refuse_fused(workdir: Path) -> None:
+    """A fused DirectPred with marker finding on exits nonzero with the port's
+    refusal, in training mode (phase 5's config) before any work, and in
+    inference mode (phase 4's model)."""
+    import os
+
+    from flexynesis_torch.interpret.attribution import FUSED_REFUSAL
+
+    data = workdir / "fit_data"
+    runs = {
+        "training": train_args(data, workdir / "fit_hpo.yaml", workdir / "refused_fit",
+                               DEVICE, markers=True),
+        "inference": ["--pretrained_model", str(workdir / "smoke.final_model.safetensors"),
+                      "--artifacts", str(workdir / "smoke.artifacts.json"),
+                      "--data_path_test", str(workdir / "data" / "test"),
+                      "--outdir", str(workdir / "refused_served"), "--device", DEVICE],
+    }
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(REPO), os.environ.get("PYTHONPATH", "")]))
+    for mode, argv in runs.items():
+        t = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "flexynesis_torch", *argv], cwd=REPO,
+                              env=env, capture_output=True, text=True, timeout=300)
+        said = f"NotImplementedError: {FUSED_REFUSAL}" in proc.stderr
+        if proc.returncode == 0 or not said:
+            fail(f"markers: the fused DirectPred's {mode} run returned {proc.returncode} "
+                 f"without the refusal:\n{proc.stderr[-2000:]}")
+        print(f"markers: fused DirectPred, {mode} with marker finding: exit "
+              f"{proc.returncode} in {time.perf_counter() - t:.1f} s with the refusal",
+              flush=True)
+
+
+def markers(workdir: Path) -> dict:
+    """The marker-finding phase on phase 5's folder: both readers on its raw
+    matrices; a default DirectPred (fused_kernels off, as in the JAX package)
+    through the training CLI on the card with both methods, its tables
+    checked, then served with marker finding on the card and on the CPU (the
+    tables agree); the seconds of each method over the 500-sample test
+    cohort and over the 2000 training samples as a cohort (four batches, the
+    last zero-padded); the fused refusal. No port kernel lies on this path:
+    B1, B2 and B3 must launch no time. Returns the summary numbers."""
+    from flexynesis_torch.__main__ import main as cli, parse_args, run_training
+    from flexynesis_torch.data.inference_importer import DataImporterInference
+    from flexynesis_torch.kernels.fused_linear import (
+        fused_linear_bn_relu as b1,
+        fused_linear_bn_relu_eval as b2,
+    )
+    from flexynesis_torch.kernels.mmd import gaussian_kernel_mean as b3
+
+    data = workdir / "fit_data"
+    reader_s = read_raw_folder(data)
+
+    config = workdir / "markers_hpo.yaml"
+    config.write_text((HPO_CONFIG % ("DirectPred", LATENT, HIDDEN_FACTOR, SUP_HIDDEN,
+                                     FIT_EPOCHS, BATCH)).replace("[true]", "[false]"))
+    out = workdir / "markers_out"
+    b1.launches = b2.launches = b3.launches = 0
+    t = time.perf_counter()
+    model = run_training(*parse_args(train_args(data, config, out, DEVICE, markers=True)))
+    cli_s = time.perf_counter() - t
+    launches = (b1.launches, b2.launches, b3.launches)
+    if launches != (0, 0, 0):
+        fail(f"markers: the unfused DirectPred run launched (B1, B2, B3) {launches} times")
+    if model.input_dims != [GEX, CNV] or model.config.get("fused_kernels"):
+        fail(f"markers: unexpected model: widths {model.input_dims}, config {model.config}")
+    print(f"markers: default DirectPred (fused_kernels off) through the training CLI on "
+          f"{DEVICE} {cli_s:.3f} s; launches B1, B2, B3 {launches}; CLI phases (host clock, s): "
+          + json.dumps({k: round(v, 4) for k, v in model.cli_phases.items()}), flush=True)
+    check_importances(out, "fit", model, "markers: training CLI")
+
+    served = {}
+    for device in (DEVICE, "cpu"):
+        served[device] = workdir / f"markers_served_{device}"
+        t = time.perf_counter()
+        if cli(["--pretrained_model", str(out / "fit.final_model.safetensors"),
+                "--artifacts", str(out / "fit.artifacts.json"),
+                "--data_path_test", str(data / "test"), "--outdir", str(served[device]),
+                "--prefix", "smoke", *marker_args(True), "--device", device]) != 0:
+            fail(f"markers: serving with marker finding on {device} returned nonzero")
+        print(f"markers: inference CLI with marker finding on {device} "
+              f"{time.perf_counter() - t:.3f} s", flush=True)
+    compare_importances(served[DEVICE], served["cpu"], model, "markers: served")
+
+    art = str(out / "fit.artifacts.json")
+    cohort_test = DataImporterInference(str(data / "test"), art, verbose=False).import_data()
+    cohort_train = DataImporterInference(str(data / "train"), art, verbose=False).import_data()
+    seconds = {"test": marker_seconds(model, cohort_test, "the test cohort"),
+               "train": marker_seconds(model, cohort_train, "the training samples as a cohort")}
+    refuse_fused(workdir)
+    return {"reader_seconds": reader_s, "marker_finding_cli_s": model.cli_phases["marker_finding"],
+            "import_cli_s": model.cli_phases["import_and_feature_selection"],
+            "marker_seconds": seconds, "launches": launches}
+
+
 def build_all(names):
-    """Build the kernels' libraries, one nvcc per source, started together."""
+    """Build the kernels' libraries and the CSV reader's, one compiler per
+    source (nvcc, or g++ for the reader), started together."""
     from concurrent.futures import ThreadPoolExecutor
 
     from flexynesis_torch.kernels import build
@@ -1960,7 +2245,7 @@ def check_kernels():
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    build_all(["fused_linear_eval", "fused_linear_train", "mmd_kernel"])
+    build_all(["fused_linear_eval", "fused_linear_train", "mmd_kernel", "fastcsv"])
 
     rows, passes = check_b2()
 
@@ -2031,6 +2316,8 @@ def main() -> int:
     vae_b3 = train_vae(workdir, "supervised_vae", FIT_EPOCHS)
     cm_b3 = train_vae(workdir, "CrossModalPred", CM_EPOCHS,
                       ("--input_layers", "gex", "--output_layers", "cnv"), timed=False)
+    marker_summary = markers(workdir)
+    marker_b1, marker_b2, marker_b3 = marker_summary.pop("launches")
 
     trial_b1 = [r for r in trial_rows if r["kernel"] == "B1"]
     trial_b2 = [r for r in trial_rows if r["kernel"] == "B2"]
@@ -2039,22 +2326,26 @@ def main() -> int:
                      "flexynesis_tpu/ops/pallas/fused_linear.py:115", b1_rows + trial_b1,
                      b1_rows[:len(train_shapes)],  # one training forward
                      train_b1, {"training": train_b1,
-                                **{k: v[0] for k, v in hpo_launches.items()}},
+                                **{k: v[0] for k, v in hpo_launches.items()},
+                                "default_directpred_markers": marker_b1},
                      extra={"trial_axis": trial_entry(trial_b1, "shared_x")}),
         kernel_entry("fused_linear_bn_relu_eval", "flexynesis_torch/csrc/fused_linear_eval.cu",
                      "flexynesis_tpu/ops/pallas/fused_linear.py:223", rows + trial_b2,
                      rows[:len(b2_blocks())],  # one eval forward over the cohort
                      serve_b2, {"serving": serve_b2, "training": train_b2,
-                                **{k: v[1] for k, v in hpo_launches.items()}},
+                                **{k: v[1] for k, v in hpo_launches.items()},
+                                "default_directpred_markers": marker_b2},
                      extra={"gemm_only_addmm_device_ms": passes["cohort"]["addmm_device_ms"],
                             "passes": passes, "trial_axis": trial_entry(trial_b2, "_val")}),
         kernel_entry("gaussian_kernel_mean", "flexynesis_torch/csrc/mmd_kernel.cu",
                      "flexynesis_tpu/ops/pallas/mmd_kernel.py:66", b3_rows + term_rows,
                      term_rows[:1], vae_b3,
-                     {"supervised_vae_training": vae_b3, "crossmodal_training": cm_b3},
+                     {"supervised_vae_training": vae_b3, "crossmodal_training": cm_b3,
+                      "default_directpred_markers": marker_b3},
                      per_path=2),  # one training step: an MMD term per decoded layer
     ]
     print("trials: summary " + json.dumps(hpo_summary), flush=True)
+    print("markers: summary " + json.dumps(marker_summary), flush=True)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": entries}))
     print(card)

@@ -10,15 +10,21 @@ unless ``--device cpu`` is given.
   trial engine, then retrains the best on the whole training set; the other
   classes one trial at a time), trains with Adam and early stopping, writes
   ``<prefix>.feature_logs.<layer>.csv``, ``<prefix>.embeddings_{train,test}.csv``,
-  ``<prefix>.predicted_labels.csv`` and ``<prefix>.stats.csv``, and saves
+  ``<prefix>.feature_importance.<method>.csv`` (marker finding, unless
+  ``--disable_marker_finding``), ``<prefix>.predicted_labels.csv`` and
+  ``<prefix>.stats.csv``, and saves
   ``<prefix>.final_model.safetensors``, its ``final_model_config.json`` and
   the JSON artifacts (``--safetensors``). Both this port and flexynesis_tpu
   load the saved model. CrossModalPred encodes ``--input_layers``, decodes
   ``--output_layers`` and also writes ``<prefix>.<layer>_decoded.csv``.
 * Inference mode (``--pretrained_model``, ``--artifacts``,
   ``--data_path_test``) loads a model saved by either package, scores the
-  test cohort and writes the embeddings, predicted labels and stats (and a
-  CrossModalPred's decoded layers).
+  test cohort and writes the embeddings, the feature importances, the
+  predicted labels and stats (and a CrossModalPred's decoded layers).
+
+Marker finding on a DirectPred built with ``fused_kernels`` raises
+``NotImplementedError``, as the JAX package cannot attribute one either; where
+the configuration to train or load fixes ``fused_kernels``, before any work.
 
 What is not ported yet raises ``NotImplementedError`` naming its ROADMAP item.
 """
@@ -152,6 +158,7 @@ def build_parser() -> argparse.ArgumentParser:
 def run_inference(args, device) -> int:
     from .data.inference_importer import DataImporterInference
     from .inference import check_model_type, load_and_sniff_artifacts, reconstruct_model
+    from .interpret.attribution import check_attributable
 
     kind = check_model_type(args.pretrained_model)
     if kind != "safetensors":
@@ -170,6 +177,8 @@ def run_inference(args, device) -> int:
     model = reconstruct_model(args.pretrained_model, config_path, artifacts, device=device)
     print(f"[INFO] Reconstructed {model.model_name} from {args.pretrained_model} "
           f"on {model.device}")
+    if not args.disable_marker_finding:
+        check_attributable(model)
     test_dataset = DataImporterInference(args.data_path_test, artifacts).import_data()
     _write_eval_outputs(args, model, None, test_dataset)
     return 0
@@ -221,10 +230,15 @@ def run_training(args, device):
     """Import, select features, tune, train, evaluate and save
     (flexynesis_tpu/__main__.py:488-570). Returns the trained model, with the
     phases' host-clock seconds as its ``cli_phases``."""
+    from .interpret.attribution import check_config_attributable
     from .models import MODEL_REGISTRY
     from .train.hpo import HyperparameterTuning
+    from .train.space import load_and_convert_config
     from .utils.csvio import write_rows
 
+    if not args.disable_marker_finding and args.config_path:
+        check_config_attributable(
+            args.model_class, load_and_convert_config(args.config_path).get(args.model_class))
     t0 = time.perf_counter()
     phases = {}
     data_importer = _build_importer(args, device)
@@ -258,8 +272,8 @@ def run_training(args, device):
     print(f"[INFO] Best hyperparameters: {best_params}")
 
     t = time.perf_counter()
-    _write_eval_outputs(args, model, train_dataset, test_dataset)
-    phases["evaluation_outputs"] = time.perf_counter() - t
+    phases["marker_finding"] = _write_eval_outputs(args, model, train_dataset, test_dataset)
+    phases["evaluation_outputs"] = time.perf_counter() - t - phases["marker_finding"]
     t = time.perf_counter()
     _save_model_files(args, model, data_importer)
     phases["save"] = time.perf_counter() - t
@@ -342,8 +356,39 @@ def resolve_hpo_batch(args, device) -> int:
     return batch
 
 
-def _write_eval_outputs(args, model, train_dataset, test_dataset) -> None:
-    """Embeddings, predictions and stats (reference __main__.py:1353-1469)."""
+def _write_feature_importances(args, model, test_dataset) -> None:
+    """Marker finding over the test cohort (flexynesis_tpu/__main__.py:345-381):
+    one table per method, every variable of the model, 25 steps or draws.
+    ``--marker_sample_cap`` attributes a seeded subsample; the JAX package's
+    sharding of the sample axis over several devices waits for multi-GPU
+    (ROADMAP A item 7)."""
+    import numpy as np
+
+    from .utils.csvio import write_rows
+
+    from .interpret.attribution import METHODS
+
+    methods = (METHODS if args.feature_importance_method == "Both"
+               else [args.feature_importance_method])
+    attr_dataset = test_dataset
+    cap = args.marker_sample_cap
+    if cap and len(test_dataset) > cap:
+        idx = np.random.default_rng(42).choice(len(test_dataset), size=cap, replace=False)
+        attr_dataset = test_dataset.subset(idx)
+        print(f"[INFO] Capping marker discovery at {cap} subsampled samples")
+    for method in methods:
+        rows = []
+        for var in model.variables:
+            print(f"[INFO] Computing feature importance ({method}) for {var}")
+            rows += model.compute_feature_importance(attr_dataset, var, method=method,
+                                                     steps_or_samples=25)
+        write_rows(os.path.join(args.outdir, f"{args.prefix}.feature_importance.{method}.csv"),
+                   rows)
+
+
+def _write_eval_outputs(args, model, train_dataset, test_dataset) -> float:
+    """Embeddings, feature importances, predictions and stats (reference
+    __main__.py:1353-1469); returns the seconds marker finding took."""
     from .utils.csvio import write_rows
     from .utils.metrics import evaluate_wrapper, get_predicted_labels
 
@@ -355,6 +400,11 @@ def _write_eval_outputs(args, model, train_dataset, test_dataset) -> None:
     model.transform(test_dataset).to_csv(
         os.path.join(outdir, f"{prefix}.embeddings_test.csv")
     )
+
+    t = time.perf_counter()
+    if not args.disable_marker_finding:
+        _write_feature_importances(args, model, test_dataset)
+    marker_s = time.perf_counter() - t
 
     preds_test = model.predict(test_dataset)
     rows = get_predicted_labels(preds_test, test_dataset, "test", model.model_name)
@@ -375,6 +425,7 @@ def _write_eval_outputs(args, model, train_dataset, test_dataset) -> None:
     if model.model_name == "CrossModalPred":
         for layer, table in model.decode(test_dataset).items():
             table.to_csv(os.path.join(outdir, f"{prefix}.{layer}_decoded.csv"))
+    return marker_s
 
 
 def parse_args(argv=None):
@@ -389,11 +440,6 @@ def parse_args(argv=None):
     if args.pretrained_model and not (args.artifacts and args.data_path_test):
         parser.error(
             "inference mode needs --pretrained_model, --artifacts and --data_path_test"
-        )
-    if not args.disable_marker_finding:
-        raise NotImplementedError(
-            "marker finding (Integrated Gradients) is not ported yet (ROADMAP "
-            "A.10); pass --disable_marker_finding"
         )
     if args.finetuning_samples > 0:
         raise NotImplementedError(

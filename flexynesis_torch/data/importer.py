@@ -2,7 +2,8 @@
 
 Counterpart of ``flexynesis_tpu/data/importer.py::DataImporter`` (reference
 data.py:22-688). A folder holds ``train/`` and ``test/`` with ``{layer}.csv``
-(features x samples) and ``clin.csv`` (samples x variables). ``import_data``
+(features x samples, read by the native parser of ``data/fastcsv.py``) and
+``clin.csv`` (samples x variables, read by ``utils/csvio.py``). ``import_data``
 validates the folders, optionally draws ``downsample`` training samples and
 restricts the features to a user list, then per split:
 
@@ -37,9 +38,10 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from ..utils.csvio import NA_VALUES, read_matrix, read_table
+from ..utils.csvio import NA_VALUES, read_table
 from ..utils.device import resolve_device
 from .dataset import MultiOmicDataset
+from .fastcsv import read_matrix_csv
 from .feature_selection import filter_by_laplacian
 from .preprocessing import NAN_TOKEN, apply_standard_scaler, fit_standard_scaler
 
@@ -186,10 +188,10 @@ class DataImporter:
             fp = os.path.join(folder_path, f"{name}.csv")
             print(f"[INFO] Importing {fp}...")
             if name == "clin":
+                # mixed-type columns: the Python reader, as JAX keeps pandas here
                 data[name] = Clinical(*read_table(fp))
             else:
-                features, samples, mat = read_matrix(fp)
-                data[name] = Layer(features, samples, mat.astype(np.float32))
+                data[name] = Layer(*read_matrix_csv(fp))
         return data
 
     def subsample(self, dat: dict, n: int) -> dict:

@@ -6,6 +6,7 @@ dataset metadata and the ``nn.Module``; it trains (``make_batch``,
 built on the ``meta`` device and moved to the model's device without drawing
 numbers; ``init_params`` fills it from a seeded ``torch.Generator`` and
 ``inference.reconstruct_model`` loads saved weights into it.
+``compute_feature_importance`` runs marker finding (``interpret/``).
 
 Subclasses extend ``loss_fn`` through ``_extra_losses(out, batch, generator)``
 (the VAE's MMD) and ``make_batch`` through ``batch_layers`` (CrossModalPred's
@@ -94,6 +95,8 @@ class BaseModel:
                 self.output_dims[var] = 1
             else:
                 self.output_dims[var] = num_classes_for(dataset.ann[var])
+
+        self.feature_importances: Dict[str, List[dict]] = {}
 
         with torch.device("meta"):
             module = self._build_module()
@@ -230,3 +233,25 @@ class BaseModel:
             columns=[f"E{i}" for i in range(emb.shape[1])],
             values=emb,
         )
+
+    # ------------------------------------------------------ feature importance
+
+    def _attribution_forward(self, x: Dict[str, torch.Tensor], target_var: str) -> torch.Tensor:
+        """The eval forward with autograd on, ``x -> outputs[target_var]``
+        (B, n_out): running statistics, no dropout, the VAE's z = mean.
+        (``_forward_eval`` runs under ``inference_mode`` and cannot serve.)"""
+        self.module.eval()
+        return self.module(x)["outputs"][target_var]
+
+    def compute_feature_importance(self, dataset, target_var: str,
+                                   method: str = "IntegratedGradients",
+                                   steps_or_samples: int = 5) -> List[dict]:
+        """Per-class feature attributions of one target variable, as rows
+        (reference direct_pred.py:432-590; ``interpret/attribution.py``);
+        also kept in ``feature_importances[target_var]``."""
+        from ..interpret.attribution import compute_feature_importance
+
+        rows = compute_feature_importance(self, dataset, target_var, method=method,
+                                          steps_or_samples=steps_or_samples)
+        self.feature_importances[target_var] = rows
+        return rows

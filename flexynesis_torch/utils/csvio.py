@@ -36,21 +36,31 @@ def parse_floats(cells: Sequence[str]) -> np.ndarray:
 
 def read_table(path: str, convert=list):
     """(row_names, columns, rows) of a CSV whose first column names the rows;
-    each row's cells are passed through ``convert`` as they are read."""
+    each row's cells are passed through ``convert`` as they are read.
+
+    A header one cell shorter than the first data row (R's
+    ``write.table(sep=",")``) names the data columns only; the first cell of
+    each row is still its name, as pandas reads such a file (its implicit
+    index). Quoted cells may hold commas; a row with fewer cells than the
+    header ends in NA cells, and one with more raises, as in pandas."""
     with open(path, newline="") as fh:
         reader = csv.reader(fh)
         header = next(reader)
+        columns, width = header[1:], len(header)
         names, rows = [], []
         for lineno, row in enumerate(reader, start=2):
             if not row:
                 continue
-            if len(row) != len(header):
+            if not names and len(row) == len(header) + 1:
+                columns, width = header, len(row)
+            if len(row) > width:
                 raise ValueError(
                     f"{path}:{lineno}: {len(row)} cells, header has {len(header)}"
                 )
+            row += [""] * (width - len(row))  # pandas reads missing cells as NA
             names.append(row[0])
             rows.append(convert(row[1:]))
-    return names, header[1:], rows
+    return names, columns, rows
 
 
 def read_matrix(path: str):

@@ -259,8 +259,6 @@ def test_unported_paths_raise(trained, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):  # training: CV, not ported
         main(["--data_path", "x", "--model_class", "DirectPred", "--data_types", "gex",
               "--target_variables", "y", "--use_cv", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="marker"):
-        main([a for a in args if a != "--disable_marker_finding"])
     with pytest.raises(NotImplementedError, match="fine-tuning"):
         main(args + ["--finetuning_samples", "5"])
     with pytest.raises(ValueError, match="tpu"):
