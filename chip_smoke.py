@@ -84,6 +84,24 @@ Phases (any failure exits nonzero):
    the CPU, the same 16 trials one at a time (``--hpo_batch 1``), and a
    mixed-architecture round (the default space, fused off) that must take
    the padded path and retrain its best; trials/h of each;
+8b. the VAE-MMD trial engine and the CV fold engine (after phase 8): B3
+   with a trial axis against its plain version (with phase 3: the 16-trial
+   training and 400-row validation terms, the prior shared and per trial,
+   K = 1, a ragged K = 3; one launch per call, every trial bit for bit equal
+   to a one-trial call on its slice, the gradients); three stacked
+   supervised_vae steps of K = 16 (f32, fused) against 16 single-trial
+   Trainer steps on the card and against the CPU; a padded supervised_vae
+   round (masks and ``_aux``: the masked MMD, B3 never) and one CV step of
+   4 x 5 trials (each its fold's rows and its own prior) on the card against
+   the CPU; one stacked VAE step's time and profile; then five training CLI
+   runs: a supervised_vae round of 16 suggestions (``--hpo_batch 0`` must
+   resolve to 16, lr free, fused: B3 once per decoded layer per stacked step
+   and validation and per retrain step), the same 16 one at a time, a
+   default-space CrossModalPred round (fused, padded: B3 only in the final
+   retrain), and ``--use_cv`` rounds of 4 suggestions x 5 folds = 20 trials
+   of DirectPred (fused: B1 and B2 with per-trial x) and supervised_vae
+   (fused: B3 with a per-trial prior), each checked by launch counts, with
+   trials/h and the card's peak allocated memory;
 9. marker finding and the CSV reader, on phase 5's folder: its raw matrices
    read by the native reader and by the Python reader in one process (the
    seconds of each; the matrices equal, or each differing cell printed with
@@ -97,6 +115,13 @@ Phases (any failure exits nonzero):
    as a cohort, with a profiled run; a fused DirectPred with marker finding
    on exits nonzero with the port's refusal, in training and in inference.
    The fused phases 4, 5 and 8 run with ``--disable_marker_finding``.
+
+(The port groups supervised_vae suggestions by architecture identity, as
+the JAX tuner does: its class name ``SupervisedVAE`` is not the
+``"supervised_vae"`` of JAX's ``PADDABLE_MODELS``, so a default-space
+supervised_vae round trains its sampled architectures one at a time in both
+packages. Phase 8b takes the padded VAE path through CrossModalPred's CLI
+round and through supervised_vae's padded round of stacked steps.)
 
 Every kernel check prints the kernel's CUDA-event time per call, beside its
 device time per call from a torch.profiler trace (``device_ms``), the plain
@@ -709,12 +734,15 @@ def check_b3(shapes, grad_shapes):
 MMD_TOL = dict(rtol=1e-4, atol=2e-6)  # a difference of three means near 1
 
 
-def work_term(N: int, M: int, d: int):
-    """(FLOPs, bytes) of one MMD term: the three kernel means, a self set over
-    its distinct pairs (N (N + 1) / 2), as in ``work_b3``; x and y read once
-    and four floats written, in f32."""
-    pairs = N * (N + 1) // 2 + M * (M + 1) // 2 + N * M
-    return 2 * pairs * d + 2 * (N + M) * d + 6 * pairs, 4 * ((N + M) * d + 4)
+def work_term(N: int, M: int, d: int, K: int = 1, per_trial: bool = True):
+    """(FLOPs, bytes) of the MMD terms of K trials: the three kernel means, a
+    self set over its distinct pairs (N (N + 1) / 2), as in ``work_b3``; x and
+    y read once and four floats written per trial, in f32. A prior shared by
+    the trials (``per_trial`` False) is read, and its self-mean needed, once."""
+    n_x = K if per_trial else 1
+    pairs = n_x * N * (N + 1) // 2 + K * (M * (M + 1) // 2 + N * M)
+    rows = n_x * N + K * M
+    return 2 * pairs * d + 2 * rows * d + 6 * pairs, 4 * (rows * d + 4 * K)
 
 
 def check_mmd_term(shapes, grad_shapes):
@@ -777,6 +805,86 @@ def check_mmd_term(shapes, grad_shapes):
               f"compute_mmd_fused {ms:.4f} ms (device {fmt_ms(dev_ms)}, {dev_ops:g} device "
               f"ops; host issue {issue_ms:.4f} ms)  plain compute_mmd {plain_ms:.4f} ms  bound {bms:.6f} ms ({by})",
               flush=True)
+    return rows
+
+
+def check_b3_trials():
+    """B3's MMD term with a trial axis against its plain version: the
+    16-trial training term (the 200-draw prior against each trial's 64-row
+    batch) and validation term (against the 400-row split), the prior shared
+    by the trials (read at a trial stride of 0) and per trial, K = 1 and a
+    ragged K = 3: the means within B3_TOL and the MMD within MMD_TOL of
+    ``mmd_term_ref``, one launch per call, two calls bit for bit, and every
+    trial bit for bit equal to a one-trial call on its slice; at the
+    training shapes the gradients of the stacked term against autograd
+    through ``ops.losses.compute_mmd``. Prints CUDA-event, device and
+    host-issue times per call, the plain version's and the bound; returns
+    per-shape rows."""
+    import torch
+    from flexynesis_torch.kernels.mmd import (
+        compute_mmd_fused,
+        gaussian_kernel_mean,
+        mmd_term_forward as kernel,
+        mmd_term_ref,
+    )
+    from flexynesis_torch.ops.losses import N_PRIOR_SAMPLES, compute_mmd as plain
+
+    val_rows = int(math.ceil(FIT_TRAIN * VAL_SIZE))
+    P = N_PRIOR_SAMPLES
+    cases = []  # (label, K, N, M, d, prior per trial)
+    for part, M in (("train", BATCH), (f"val{val_rows}", val_rows)):
+        cases += [(f"{part}_shared", TRIALS, P, M, LATENT, False),
+                  (f"{part}_per_trial", TRIALS, P, M, LATENT, True)]
+    cases += [("k1_train", 1, P, BATCH, LATENT, True), ("k3_ragged", 3, 37, 129, 17, True)]
+    rows = []
+    for label, K, N, M, d, per_trial in cases:
+        g = torch.Generator(device="cuda").manual_seed(K * 13 + N * 7 + M * 3 + d)
+        x = torch.randn(*((K,) if per_trial else ()), N, d, device="cuda", generator=g)
+        y = torch.randn(K, M, d, device="cuda", generator=g) * 0.5 + 0.1
+        before = gaussian_kernel_mean.launches
+        out = kernel(x, y)
+        torch.cuda.synchronize()
+        if gaussian_kernel_mean.launches != before + 1:
+            fail(f"B3 with a trial axis made {gaussian_kernel_mean.launches - before} launches "
+                 f"at {label}, expected 1")
+        ref = mmd_term_ref(x, y)
+        mean_err = float((out[:, :3] - ref[:, :3]).abs().max())
+        mmd_err = float((out[:, 3] - ref[:, 3]).abs().max())
+        if not (torch.allclose(out[:, :3], ref[:, :3], **B3_TOL)
+                and torch.allclose(out[:, 3], ref[:, 3], **MMD_TOL)):
+            fail(f"B3 with a trial axis disagrees with its plain version at {label} K={K} N={N} "
+                 f"M={M} d={d}: means max abs {mean_err:.3e} (tol {B3_TOL}), MMD max abs "
+                 f"{mmd_err:.3e} (tol {MMD_TOL})")
+        if not torch.equal(out, kernel(x, y)):
+            fail(f"B3 with a trial axis is not deterministic at {label}")
+        for k in range(K):  # each trial's bits are a one-trial call's
+            single = kernel(x[k] if per_trial else x, y[k])
+            if not torch.equal(out[k], single):
+                fail(f"B3 trial {k} of K={K} differs from the one-trial call on its slice at "
+                     f"{label}: {out[k].tolist()} vs {single.tolist()}")
+        g_err = None
+        if label.startswith("train") and K == TRIALS:
+            g_err = b3_grad_err(lambda a, b: compute_mmd_fused(a, b).sum(),
+                                lambda a, b: plain(a, b).sum(), (x, y),
+                                f"the stacked MMD term ({label})")
+        reps = 30
+        ms = cuda_ms(lambda: compute_mmd_fused(x, y), reps)
+        dev_ms, dev_ops = device_ms(lambda: compute_mmd_fused(x, y), reps)
+        issue_ms = host_ms(lambda: compute_mmd_fused(x, y))
+        plain_ms = cuda_ms(lambda: plain(x, y), reps)
+        flops, nbytes = work_term(N, M, d, K, per_trial)
+        bms, by = bound_ms(f32_ms(flops), nbytes)
+        rows.append(dict(label=label, K=K, shape=[K, N, M, d], per_trial=per_trial,
+                         max_abs_err=max(mean_err, mmd_err), grad_max_abs_err=g_err, ms=ms,
+                         device_ms=dev_ms, host_ms=issue_ms, plain_ms=plain_ms, flops=flops,
+                         bytes=nbytes, ops_ms=f32_ms(flops), bound_ms=bms, bound_by=by))
+        print(f"B3 trials {label:>18} K={K:3d} N={N:4d} M={M:4d} d={d:3d} prior "
+              f"{'per trial' if per_trial else 'shared'}  means_abs_err={mean_err:.3e} "
+              f"(tol {B3_TOL}) mmd_abs_err={mmd_err:.3e} (tol {MMD_TOL}) deterministic, "
+              f"each trial = its one-trial call bit for bit, 1 launch  grad_max_abs_err="
+              f"{'n/a' if g_err is None else f'{g_err:.3e}'}  compute_mmd_fused {ms:.4f} ms "
+              f"(device {fmt_ms(dev_ms)}, {dev_ops:g} device ops; host issue {issue_ms:.4f} ms)"
+              f"  plain compute_mmd {plain_ms:.4f} ms  bound {bms:.6f} ms ({by})", flush=True)
     return rows
 
 
@@ -1311,27 +1419,140 @@ class Tee:
         return "".join(self.parts)
 
 
-def _shift_atol(name: str, steps: int, lr: float):
-    """The bound on a DirectPred bias whose only effect is a constant shift
-    of a batch-statistics BatchNorm's input (the blocks' layer_1 bias, the
-    encoders' output bias and the fusion bias, through linear layers),
-    2 x steps x lr: its gradient is zero in exact arithmetic, so two runs
-    step on their own rounding noise, which Adam scales to about lr per step.
-    A running mean takes the running average's share of such a shift,
-    (1 - 0.9^steps) of it. None for every other entry."""
-    if (name.endswith(("layer_1.bias", "layer_1_bias")) or name == "fusion_block.bias"
-            or (name.startswith("encoder_") and name.endswith("layer_out.bias"))):
-        return 2 * steps * lr
-    if name.endswith("running_mean"):
-        return (1 - (1 - 0.1) ** steps) * 2 * steps * lr  # BN momentum 0.1
+class PreActs:
+    """While active, records the signs of every watched hidden stack's first
+    pre-activations (the Linear before LeakyReLU) in each training-mode
+    forward: ``signs[(tag, stack)]`` lists one bool tensor (h > 0) per step,
+    (K, B, H) for a stacked forward, (B, H) for one model."""
+
+    def __init__(self):
+        self.names, self.signs, self.nets = {}, {}, []
+
+    def watch(self, model, tag: str):
+        """Records ``model``'s hidden stacks under ``tag``; returns ``model``."""
+        from flexynesis_torch.ops.mlp import _HiddenStack
+
+        self.nets.append(model)  # alive while watched, so no other module takes its ids
+        for name, mod in model.module.named_modules():
+            if isinstance(mod, _HiddenStack):
+                self.names[id(mod)] = (tag, name)
+        return model
+
+    def __enter__(self):
+        import torch
+        from flexynesis_torch.ops import mlp
+
+        self.orig = orig = mlp._HiddenStack.forward_with
+
+        def forward_with(stack, params, buffers, x, train):
+            key = self.names.get(id(stack))
+            if train and key is not None:
+                with torch.no_grad():
+                    h = mlp.linear(x, params["dense_0.weight"], params["dense_0.bias"])
+                self.signs.setdefault(key, []).append((h > 0).cpu())
+            return orig(stack, params, buffers, x, train)
+
+        mlp._HiddenStack.forward_with = forward_with
+        return self
+
+    def __exit__(self, *exc):
+        from flexynesis_torch.ops import mlp
+
+        mlp._HiddenStack.forward_with = self.orig
+
+    def units(self, a: str, k_a, b: str, k_b):
+        """{stack: (steps in which each unit's pre-activations kept one sign
+        over the batch in run ``a`` or run ``b``, steps in which a row's sign
+        differs between the runs)}, each (H,), comparing trial ``k_a`` of run
+        ``a`` with trial ``k_b`` of run ``b`` (None: a one-model run)."""
+        out = {}
+        for (tag, stack), seq in self.signs.items():
+            if tag != a:
+                continue
+            other = self.signs[(b, stack)]
+            if len(other) != len(seq):
+                fail(f"pre-activations: {len(seq)} steps of {stack} in {a}, {len(other)} in {b}")
+            one = cross = 0
+            for sa, sb in zip(seq, other):
+                sa = sa if k_a is None else sa[k_a]
+                sb = sb if k_b is None else sb[k_b]
+                one = one + (sa.all(0) | (~sa).all(0) | sb.all(0) | (~sb).all(0)).int()
+                cross = cross + (sa != sb).any(0).int()
+            out[stack] = (one, cross)
+        return out
+
+
+def _unit_of(name: str):
+    """(hidden stack, axis of its unit in the leaf) of a VAE leaf that one
+    hidden unit's entries make up: its stack's dense and BatchNorm entries
+    (axis 0) and the heads that read the stack (``FC_mean``, ``FC_var``,
+    ``FC_output`` weights, axis 1); None for every other leaf."""
+    owner, sep, rest = name.partition(".hidden_layers.")
+    if sep:
+        return owner + ".hidden_layers", 0
+    owner, _, leaf = name.rpartition(".")
+    if leaf == "weight" and owner.endswith((".FC_mean", ".FC_var", ".FC_output")):
+        return owner.rpartition(".")[0] + ".hidden_layers", 1
     return None
 
 
-def _state_err(got: dict, want: dict, lr: float, steps: int, what: str):
-    """(max abs difference of two DirectPred states outside the shift-only
+def _shift_atol(name: str, steps: int, lr: float, units=None):
+    """The bound on a bias whose only effect is a constant shift of a
+    batch-statistics BatchNorm's input: 2 x steps x lr for DirectPred's
+    blocks' layer_1 bias, encoders' output bias and fusion bias (through
+    linear layers) and the VAE heads' layer_1 bias; for the VAE's hidden
+    stacks, 2 x lr for each step in which the unit's pre-activations kept
+    one sign over the batch (LeakyReLU is linear there), per unit from
+    ``units`` (``PreActs.units``; no allowance without it). Its gradient is
+    zero in exact arithmetic, so two runs step on their own rounding noise,
+    which Adam scales to about lr per step. A running mean takes the running
+    average's share of such a shift, (1 - 0.9^steps) of it. None for every
+    other entry."""
+    run_share = 1 - (1 - 0.1) ** steps  # BN momentum 0.1
+    if ".hidden_layers." in name:
+        if units is None:
+            return None
+        one = units[_unit_of(name)[0]][0].float()
+        if name.endswith("dense_0.bias"):
+            return 2 * lr * one
+        if name.endswith("bn_0.running_mean"):
+            return run_share * 2 * lr * one
+        return None
+    if (name.endswith(("layer_1.bias", "layer_1_bias"))
+            or name == "fusion_block.bias"
+            or (name.startswith("encoder_") and name.endswith("layer_out.bias"))):
+        return 2 * steps * lr
+    if name.endswith("running_mean"):
+        return run_share * 2 * steps * lr
+    return None
+
+
+NOISE_SHARE = 1e-4  # of a VAE leaf, the most entries that may part outside a sign change
+
+
+def adam_rms(r) -> dict:
+    """{leaf: (K, ...) RMS of each entry's gradients so far} of a float32
+    round ``r`` (Adam's bias-corrected sqrt(nu)), in the state-dict layout."""
+    state = r.opt_state
+    out = {}
+    for n, v in zip(r.stacked.leaf_names, state.nu):
+        v = (v.float() / (1 - 0.999 ** state.count)).sqrt()
+        out[n] = v.mT if r.stacked.transposed[n] else v
+    return out
+
+
+def _state_err(got: dict, want: dict, lr: float, steps: int, what: str, noise=None,
+               units=None, rms=None):
+    """(max abs difference of two model states outside the shift-only
     entries, the largest shift-only difference as a share of its bound);
     fails outside rtol/atol 1e-4, plus the shift bound for shift-only
-    entries (rtol 0 for the biases)."""
+    entries (rtol 0 for the biases, per unit with ``units``). With
+    ``noise``, a list the caller reports through ``noise_check``, an entry
+    outside its tolerance passes if it is within 2 x steps x lr and either
+    belongs to a hidden unit (``_unit_of``) whose pre-activations changed
+    sign between the two runs in some step (``units``) or is one of at most
+    max(1, NOISE_SHARE of its leaf) other such entries of its leaf; each is
+    recorded there with its gradient RMS from ``rms`` ({leaf: tensor})."""
     import torch
 
     err, share = 0.0, 0.0
@@ -1339,19 +1560,87 @@ def _state_err(got: dict, want: dict, lr: float, steps: int, what: str):
         if name.endswith("num_batches_tracked"):
             continue
         b = want[name].to(a.device, a.dtype)
-        diff = float((a - b).abs().max())
-        shift = _shift_atol(name, steps, lr)
-        if shift is None:
-            tol = TOL
-            err = max(err, diff)
-        else:
-            bias = not name.endswith("running_mean")
-            tol = dict(rtol=0.0 if bias else TOL["rtol"],
-                       atol=shift if bias else TOL["atol"] + shift)
-            share = max(share, diff / shift)
-        if not torch.allclose(a, b, **tol):
-            fail(f"{what}: {name} differs by {diff:.3e} (tol {tol})")
+        gap = (a - b).abs()
+        tol = TOL["atol"] + TOL["rtol"] * b.abs()
+        shift = _shift_atol(name, steps, lr, units)
+        if shift is not None:
+            shift = torch.as_tensor(shift, dtype=a.dtype).to(a.device)
+            if name.endswith("running_mean"):
+                tol = tol + shift
+            else:
+                tol = torch.where(shift > 0, shift, tol)
+            on = (shift > 0).expand_as(gap)
+            if bool(on.any()):
+                share = max(share, float((gap / shift.clamp_min(1e-30))[on].max()))
+        close = gap <= tol
+        far = ~close
+        if bool(far.any()):
+            idx = far.nonzero().cpu()
+            gaps = gap[far].cpu()
+            unit = _unit_of(name) if units is not None else None
+            crossed = torch.zeros(len(idx), dtype=torch.int32)
+            if unit is not None and unit[0] in units:
+                crossed = units[unit[0]][1][idx[:, unit[1]]]
+            g_rms = (rms[name][far].cpu() if rms is not None and name in rms
+                     else torch.full((len(idx),), float("nan")))
+            entries = [dict(what=what, name=name, index=i, gap=float(g), lr=lr, crossed=int(c),
+                            rms=float(r)) for i, g, c, r in zip(idx.tolist(), gaps, crossed, g_rms)]
+            free = [e for e in entries if not e["crossed"]]
+            limit = max(1, int(NOISE_SHARE * a.numel()))
+            bad = ([e for e in entries if e["gap"] > 2 * steps * lr]
+                   + (free if len(free) > limit else []))
+            if noise is None or bad:
+                for e in (bad or entries)[:20]:
+                    print(f"{what}: {e['name']}{e['index']} differs by {e['gap']:.3e} (sign "
+                          f"changes of its unit between the runs: {e['crossed']} step(s); "
+                          f"gradient RMS {e['rms']:.3e})", flush=True)
+                fail(f"{what}: {len(entries)} of {a.numel()} entries of {name} differ "
+                     f"beyond their tolerance, by up to {float(gaps.max()):.3e}"
+                     + ("" if noise is None else
+                        f"; {len(bad)} of them beyond 2 x steps x lr = {2 * steps * lr:.3e} "
+                        f"or beyond the {limit} allowed outside units whose pre-activations "
+                        "changed sign between the runs"))
+            noise.extend(entries)
+        if shift is None and bool(close.any()):
+            err = max(err, float(gap[close].max()))
     return err, share
+
+
+def noise_check(noise, what: str) -> str:
+    """Prints every entry ``_state_err`` let take the noise bound and returns
+    their summary. In the VAE a hidden unit whose pre-activations keep one
+    sign over a batch has a dense bias that only shifts its BatchNorm's
+    input, so its gradient is rounding noise and Adam steps it by about lr in
+    a direction of its own in each run; once such a step carries a
+    pre-activation across LeakyReLU's kink in one run and not in the other,
+    the unit's gradients part, and Adam turns a parted gradient near zero
+    into a step of up to lr. Elsewhere only an entry whose gradient is
+    itself near zero, so that rounding steers its Adam step, may part: a few
+    per leaf; a wrong step would move many."""
+    for e in noise:
+        print(f"{what}: noise entry {e['what']}: {e['name']}{e['index']} differs by "
+              f"{e['gap']:.3e} (lr {e['lr']:.3g}); sign changes of its unit between the runs "
+              f"in {e['crossed']} step(s); gradient RMS {e['rms']:.3e}", flush=True)
+    kink = [e for e in noise if e["crossed"]]
+    other = [e["rms"] for e in noise if not e["crossed"]]
+    return (f"{len(noise)} entries beyond rtol/atol 1e-4, each within 2 x steps x lr: "
+            f"{len(kink)} in units whose pre-activations changed sign between the runs, "
+            f"{len(other)} elsewhere (at most max(1, {NOISE_SHARE:g} of the leaf) per leaf"
+            + (f"; gradient RMS up to {max(other):.3e})" if other else ")"))
+
+
+def shift_units(acts: PreActs, tag: str) -> str:
+    """How many hidden units of run ``tag``'s trials kept one sign over
+    the batch in a step (their dense bias only shifted the BatchNorm's
+    input), of all the units times steps; empty without hidden stacks."""
+    one = total = 0
+    for (t, _), seq in acts.signs.items():
+        if t == tag:
+            for sa in seq:
+                one += int((sa.all(-2) | (~sa).all(-2)).sum())
+                total += sa.shape[0] * sa.shape[-1] if sa.dim() == 3 else sa.shape[-1]
+    return (f"; hidden units keeping one sign over a step's batch: {one} of {total} "
+            f"(units x trials x steps)" if total else "")
 
 
 def _no_dropout(model):
@@ -1364,74 +1653,95 @@ def _no_dropout(model):
     return model
 
 
-def check_stacked_steps(config, cohort):
-    """Three stacked steps of K = 4 trials (f32 parameters and moments,
-    dropout 0, one initialisation, four lrs) against four unstacked Trainer
-    steps (ClippedAdam) on the card, and against the same stacked steps on
-    the CPU: losses rtol 1e-4, states rtol/atol 1e-4 (shift-only entries
-    within 2 x steps x lr)."""
+def check_stacked_steps(config, cohort, model_name: str = "DirectPred",
+                        lrs=(1e-4, 3e-4, 1e-3, 3e-3), noise: bool = False):
+    """Three stacked steps of K = len(lrs) trials (f32 parameters and
+    moments, dropout 0, one initialisation, one lr each) against K unstacked
+    Trainer steps (ClippedAdam) on the card, and against the same stacked
+    steps on the CPU: losses rtol 1e-4, states rtol/atol 1e-4 (shift-only
+    entries within their bound, the VAE's hidden stacks per unit from the
+    signs of its pre-activations, recorded in every run). The noise (a VAE's
+    eps and priors) comes from one CPU generator seeded alike on every side,
+    the stacked trials sharing its draws as the trials of a same-architecture
+    round do. With ``noise`` (the VAE), entries may take ``noise_check``'s
+    bound."""
     import torch
-    from flexynesis_torch.models.direct_pred import DirectPred
-    from flexynesis_torch.parallel.stacked import StackedDirectPred
+    from flexynesis_torch.models import MODEL_REGISTRY
+    from flexynesis_torch.parallel.stacked import TrialNoise, stacked_model
     from flexynesis_torch.parallel.trials import _Round, _gather
     from flexynesis_torch.train.trainer import Trainer, gather
 
-    K, steps = 4, 3
-    lrs = [1e-4, 3e-4, 1e-3, 3e-3]
+    K, steps = len(lrs), 3
+    lrs = list(lrs)
     perm = torch.randperm(len(cohort), generator=torch.Generator().manual_seed(5))
     perm = perm[: steps * BATCH].reshape(steps, BATCH)
 
     def model_on(device):
-        m = DirectPred(config, cohort, target_variables=["subtype"], device=device)
+        m = MODEL_REGISTRY[model_name](config, cohort, target_variables=["subtype"],
+                                       device=device)
         m.init_params(seed=3)
         return _no_dropout(m)
 
-    stacked_runs = {}
-    for device in (DEVICE, "cpu"):
-        m = model_on(device)
-        stacked = StackedDirectPred(m, K)
+    stacked_runs, acts = {}, PreActs()
+    for tag, device in (("card", DEVICE), ("cpu", "cpu")):
+        m = acts.watch(model_on(device), tag)
+        stacked = stacked_model(m, K)
         state = {n: t.clone() for n, t in m.module.state_dict().items()}
         params, buffers = stacked.stack([state] * K)
         trial_round = _Round(m, params, buffers, lrs=lrs, seeds=[0] * K,
                              param_dtype="float32")
+        trial_round.noise = TrialNoise(torch.Generator().manual_seed(0), [0] * K)
         data = m.make_batch(cohort)
-        losses = [trial_round.step(_gather(data, p.to(device))).cpu() for p in perm]
+        with acts:
+            losses = [trial_round.step(_gather(data, p.to(device))).cpu() for p in perm]
         states = [stacked.trial_state(trial_round.params, trial_round.buffers, k)
                   for k in range(K)]
-        stacked_runs[device] = (torch.stack(losses), states)
+        stacked_runs[tag] = (torch.stack(losses), states, adam_rms(trial_round))
 
     singles = []
     for k in range(K):
-        m = model_on(DEVICE)
+        m = acts.watch(model_on(DEVICE), f"single{k}")
         data = m.make_batch(cohort)
         trainer = Trainer(m.module, m.loss_fn, lr=lrs[k])
         gen = torch.Generator().manual_seed(0)
-        losses = [float(trainer.train_step(gather(data, p.to(DEVICE)), gen)) for p in perm]
+        with acts:
+            losses = [float(trainer.train_step(gather(data, p.to(DEVICE)), gen)) for p in perm]
         singles.append((losses, {n: t.detach() for n, t in m.module.state_dict().items()}))
 
-    card_losses, card_states = stacked_runs[DEVICE]
+    card_losses, card_states, card_rms = stacked_runs["card"]
     single_losses = torch.tensor([s[0] for s in singles]).T
     if not torch.allclose(card_losses, single_losses, rtol=1e-4, atol=0):
         fail(f"stacked steps: losses {card_losses.tolist()} differ from the single-trial "
              f"Trainer's {single_losses.tolist()} (rtol 1e-4)")
+    noise_single, noise_cpu = ([], []) if noise else (None, None)
     err_single, share_single = map(max, zip(*(
         _state_err(card_states[k], singles[k][1], lrs[k], steps,
-                   f"stacked trial {k} against its Trainer") for k in range(K))))
-    cpu_losses, cpu_states = stacked_runs["cpu"]
+                   f"stacked trial {k} against its Trainer", noise_single,
+                   acts.units("card", k, f"single{k}", None),
+                   {n: t[k] for n, t in card_rms.items()}) for k in range(K))))
+    cpu_losses, cpu_states, _ = stacked_runs["cpu"]
     if not torch.allclose(card_losses, cpu_losses, rtol=1e-4, atol=0):
         fail(f"stacked steps: card losses {card_losses.tolist()} differ from the CPU's "
              f"{cpu_losses.tolist()} (rtol 1e-4)")
     err_cpu, share_cpu = map(max, zip(*(
         _state_err(card_states[k], cpu_states[k], lrs[k], steps,
-                   f"stacked trial {k} card against cpu") for k in range(K))))
-    print(f"trials: {steps} stacked steps of K={K} (lrs {lrs}, f32 parameters and moments) "
+                   f"stacked trial {k} card against cpu", noise_cpu,
+                   acts.units("card", k, "cpu", k),
+                   {n: t[k] for n, t in card_rms.items()}) for k in range(K))))
+    noted = ""
+    if noise:
+        noted = (f"; against the Trainer {noise_check(noise_single, 'stacked against Trainer')}"
+                 f", against the CPU {noise_check(noise_cpu, 'stacked card against cpu')}")
+    print(f"trials: {model_name}: {steps} stacked steps of K={K} (lrs {[f'{v:.3g}' for v in lrs]}, "
+          "f32 parameters and moments) "
           f"equal {K} Trainer steps on the card: losses max rel diff "
           f"{float(((card_losses - single_losses) / single_losses).abs().max()):.3e}, states "
           f"max abs diff {err_single:.3e}; and the CPU: losses max rel diff "
           f"{float(((card_losses - cpu_losses) / cpu_losses).abs().max()):.3e}, states "
           f"{err_cpu:.3e} (rtol/atol 1e-4); shift-only entries at most {share_single:.3f} "
-          f"and {share_cpu:.3f} of their bounds (biases 2 x steps x lr, running means "
-          f"(1 - 0.9^steps) of that)", flush=True)
+          f"and {share_cpu:.3f} of their bounds (biases 2 x lr per step that shifts them, "
+          f"running means (1 - 0.9^steps) of that){noted}{shift_units(acts, "card")}",
+          flush=True)
 
 
 # four suggestions of the default DirectPred space, padded into one round
@@ -1617,20 +1927,20 @@ def check_sr_steps(config, cohort):
               f"{'; padded entries exactly zero' if card_round.masks else ''}", flush=True)
 
 
-def time_stacked_steps(config, cohort, K: int = TRIALS):
+def time_stacked_steps(config, cohort, K: int = TRIALS, model_name: str = "DirectPred"):
     """Median host-clock time of one stacked training step of K trials (the
     same-architecture round's engine: SR-bf16 Adam, one seed) and a profiled
-    run of PROFILED_STEPS such steps with its device-busy share. Returns the
-    median in ms."""
+    run of PROFILED_STEPS such steps with its device-busy share. Returns
+    (the median in ms, the busy share in percent or None)."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from flexynesis_torch.models.direct_pred import DirectPred
+    from flexynesis_torch.models import MODEL_REGISTRY
     from flexynesis_torch.parallel.trials import _gather, _init_stacked, _Round
 
-    m = DirectPred(config, cohort, target_variables=["subtype"], device=DEVICE)
+    m = MODEL_REGISTRY[model_name](config, cohort, target_variables=["subtype"], device=DEVICE)
     params, buffers = _init_stacked(m, np.zeros(K, np.int64))
     trial_round = _Round(m, params, buffers, lrs=np.geomspace(1e-4, 1e-2, K), seeds=[0] * K)
     data = m.make_batch(cohort)
@@ -1654,14 +1964,16 @@ def time_stacked_steps(config, cohort, K: int = TRIALS):
             trial_round.step(b)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t) * 1e6
-    print(f"trials: stacked step of K={K} (SR-bf16 Adam, batch {BATCH}) x30: median "
+    print(f"trials: {model_name}: stacked step of K={K} (SR-bf16 Adam, batch {BATCH}) x30: median "
           f"{med * 1e3:.3f} ms (min {min(times) * 1e3:.3f}, max {max(times) * 1e3:.3f}; host "
           f"clock, synchronised), {K * BATCH / med:.0f} trial-samples/s", flush=True)
     device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in device)
+    busy = None
     if busy_us > 0:
+        busy = 100 * busy_us / wall_us
         top = sorted(device, key=lambda e: -e.self_device_time_total)[:8]
-        print(f"trials: profiled {PROFILED_STEPS} stacked steps: wall {wall_us:.0f} us, device "
+        print(f"trials: {model_name}: profiled {PROFILED_STEPS} stacked steps: wall {wall_us:.0f} us, device "
               f"busy {busy_us:.0f} us ({100 * busy_us / wall_us:.1f}%), "
               f"{sum(e.count for e in device) / PROFILED_STEPS:.0f} device operations per step; "
               "top: " + "; ".join(f"{e.key[:48]} {e.self_device_time_total:.0f} us"
@@ -1670,7 +1982,7 @@ def time_stacked_steps(config, cohort, K: int = TRIALS):
               + port_kernels(device, PROFILED_STEPS), flush=True)
     else:
         print("trials: profiled stacked steps: the profiler saw no device time (not measured)")
-    return med * 1e3
+    return med * 1e3, busy
 
 
 TRIAL_CONFIG = """DirectPred:
@@ -1695,24 +2007,32 @@ MIXED_CONFIG = """DirectPred:
 """
 
 
-def hpo_run(workdir: Path, name: str, config_text: str, extra=()):
-    """One training CLI run of TRIALS GP suggestions on phase 5's folder;
-    returns (model, its CLI phases, (B1, B2) launches, the log)."""
+def hpo_run(workdir: Path, name: str, config_text: str, extra=(), model_class="DirectPred",
+            n_iter=None):
+    """One training CLI run of ``n_iter`` GP suggestions of ``model_class``
+    on phase 5's folder; returns (model, its CLI phases, (B1, B2, B3)
+    launches, the log, the output folder) and prints the peak of the card's
+    allocated memory."""
+    import torch
     from flexynesis_torch.__main__ import parse_args, run_training
     from flexynesis_torch.kernels.fused_linear import (
         fused_linear_bn_relu as b1,
         fused_linear_bn_relu_eval as b2,
     )
+    from flexynesis_torch.kernels.mmd import gaussian_kernel_mean as b3
 
     config = workdir / f"{name}.yaml"
     config.write_text(config_text)
     out = workdir / f"{name}_out"
-    args = train_args(workdir / "fit_data", config, out, DEVICE)
-    args[args.index("--hpo_iter") + 1] = str(TRIALS)
-    b1.launches = b2.launches = 0
+    args = train_args(workdir / "fit_data", config, out, DEVICE, model_class)
+    n_iter = n_iter or TRIALS
+    args[args.index("--hpo_iter") + 1] = str(n_iter)
+    torch.cuda.reset_peak_memory_stats()
+    b1.launches = b2.launches = b3.launches = 0
     with Tee() as log:
         model = run_training(*parse_args([*args, *extra]))
-    launches = (b1.launches, b2.launches)
+    launches = (b1.launches, b2.launches, b3.launches)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     missing = [f for f in ("fit.stats.csv", "fit.predicted_labels.csv", "fit.embeddings_test.csv",
                            "fit.final_model.safetensors") if not (out / f).exists()]
     if missing:
@@ -1720,8 +2040,9 @@ def hpo_run(workdir: Path, name: str, config_text: str, extra=()):
     phases = model.cli_phases
     print(f"trials: {name}: CLI phases (host clock, s): "
           + json.dumps({k: round(v, 4) for k, v in phases.items()})
-          + f"; {TRIALS} trials in hpo_fit: {TRIALS / phases['hpo_fit'] * 3600:.0f} trials/h; "
-          f"launches B1 {launches[0]}, B2 {launches[1]}", flush=True)
+          + f"; {n_iter} trials in hpo_fit: {n_iter / phases['hpo_fit'] * 3600:.0f} trials/h; "
+          f"launches B1 {launches[0]}, B2 {launches[1]}, B3 {launches[2]}; peak allocated "
+          f"on the card {peak_gib:.3f} GiB", flush=True)
     return model, phases, launches, log.text, out
 
 
@@ -1740,7 +2061,7 @@ def train_trials(workdir: Path, importer_cache: ImportOnce, cohort):
                 "batch_size": BATCH, "fused_kernels": True}
     check_stacked_steps(h_config, cohort)
     check_sr_steps(h_config, cohort)
-    step_ms = time_stacked_steps(h_config, cohort)
+    step_ms, busy = time_stacked_steps(h_config, cohort)
 
     same = TRIAL_CONFIG % (LATENT, HIDDEN_FACTOR, SUP_HIDDEN, FIT_EPOCHS, BATCH)
     with importer_cache:
@@ -1759,14 +2080,14 @@ def train_trials(workdir: Path, importer_cache: ImportOnce, cohort):
     round_steps = FIT_EPOCHS * (n_fit // BATCH)  # patience 10 > 10 epochs: no early stop
     retrain_steps = model.train_result.epochs_run * (n // BATCH)
     want = (B1_PER_STEP * (round_steps + retrain_steps),
-            B2_PER_FORWARD * (FIT_EPOCHS + EVAL_FORWARDS))
+            B2_PER_FORWARD * (FIT_EPOCHS + EVAL_FORWARDS), 0)
     if launches != want:
         fail(f"trials: batched round launches (B1, B2) = {launches}, expected {want}: "
              f"{B1_PER_STEP} per stacked step x ({round_steps} round steps + {retrain_steps} "
              f"retrain steps), {B2_PER_FORWARD} per eval forward x ({FIT_EPOCHS} stacked "
              f"validations + {EVAL_FORWARDS} evaluation forwards)")
     seq_want = (B1_PER_STEP * TRIALS * round_steps,
-                B2_PER_FORWARD * (TRIALS * FIT_EPOCHS + EVAL_FORWARDS))
+                B2_PER_FORWARD * (TRIALS * FIT_EPOCHS + EVAL_FORWARDS), 0)
     if seq_launches != seq_want:
         fail(f"trials: sequential launches (B1, B2) = {seq_launches}, expected {seq_want}")
     print(f"trials: {TRIALS} trials batched: B1 {launches[0]} launches = {B1_PER_STEP} x "
@@ -1792,8 +2113,8 @@ def train_trials(workdir: Path, importer_cache: ImportOnce, cohort):
         fail("trials: the mixed round did not take the padded path")
     if "Final full-data training with best params" not in mixed_log:
         fail("trials: the mixed round did not retrain its best configuration")
-    if mixed_launches != (0, 0):
-        fail(f"trials: the unfused mixed round launched B1/B2 {mixed_launches} times")
+    if mixed_launches != (0, 0, 0):
+        fail(f"trials: the unfused mixed round launched B1/B2/B3 {mixed_launches} times")
     rate = {k: TRIALS / p["hpo_fit"] * 3600
             for k, p in (("batched", phases), ("sequential", seq_phases),
                          ("mixed", mixed_phases))}
@@ -1804,7 +2125,227 @@ def train_trials(workdir: Path, importer_cache: ImportOnce, cohort):
           f"{seq_model.config['lr']:.3g}", flush=True)
     return ({"hpo_batched": launches, "hpo_sequential": seq_launches,
              "hpo_mixed": mixed_launches},
-            {"trials_per_hour": rate, "stacked_step_ms": step_ms})
+            {"trials_per_hour": rate, "stacked_step_ms": step_ms, "stacked_busy_pct": busy})
+
+
+# the VAE phases' HPO space: the headline architecture fixed, lr free
+VAE_TRIAL_CONFIG = TRIAL_CONFIG.replace("DirectPred:", "supervised_vae:")
+VAE_TRIAL_EPOCHS = 5  # the batched and one-at-a-time VAE rounds, cut alike
+CV_SUGGESTIONS, CV_FOLDS, CV_EPOCHS = 4, 5, 3
+# a default-space CrossModalPred round with fused_kernels on: padded, so
+# its trials take the masked MMD and B3 runs only in the final retrain
+CM_MIXED_CONFIG = MIXED_CONFIG.replace("DirectPred:", "CrossModalPred:") + \
+    "  - {type: Categorical, categories: [true], name: fused_kernels}\n"
+# four supervised_vae suggestions padded into one round (fused_kernels on)
+VAE_MIXED_GROUP = [
+    {"latent_dim": 64, "hidden_dim_factor": 0.3, "supervisor_hidden_dim": 16, "lr": 1e-3},
+    {"latent_dim": 96, "hidden_dim_factor": 0.4, "supervisor_hidden_dim": 24, "lr": 3e-4},
+    {"latent_dim": 32, "hidden_dim_factor": 0.2, "supervisor_hidden_dim": 8, "lr": 3e-3},
+    {"latent_dim": 16, "hidden_dim_factor": 0.5, "supervisor_hidden_dim": 32, "lr": 1e-4},
+]
+
+
+def _round_pair(build, what: str, steps_of):
+    """Float32 stacked steps of the round ``build(device)`` returns ((round,
+    rows per step)) on the card and on the CPU, the noise from one CPU
+    generator on both (per trial where the round's seeds differ): losses
+    rtol 1e-4, states rtol/atol 1e-4 (shift-only entries within their bound,
+    the VAE's rounding-noise entries as ``noise_check`` allows), masked
+    entries exactly zero. ``steps_of`` gives the batch of a
+    step's rows. Returns (loss rel diff, state abs diff, B3 launches on the
+    card)."""
+    import torch
+    from flexynesis_torch.kernels.mmd import gaussian_kernel_mean as b3
+    from flexynesis_torch.parallel.stacked import TrialNoise
+
+    runs, b3_card, acts = {}, 0, PreActs()
+    for tag, device in (("card", DEVICE), ("cpu", "cpu")):
+        r, rows = build(device)
+        acts.watch(r.model, tag)
+        r.noise = TrialNoise(torch.Generator().manual_seed(0), r.seeds)
+        before = b3.launches
+        with acts:
+            losses = torch.stack([r.step(steps_of(r, p)).cpu() for p in rows])
+        if tag == "card":
+            torch.cuda.synchronize()
+            b3_card = b3.launches - before
+        if r.masks is not None:
+            _padded_zero(r, f"{what} on the {device}")
+        runs[tag] = (r, losses)
+    (card, l_card), (cpu, l_cpu) = runs["card"], runs["cpu"]
+    if not torch.allclose(l_card, l_cpu, rtol=1e-4, atol=0):
+        fail(f"{what}: card losses {l_card.tolist()} differ from the CPU's {l_cpu.tolist()}")
+    err, share, noise, rms = 0.0, 0.0, [], adam_rms(card)
+    for k in range(card.K):
+        got = {n: t[k] for n, t in {**card.params, **card.buffers}.items()}
+        want = {n: t[k] for n, t in {**cpu.params, **cpu.buffers}.items()}
+        e, sh = _state_err(got, want, float(card.lrs[k]), len(l_card), f"{what} trial {k}",
+                           noise, acts.units("card", k, "cpu", k),
+                           {n: t[k] for n, t in rms.items()})
+        err, share = max(err, e), max(share, sh)
+    rel = float(((l_card - l_cpu) / l_cpu).abs().max())
+    print(f"{what}: {len(l_card)} stacked steps of K={card.K} card against CPU: losses max rel "
+          f"diff {rel:.3e}, states max abs diff {err:.3e} (rtol/atol 1e-4; "
+          f"{noise_check(noise, what)}), shift-only entries at most {share:.3f} of their bounds"
+          f"{'; masked entries exactly zero' if card.masks is not None else ''}; "
+          f"B3 launches on the card {b3_card}{shift_units(acts, "card")}", flush=True)
+    return rel, err, b3_card
+
+
+def check_vae_rounds(config, cohort):
+    """The VAE's padded and CV rounds on the card against the CPU: a padded
+    round of VAE_MIXED_GROUP (element masks and ``_aux``, so the masked
+    plain MMD and no B3, the noise drawn per trial) and one stacked step of
+    a CV round of CV_SUGGESTIONS x CV_FOLDS trials (each trial its fold's
+    rows and its own prior, B3 reading the prior at its trial stride)."""
+    import numpy as np
+    import torch
+    from flexynesis_torch.models.supervised_vae import SupervisedVAE
+    from flexynesis_torch.parallel.hetero import build_padded_trials, max_config
+    from flexynesis_torch.parallel.trials import (
+        _gather, _init_stacked, _Round, equal_kfold_indices,
+    )
+
+    dims = [len(cohort.features[k]) for k in cohort.dat]
+    group = [dict(config, **c) for c in VAE_MIXED_GROUP]
+    perm = torch.randperm(len(cohort), generator=torch.Generator().manual_seed(6))
+    perm = perm[: 3 * BATCH].reshape(3, BATCH)
+
+    def padded(device):
+        m = _no_dropout(SupervisedVAE(max_config(group, dims), cohort,
+                                      target_variables=["subtype"], device=device))
+        trials = build_padded_trials(m, group, np.arange(3, 3 + len(group)))
+        r = _Round(m, trials["params"], trials["buffers"], lrs=[c["lr"] for c in group],
+                   seeds=np.arange(3, 3 + len(group)), masks=trials["masks"],
+                   aux=trials["aux"], param_dtype="float32")
+        return r, perm
+
+    def by_rows(r, p):
+        return _gather(r.model.make_batch(cohort), p.to(r.device))
+
+    _, _, b3_padded = _round_pair(padded, "vae rounds: padded supervised_vae", by_rows)
+    if b3_padded:
+        fail(f"vae rounds: the padded round launched B3 {b3_padded} times (masked MMD expected)")
+
+    K = CV_SUGGESTIONS * CV_FOLDS
+    tr, _ = equal_kfold_indices(len(cohort), CV_FOLDS, seed=42)
+    train_idx = np.tile(tr, (CV_SUGGESTIONS, 1))
+    seeds = np.tile(np.arange(42, 42 + CV_FOLDS), CV_SUGGESTIONS)
+
+    def cv(device):
+        m = _no_dropout(SupervisedVAE(config, cohort, target_variables=["subtype"],
+                                      device=device))
+        params, buffers = _init_stacked(m, seeds)
+        r = _Round(m, params, buffers, lrs=np.repeat([1e-4, 3e-4, 1e-3, 3e-3], CV_FOLDS),
+                   seeds=seeds, param_dtype="float32")
+        return r, [r.epoch_rows(train_idx, 1, BATCH)[0].cpu()]
+
+    _, _, b3_cv = _round_pair(cv, "vae rounds: one CV step", by_rows)
+    n_dec = len(cohort.dat)
+    if b3_cv != n_dec:
+        fail(f"vae rounds: the CV step launched B3 {b3_cv} times, expected {n_dec} (one per "
+             "decoded layer for all trials)")
+
+
+def vae_trials(workdir: Path, importer_cache: ImportOnce, cohort):
+    """The VAE-MMD trial engine and the CV fold engine on phase 5's folder:
+    16 stacked supervised_vae steps against 16 single trials and the CPU,
+    the padded and CV rounds against the CPU, one stacked step's time and
+    profile; then through the training CLI: a supervised_vae round of TRIALS
+    suggestions (``--hpo_batch 0``, lr free, fused) against the same trials
+    one at a time, a mixed-architecture CrossModalPred round (default space,
+    fused, padded), and ``--use_cv`` rounds of CV_SUGGESTIONS x CV_FOLDS
+    trials of DirectPred and supervised_vae (fused). Returns each CLI run's
+    (B1, B2, B3) launches and the summary numbers."""
+    import numpy as np
+
+    config = {"latent_dim": LATENT, "hidden_dim_factor": HIDDEN_FACTOR,
+              "supervisor_hidden_dim": SUP_HIDDEN, "lr": 1e-3, "epochs": VAE_TRIAL_EPOCHS,
+              "batch_size": BATCH, "fused_kernels": True}
+    check_stacked_steps(config, cohort, "supervised_vae", np.geomspace(1e-4, 3e-3, TRIALS),
+                        noise=True)
+    check_vae_rounds(config, cohort)
+    step_ms, busy = time_stacked_steps(config, cohort, TRIALS, "supervised_vae")
+
+    n = FIT_TRAIN
+    n_fit = n - int(np.ceil(n * VAL_SIZE))
+    n_dec = 2  # gex and cnv
+    vae_same = VAE_TRIAL_CONFIG % (LATENT, HIDDEN_FACTOR, SUP_HIDDEN, VAE_TRIAL_EPOCHS, BATCH)
+    cm = ("--input_layers", "gex", "--output_layers", "cnv")
+    with importer_cache:
+        model, phases, launches, log, _ = hpo_run(workdir, "vae_batched", vae_same,
+                                                  model_class="supervised_vae")
+        _, seq_phases, seq_launches, _, _ = hpo_run(
+            workdir, "vae_sequential", vae_same, ("--hpo_batch", "1"), "supervised_vae")
+        cm_model, cm_phases, cm_launches, cm_log, _ = hpo_run(
+            workdir, "cm_mixed", CM_MIXED_CONFIG % (CM_EPOCHS, BATCH), cm, "CrossModalPred")
+        cv_same = TRIAL_CONFIG % (LATENT, HIDDEN_FACTOR, SUP_HIDDEN, CV_EPOCHS, BATCH)
+        cv_dp, _, cv_dp_launches, cv_dp_log, _ = hpo_run(
+            workdir, "cv_directpred", cv_same, ("--use_cv",), n_iter=CV_SUGGESTIONS)
+        cv_vae, _, cv_vae_launches, cv_vae_log, _ = hpo_run(
+            workdir, "cv_vae", cv_same.replace("DirectPred:", "supervised_vae:"), ("--use_cv",),
+            "supervised_vae", CV_SUGGESTIONS)
+
+    if f"HPO trial fan-out: {TRIALS} suggestions per GP round" not in log:
+        fail(f"vae trials: --hpo_batch 0 did not resolve to {TRIALS} for supervised_vae")
+    if f"Training {TRIALS} same-architecture trials concurrently (stacked)" not in log:
+        fail("vae trials: the supervised_vae round did not train stacked")
+    round_steps = VAE_TRIAL_EPOCHS * (n_fit // BATCH)  # patience 10: no early stop
+    retrain_steps = model.train_result.epochs_run * (n // BATCH)
+    want = (0, 0, n_dec * (round_steps + VAE_TRIAL_EPOCHS + retrain_steps))
+    if launches != want:
+        fail(f"vae trials: batched round launches (B1, B2, B3) = {launches}, expected {want}: "
+             f"{n_dec} decoded layers x ({round_steps} stacked steps + {VAE_TRIAL_EPOCHS} "
+             f"stacked validations + {retrain_steps} retrain steps)")
+    seq_want = (0, 0, n_dec * TRIALS * (round_steps + VAE_TRIAL_EPOCHS))
+    if seq_launches != seq_want:
+        fail(f"vae trials: one-at-a-time launches (B1, B2, B3) = {seq_launches}, "
+             f"expected {seq_want}")
+
+    for text, what in (("mixed-architecture trials concurrently (padded, stacked)", "the padded path"),
+                       ("Final full-data training with best params", "the final retrain")):
+        if text not in cm_log:
+            fail(f"vae trials: the CrossModalPred mixed round did not take {what}")
+    cm_want = (0, 0, cm_model.train_result.epochs_run * (n // BATCH))  # one decoded layer
+    if cm_launches != cm_want:
+        fail(f"vae trials: the CrossModalPred mixed round launched (B1, B2, B3) {cm_launches}, "
+             f"expected {cm_want}: B3 only in the retrain's steps (the padded trials take the "
+             "masked MMD)")
+
+    K_cv = CV_SUGGESTIONS * CV_FOLDS
+    cv_text = f"Training {CV_SUGGESTIONS} suggestions x {CV_FOLDS} CV folds = {K_cv} trials"
+    n_cv_tr = (n // CV_FOLDS) * (CV_FOLDS - 1)
+    cv_steps = CV_EPOCHS * (n_cv_tr // BATCH)
+    for name, cv_log, got, model_cv, per_step, per_val in (
+            ("DirectPred", cv_dp_log, cv_dp_launches, cv_dp, (B1_PER_STEP, 0, 0),
+             (0, B2_PER_FORWARD, 0)),
+            ("supervised_vae", cv_vae_log, cv_vae_launches, cv_vae, (0, 0, n_dec),
+             (0, 0, n_dec))):
+        if cv_text not in cv_log or "Final full-data training" not in cv_log:
+            fail(f"vae trials: the {name} CV run did not train {K_cv} trials at once and retrain")
+        retrain = model_cv.train_result.epochs_run * (n // BATCH)
+        evals = EVAL_FORWARDS if name == "DirectPred" else 0
+        cv_want = tuple(s * (cv_steps + retrain) + v * (CV_EPOCHS + evals)
+                        for s, v in zip(per_step, per_val))
+        if got != cv_want:
+            fail(f"vae trials: the {name} CV run launched (B1, B2, B3) {got}, expected "
+                 f"{cv_want}: per stacked step {per_step}, per validation or evaluation "
+                 f"forward {per_val}, {cv_steps} stacked steps, {CV_EPOCHS} stacked "
+                 f"validations, {retrain} retrain steps, {evals} evaluation forwards")
+
+    rate = {k: TRIALS / p["hpo_fit"] * 3600
+            for k, p in (("batched", phases), ("sequential", seq_phases),
+                         ("crossmodal_mixed", cm_phases))}
+    print(f"vae trials: supervised_vae hpo_fit trials/h ({VAE_TRIAL_EPOCHS} epochs): batched "
+          f"{rate['batched']:.0f}, one at a time {rate['sequential']:.0f} "
+          f"({rate['batched'] / rate['sequential']:.2f}x); CrossModalPred mixed round "
+          f"({CM_EPOCHS} epochs) {rate['crossmodal_mixed']:.0f}; launches (B1, B2, B3): batched "
+          f"{launches}, one at a time {seq_launches}, CrossModalPred mixed {cm_launches}, CV "
+          f"DirectPred {cv_dp_launches}, CV supervised_vae {cv_vae_launches}", flush=True)
+    return ({"vae_batched": launches, "vae_sequential": seq_launches,
+             "crossmodal_mixed": cm_launches, "cv_directpred": cv_dp_launches,
+             "cv_supervised_vae": cv_vae_launches},
+            {"trials_per_hour": rate, "stacked_step_ms": step_ms, "stacked_busy_pct": busy})
 
 
 def train_vae(workdir: Path, model_class: str, epochs: int, layer_args=(), timed=True):
@@ -2203,6 +2744,24 @@ def trial_entry(rows, label_part: str):
             "shapes": [[r["K"], r["B"], r["F"], r["H"]] for r in path]}
 
 
+def b3_trial_entry(rows):
+    """B3's trial axis in the kernels line: one stacked supervised_vae
+    training step of TRIALS trials, an MMD term per decoded layer (two) of
+    the shared prior against each trial's batch; beside it the per-call rows
+    of every trial-axis shape."""
+    path = [r for r in rows if r["label"] == "train_shared"]
+    ops_ms, nbytes = 2 * path[0]["ops_ms"], 2 * path[0]["bytes"]
+    bms, by = bound_ms(ops_ms, nbytes)
+    return {"K": TRIALS, "launches_per_stacked_step": 2, "launches_per_stacked_validation": 2,
+            "ms": 2 * path[0]["ms"],
+            "device_ms": None if path[0]["device_ms"] is None else 2 * path[0]["device_ms"],
+            "host_ms": 2 * path[0]["host_ms"], "plain_ms": 2 * path[0]["plain_ms"],
+            "bound_ms": bms, "bound_by": by,
+            "per_call": [{k: r[k] for k in ("label", "shape", "per_trial", "ms", "device_ms",
+                                             "host_ms", "plain_ms", "bound_ms", "bound_by",
+                                             "max_abs_err")} for r in rows]}
+
+
 def kernel_entry(name, source, replaces, rows, path_rows, launches, by_path, per_path=1,
                  extra=None):
     """The kernel's line: times and work summed over ``path_rows`` (the calls
@@ -2281,7 +2840,7 @@ def check_kernels():
         term_train + [(f"val{val_rows}", (200, val_rows, LATENT)), ("ragged", (37, 129, 17)),
                       ("one_row", (1, 1, 16))],
         [shape for _, shape in term_train])
-    trial_rows = check_trial_kernels()
+    trial_rows = check_trial_kernels() + [dict(r, kernel="B3") for r in check_b3_trials()]
     return train_shapes, rows, passes, b1_rows, b3_rows, term_rows, trial_rows
 
 
@@ -2313,6 +2872,7 @@ def main() -> int:
     rows += check_kernel([(f"{n}_n{B}", (B, F, H)) for B in b2_train_rows
                           for n, (F, H) in b2_blocks() if (B, F, H) not in checked])
     hpo_launches, hpo_summary = train_trials(workdir, importer_cache, cohort)
+    vae_launches, vae_summary = vae_trials(workdir, importer_cache, cohort)
     vae_b3 = train_vae(workdir, "supervised_vae", FIT_EPOCHS)
     cm_b3 = train_vae(workdir, "CrossModalPred", CM_EPOCHS,
                       ("--input_layers", "gex", "--output_layers", "cnv"), timed=False)
@@ -2321,30 +2881,34 @@ def main() -> int:
 
     trial_b1 = [r for r in trial_rows if r["kernel"] == "B1"]
     trial_b2 = [r for r in trial_rows if r["kernel"] == "B2"]
+    trial_b3 = [r for r in trial_rows if r["kernel"] == "B3"]
     entries = [
         kernel_entry("fused_linear_bn_relu", "flexynesis_torch/csrc/fused_linear_train.cu",
                      "flexynesis_tpu/ops/pallas/fused_linear.py:115", b1_rows + trial_b1,
                      b1_rows[:len(train_shapes)],  # one training forward
                      train_b1, {"training": train_b1,
-                                **{k: v[0] for k, v in hpo_launches.items()},
+                                **{k: v[0] for k, v in {**hpo_launches, **vae_launches}.items()},
                                 "default_directpred_markers": marker_b1},
                      extra={"trial_axis": trial_entry(trial_b1, "shared_x")}),
         kernel_entry("fused_linear_bn_relu_eval", "flexynesis_torch/csrc/fused_linear_eval.cu",
                      "flexynesis_tpu/ops/pallas/fused_linear.py:223", rows + trial_b2,
                      rows[:len(b2_blocks())],  # one eval forward over the cohort
                      serve_b2, {"serving": serve_b2, "training": train_b2,
-                                **{k: v[1] for k, v in hpo_launches.items()},
+                                **{k: v[1] for k, v in {**hpo_launches, **vae_launches}.items()},
                                 "default_directpred_markers": marker_b2},
                      extra={"gemm_only_addmm_device_ms": passes["cohort"]["addmm_device_ms"],
                             "passes": passes, "trial_axis": trial_entry(trial_b2, "_val")}),
         kernel_entry("gaussian_kernel_mean", "flexynesis_torch/csrc/mmd_kernel.cu",
-                     "flexynesis_tpu/ops/pallas/mmd_kernel.py:66", b3_rows + term_rows,
+                     "flexynesis_tpu/ops/pallas/mmd_kernel.py:66", b3_rows + term_rows + trial_b3,
                      term_rows[:1], vae_b3,
                      {"supervised_vae_training": vae_b3, "crossmodal_training": cm_b3,
+                      **{k: v[2] for k, v in {**hpo_launches, **vae_launches}.items()},
                       "default_directpred_markers": marker_b3},
-                     per_path=2),  # one training step: an MMD term per decoded layer
+                     per_path=2,  # one training step: an MMD term per decoded layer
+                     extra={"trial_axis": b3_trial_entry(trial_b3)}),
     ]
     print("trials: summary " + json.dumps(hpo_summary), flush=True)
+    print("vae trials: summary " + json.dumps(vae_summary), flush=True)
     print("markers: summary " + json.dumps(marker_summary), flush=True)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": entries}))

@@ -5,10 +5,11 @@ unless ``--device cpu`` is given.
 
 * Training mode (``--data_path``, ``--model_class`` DirectPred,
   supervised_vae or CrossModalPred, ``--data_types``, targets): imports the
-  CSV folder and selects features, runs GP hyperparameter search (DirectPred
-  trains ``--hpo_batch`` suggestions per round at once on the K-stacked
-  trial engine, then retrains the best on the whole training set; the other
-  classes one trial at a time), trains with Adam and early stopping, writes
+  CSV folder and selects features, runs GP hyperparameter search (each
+  round's ``--hpo_batch`` suggestions train at once on the K-stacked trial
+  engine, and with ``--use_cv`` each suggestion's five folds too; then the
+  best retrains on the whole training set), trains with Adam and early
+  stopping, writes
   ``<prefix>.feature_logs.<layer>.csv``, ``<prefix>.embeddings_{train,test}.csv``,
   ``<prefix>.feature_importance.<method>.csv`` (marker finding, unless
   ``--disable_marker_finding``), ``<prefix>.predicted_labels.csv`` and
@@ -259,6 +260,7 @@ def run_training(args, device):
         n_iter=args.hpo_iter,
         config_path=args.config_path,
         val_size=args.val_size,
+        use_cv=args.use_cv,
         use_loss_weighting=args.use_loss_weighting == "True",
         early_stop_patience=args.early_stop_patience,
         device=device,
@@ -316,11 +318,6 @@ def _check_training_args(parser, args) -> None:
         )
     if args.profile:
         raise NotImplementedError("--profile is not ported yet (ROADMAP item 13)")
-    if args.use_cv:
-        raise NotImplementedError(
-            "--use_cv runs the vmapped fold engine in flexynesis_tpu, not ported "
-            "to flexynesis_torch yet (ROADMAP A.8)"
-        )
     if args.hpo_checkpoint:
         raise NotImplementedError(
             "--hpo_checkpoint is not ported yet (ROADMAP item 9)"
@@ -330,25 +327,14 @@ def _check_training_args(parser, args) -> None:
             "joblib artifacts hold pickled sklearn objects that flexynesis_torch "
             "does not write; pass --safetensors for JSON artifacts"
         )
-    if args.hpo_batch > 1 and args.model_class != "DirectPred":
-        raise NotImplementedError(
-            f"--hpo_batch > 1 for {args.model_class} needs the VAE-MMD trial engine "
-            "(B3's trial axis, supervised_vae_trial_mask, masked_mmd_loss), not "
-            "ported to flexynesis_torch yet (ROADMAP A item 1, formerly A.8)"
-        )
 
 
 def resolve_hpo_batch(args, device) -> int:
     """Suggestions per GP round (flexynesis_tpu/__main__.py:185-199):
-    ``--hpo_batch 0`` (the default) trains min(16, hpo_iter) DirectPred
-    suggestions at once on the card and one at a time on the CPU. The VAE-MMD
-    classes train one at a time until their trial engine is ported."""
+    ``--hpo_batch 0`` (the default) trains min(16, hpo_iter) suggestions at
+    once on the card and one at a time on the CPU."""
     if args.hpo_batch > 0:
         return args.hpo_batch
-    if args.model_class != "DirectPred":
-        print(f"[INFO] --hpo_batch 0 resolves to 1 for {args.model_class} (sequential "
-              "trials): its batched rounds are not ported yet (ROADMAP A item 1)")
-        return 1
     batch = min(16, args.hpo_iter) if device.type == "cuda" else 1
     if batch > 1:
         print(f"[INFO] HPO trial fan-out: {batch} suggestions per GP round "

@@ -5,9 +5,10 @@
 //
 // Two entry points, one kernel:
 // * gaussian_kernel_mean_f32: mean(x, y) of x (N, d) and y (M, d);
-// * mmd_term_f32: the whole MMD term of x (N, d) and y (M, d) in one launch:
-//   out = [mean(x, x), mean(y, y), mean(x, y), mean(x, x) + mean(y, y) -
-//   2 mean(x, y)].
+// * mmd_term_f32: the whole MMD term of K trials in one launch: y (K, M, d)
+//   and x (K, N, d), or one x (N, d) shared by the trials (a trial stride of
+//   0); out (K, 4), per trial [mean(x, x), mean(y, y), mean(x, y),
+//   mean(x, x) + mean(y, y) - 2 mean(x, y)].
 // float32, row-major, contiguous. No pairwise matrix reaches device memory.
 //
 // Replaces flexynesis_tpu/ops/pallas/mmd_kernel.py::gaussian_kernel_mean (the
@@ -34,7 +35,12 @@
 //   lane, then a fixed butterfly), writes the outputs and resets the ticket to
 //   0 for the next call. The integer atomic only picks the block that
 //   reduces; no float is ever added atomically, so two calls give the same
-//   bits.
+//   bits;
+// * puts the trial in blockIdx.y: trial k's blocks read its rows at its
+//   trial strides, write their partials to its own range of the workspace
+//   and draw its own ticket, and the last of them reduces trial k alone. A
+//   block does the same work whatever K is, so trial k of a K-trial launch
+//   gives the bits of a one-trial launch on trial k's rows.
 
 #include <cuda_runtime.h>
 
@@ -60,6 +66,7 @@ static_assert(2 * BT <= THREADS, "one thread per row for the norms");
 struct PairSet {
   const float* a;
   const float* b;
+  long long a_stride, b_stride;  // floats from one trial's rows to the next
   int na, nb;
   int tiles_a, tiles_b;
   int self;
@@ -126,7 +133,7 @@ __device__ __forceinline__ void load_tile(float (*dst)[LD], const float* __restr
 template <bool VEC>
 __global__ void __launch_bounds__(THREADS)
 gaussian_kernel_mean_kernel(const Sets sets, int d, float d2, float* __restrict__ partial,
-                            unsigned int* __restrict__ ticket, float* __restrict__ out) {
+                            unsigned int* __restrict__ tickets, float* __restrict__ out) {
   __shared__ __align__(16) float as[BT][LD];
   __shared__ __align__(16) float bs[BT][LD];
   __shared__ float norm[2][BT];  // squared norms of the a rows and the b rows
@@ -138,9 +145,15 @@ gaussian_kernel_mean_kernel(const Sets sets, int d, float d2, float* __restrict_
   const int tx = tid % THREADS_X;
   const int ty = tid / THREADS_X;
   const long long t = blockIdx.x;
+  const int trial = blockIdx.y;
+  // this trial's partials and ticket
+  partial += (long long)trial * gridDim.x;
+  unsigned int* ticket = tickets + trial;
   int si = 0;
   while (si + 1 < sets.n && t >= sets.set[si + 1].first_tile) ++si;
   const PairSet& s = sets.set[si];
+  const float* a = s.a + trial * s.a_stride;
+  const float* b = s.b + trial * s.b_stride;
   int ti, tj;
   decode_tile(s, t - s.first_tile, ti, tj);
   const int row0 = ti * BT, col0 = tj * BT;
@@ -157,8 +170,8 @@ gaussian_kernel_mean_kernel(const Sets sets, int d, float d2, float* __restrict_
 
   for (int k0 = 0; k0 < d; k0 += BK) {
     if (k0 > 0) __syncthreads();  // the previous chunk is consumed
-    load_tile<VEC>(as, s.a, s.na, d, row0, k0, tid);
-    load_tile<VEC>(bs, s.b, s.nb, d, col0, k0, tid);
+    load_tile<VEC>(as, a, s.na, d, row0, k0, tid);
+    load_tile<VEC>(bs, b, s.nb, d, col0, k0, tid);
     fxk::cp_async_commit();
     fxk::cp_async_wait<0>();
     __syncthreads();
@@ -236,6 +249,8 @@ gaussian_kernel_mean_kernel(const Sets sets, int d, float d2, float* __restrict_
   }
   __syncthreads();
   if (tid == 0) {
+    // a term writes 4 outputs per trial, a mean 1
+    out += trial * (sets.n == MAX_SETS ? MAX_SETS + 1 : sets.n);
     for (int k = 0; k < sets.n; ++k) out[k] = (float)set_mean[k];
     if (sets.n == MAX_SETS)
       out[MAX_SETS] = (float)(set_mean[0] + set_mean[1] - 2.0 * set_mean[2]);
@@ -243,10 +258,13 @@ gaussian_kernel_mean_kernel(const Sets sets, int d, float d2, float* __restrict_
   }
 }
 
-PairSet pair_set(const float* a, const float* b, int na, int nb, bool self, long long first) {
+PairSet pair_set(const float* a, const float* b, long long a_stride, long long b_stride,
+                 int na, int nb, bool self, long long first) {
   PairSet p;
   p.a = a;
   p.b = b;
+  p.a_stride = a_stride;
+  p.b_stride = b_stride;
   p.na = na;
   p.nb = nb;
   p.tiles_a = (na + BT - 1) / BT;
@@ -258,24 +276,28 @@ PairSet pair_set(const float* a, const float* b, int na, int nb, bool self, long
   return p;
 }
 
-int launch(const Sets& sets, int d, void* partial, long long capacity, void* ticket,
-           void* out, void* stream) {
+int launch(const Sets& sets, int trials, int d, void* partial, long long capacity,
+           void* tickets, void* out, void* stream) {
   const PairSet& tail = sets.set[sets.n - 1];
   const long long blocks = tail.first_tile + tail.n_tiles;
-  if (blocks > 0x7fffffffLL || blocks > capacity) return (int)cudaErrorInvalidValue;
+  if (trials <= 0 || trials > 65535 || blocks > 0x7fffffffLL ||
+      blocks * trials > capacity)
+    return (int)cudaErrorInvalidValue;
+  // d % 4 == 0 keeps every trial's rows 16-byte aligned when the bases are
   bool vec = d % 4 == 0;
   for (int k = 0; k < sets.n; ++k)
     vec = vec && reinterpret_cast<unsigned long long>(sets.set[k].a) % 16 == 0 &&
           reinterpret_cast<unsigned long long>(sets.set[k].b) % 16 == 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float d2 = (float)d * (float)d;
+  const dim3 grid((unsigned)blocks, (unsigned)trials);
   if (vec)
-    gaussian_kernel_mean_kernel<true><<<(unsigned)blocks, THREADS, 0, s>>>(
-        sets, d, d2, static_cast<float*>(partial), static_cast<unsigned int*>(ticket),
+    gaussian_kernel_mean_kernel<true><<<grid, THREADS, 0, s>>>(
+        sets, d, d2, static_cast<float*>(partial), static_cast<unsigned int*>(tickets),
         static_cast<float*>(out));
   else
-    gaussian_kernel_mean_kernel<false><<<(unsigned)blocks, THREADS, 0, s>>>(
-        sets, d, d2, static_cast<float*>(partial), static_cast<unsigned int*>(ticket),
+    gaussian_kernel_mean_kernel<false><<<grid, THREADS, 0, s>>>(
+        sets, d, d2, static_cast<float*>(partial), static_cast<unsigned int*>(tickets),
         static_cast<float*>(out));
   return (int)cudaGetLastError();
 }
@@ -284,34 +306,39 @@ int launch(const Sets& sets, int d, void* partial, long long capacity, void* tic
 
 // Both launch on `stream` once and return the launch's CUDA error as an int
 // (0 = launched). Pointers are device pointers. `partial` holds `capacity`
-// floats, at least one per tile of the call (kernels/mmd.py::call_tiles counts
-// them); `ticket` is one unsigned int that is 0 between launches (zero it once
-// when the workspace is allocated; the kernel leaves it 0). Calls that share a
-// workspace must be ordered on one stream. The caller checks shapes, types and
-// layout.
+// floats, at least one per tile of the call and trial
+// (kernels/mmd.py::call_tiles counts a trial's); `tickets` holds one unsigned
+// int per trial, each 0 between launches (zero them once when the workspace is
+// allocated; the kernel leaves them 0). Calls that share a workspace must be
+// ordered on one stream. The caller checks shapes, types and layout.
 
 // out[0] = mean(x, y)
 extern "C" int gaussian_kernel_mean_f32(const void* x, const void* y, int N, int M, int d,
-                                        void* partial, long long capacity, void* ticket,
+                                        void* partial, long long capacity, void* tickets,
                                         void* out, void* stream) {
   if (N <= 0 || M <= 0 || d <= 0) return (int)cudaErrorInvalidValue;
   Sets sets;
   sets.n = 1;
-  sets.set[0] = pair_set(static_cast<const float*>(x), static_cast<const float*>(y), N, M,
-                         false, 0);
-  return launch(sets, d, partial, capacity, ticket, out, stream);
+  sets.set[0] = pair_set(static_cast<const float*>(x), static_cast<const float*>(y), 0, 0, N,
+                         M, false, 0);
+  return launch(sets, 1, d, partial, capacity, tickets, out, stream);
 }
 
-// out[0..3] = mean(x, x), mean(y, y), mean(x, y), and the MMD
-extern "C" int mmd_term_f32(const void* x, const void* y, int N, int M, int d, void* partial,
-                            long long capacity, void* ticket, void* out, void* stream) {
-  if (N <= 0 || M <= 0 || d <= 0) return (int)cudaErrorInvalidValue;
+// out[4 k .. 4 k + 3] = mean(x_k, x_k), mean(y_k, y_k), mean(x_k, y_k) and the
+// MMD of trial k < K; y_k = y + k M d, x_k = x + k x_stride (x_stride N d, or 0
+// for an x shared by the trials)
+extern "C" int mmd_term_f32(const void* x, const void* y, int K, long long x_stride, int N,
+                            int M, int d, void* partial, long long capacity, void* tickets,
+                            void* out, void* stream) {
+  if (N <= 0 || M <= 0 || d <= 0 || x_stride < 0) return (int)cudaErrorInvalidValue;
   const float* xf = static_cast<const float*>(x);
   const float* yf = static_cast<const float*>(y);
+  const long long y_stride = (long long)M * d;
   Sets sets;
   sets.n = 3;
-  sets.set[0] = pair_set(xf, xf, N, N, true, 0);
-  sets.set[1] = pair_set(yf, yf, M, M, true, sets.set[0].n_tiles);
-  sets.set[2] = pair_set(xf, yf, N, M, false, sets.set[1].first_tile + sets.set[1].n_tiles);
-  return launch(sets, d, partial, capacity, ticket, out, stream);
+  sets.set[0] = pair_set(xf, xf, x_stride, x_stride, N, N, true, 0);
+  sets.set[1] = pair_set(yf, yf, y_stride, y_stride, M, M, true, sets.set[0].n_tiles);
+  sets.set[2] = pair_set(xf, yf, x_stride, y_stride, N, M, false,
+                         sets.set[1].first_tile + sets.set[1].n_tiles);
+  return launch(sets, K, d, partial, capacity, tickets, out, stream);
 }

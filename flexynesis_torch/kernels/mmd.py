@@ -14,6 +14,15 @@ Covers the whole of ``flexynesis_tpu/ops/pallas/mmd_kernel.py``:
   its autograd.Function; ``compute_mmd_fused`` and ``mmd_loss_fused`` are the
   counterparts of ``compute_mmd_pallas`` and ``mmd_loss_pallas``.
 
+The MMD term takes a leading trial axis K, the axis ``vmap`` over
+``mmd_loss_pallas`` gives the JAX trial engine (mmd_kernel.py:128-137): z
+(K, M, d) against a prior of (K, N, d), or one (N, d) that the kernel reads
+at a trial stride of 0 (trials that share a seed share their draws). One
+launch covers the K trials; each trial has its own ticket and range of
+partials, and its last block reduces it alone, so trial k of a K-trial call
+equals a one-trial call on slice k bit for bit. The backward is the closed
+form in batched products, as JAX leaves it to XLA.
+
 The kernel computes what the Pallas body computes: the Gram expansion
 ``|x|^2 + |y|^2 - 2 x.y`` clamped at 0 and divided by the unpadded d^2, so it
 and its plain version differ only in the order of summation.
@@ -33,7 +42,7 @@ from typing import Optional
 
 import torch
 
-from ..ops.losses import N_PRIOR_SAMPLES, gaussian_kernel, prior_or_draw
+from ..ops.losses import N_PRIOR_SAMPLES, gaussian_kernel, kernel_mean, prior_or_draw, recon_mse
 from .build import current_stream, launcher
 
 # rows of each side in one tile of csrc/mmd_kernel.cu (its BT)
@@ -88,38 +97,51 @@ def launches_per_call(n: int, m: int) -> int:
 
 def gaussian_kernel_mean_ref(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of the kernel: the CPU path and the oracle."""
-    return gaussian_kernel(x, y).mean()
+    return kernel_mean(x, y)
 
 
 def mmd_term_ref(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Plain version of one MMD term: [mean(x, x), mean(y, y), mean(x, y),
-    MMD], the MMD as ``ops.losses.compute_mmd`` forms it."""
-    kxx, kyy, kxy = (gaussian_kernel_mean_ref(a, b) for a, b in ((x, x), (y, y), (x, y)))
-    return torch.stack([kxx, kyy, kxy, kxx + kyy - 2.0 * kxy])
+    MMD], the MMD as ``ops.losses.compute_mmd`` forms it; (K, 4) with a
+    trial axis (y (K, M, d), x (K, N, d) or shared (N, d))."""
+    kxx, kyy, kxy = torch.broadcast_tensors(
+        *(kernel_mean(a, b) for a, b in ((x, x), (y, y), (x, y))))
+    return torch.stack([kxx, kyy, kxy, kxx + kyy - 2.0 * kxy], dim=-1)
 
 
-# one workspace per (device, stream): the int32 ticket (0 between launches)
-# followed by the tiles' partial sums, grown on demand and never shrunk
+# one workspace per (device, stream): an int32 ticket per trial (0 between
+# launches) and the tiles' partial sums of every trial, grown on demand and
+# never shrunk
 _workspaces: dict = {}
 
 
-def _workspace(device, stream: int, tiles: int) -> torch.Tensor:
-    buf = _workspaces.get((device, stream))
-    if buf is None or buf.numel() - 1 < tiles:
-        capacity = max(tiles, 256, 0 if buf is None else 2 * (buf.numel() - 1))
-        buf = torch.zeros(1 + capacity, device=device, dtype=torch.int32)
-        _workspaces[device, stream] = buf
-    return buf
+def _workspace(device, stream: int, trials: int, tiles: int):
+    """(tickets, partials) for a launch of ``trials`` x ``tiles`` blocks."""
+    ws = _workspaces.get((device, stream))
+    if ws is None or ws[0].numel() < trials or ws[1].numel() < trials * tiles:
+        n_tickets = max(trials, 16, 0 if ws is None else ws[0].numel())
+        n_partials = max(trials * tiles, 256, 0 if ws is None else 2 * ws[1].numel())
+        ws = (torch.zeros(n_tickets, device=device, dtype=torch.int32),
+              torch.empty(n_partials, device=device, dtype=torch.float32))
+        _workspaces[device, stream] = ws
+    return ws
 
 
-def _launch(symbol: str, x: torch.Tensor, y: torch.Tensor, n_out: int) -> torch.Tensor:
-    """One launch of csrc/mmd_kernel.cu's ``symbol`` on CUDA tensors; returns
-    its ``n_out`` outputs."""
+def _launch(symbol: str, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """One launch of csrc/mmd_kernel.cu's ``symbol`` on CUDA tensors: the
+    mean of x (N, d) against y (M, d) as a (1,) tensor, or the MMD term, (4,)
+    for y (M, d) and (K, 4) for y (K, M, d) against x (K, N, d) or a shared
+    x (N, d)."""
+    term = symbol == "mmd_term_f32"
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
-    if x.dim() != 2 or y.dim() != 2 or x.shape[1] != y.shape[1]:
+    trial_axis = term and y.dim() == 3
+    if (y.dim() != (3 if trial_axis else 2) or x.dim() not in ((2, 3) if trial_axis else (2,))
+            or x.shape[-1] != y.shape[-1]
+            or (x.dim() == 3 and x.shape[0] != y.shape[0])):
         raise ValueError(
-            f"expected x (N, d) and y (M, d); got {tuple(x.shape)} and {tuple(y.shape)}"
+            f"expected x (N, d) and y (M, d), or for an MMD term y (K, M, d) and x (K, N, d) "
+            f"or (N, d); got {tuple(x.shape)} and {tuple(y.shape)}"
         )
     for name, t in (("x", x), ("y", y)):
         if t.device != x.device:
@@ -128,20 +150,25 @@ def _launch(symbol: str, x: torch.Tensor, y: torch.Tensor, n_out: int) -> torch.
             raise TypeError(f"{name} must be float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    (N, d), M = x.shape, y.shape[0]
-    if N == 0 or M == 0 or d == 0:
-        raise ValueError(f"the kernel mean needs rows and columns; got N={N}, M={M}, d={d}")
+    (N, d), M = x.shape[-2:], y.shape[-2]
+    K = y.shape[0] if trial_axis else 1
+    if N == 0 or M == 0 or d == 0 or K == 0:
+        raise ValueError(f"the kernel mean needs rows and columns; got K={K}, N={N}, M={M}, "
+                         f"d={d}")
     stream = current_stream(x.device)
-    ws = _workspace(x.device, stream, call_tiles(N, M, symbol == "mmd_term_f32"))
-    out = torch.empty(n_out, device=x.device, dtype=torch.float32)
-    fn = launcher("mmd_kernel", symbol,
-                  [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
+    tickets, partials = _workspace(x.device, stream, K, call_tiles(N, M, term))
+    out = torch.empty(*y.shape[:-2], 4 if term else 1, device=x.device, dtype=torch.float32)
+    head = [ctypes.c_void_p] * 2
+    if term:  # K and x's trial stride (0: x shared by the trials)
+        head += [ctypes.c_int, ctypes.c_longlong]
+    fn = launcher("mmd_kernel", symbol, head + [ctypes.c_int] * 3
                   + [ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_void_p] * 3)
-    # the ticket is the workspace's first int32, the partials follow it
-    rc = fn(x.data_ptr(), y.data_ptr(), N, M, d, ws.data_ptr() + 4, ws.numel() - 1,
-            ws.data_ptr(), out.data_ptr(), stream)
+    trial_args = (K, N * d if x.dim() == 3 else 0) if term else ()
+    rc = fn(x.data_ptr(), y.data_ptr(), *trial_args, N, M, d, partials.data_ptr(),
+            partials.numel(), tickets.data_ptr(), out.data_ptr(), stream)
     if rc != 0:
-        raise RuntimeError(f"{symbol} kernel launch failed: CUDA error {rc} (N={N}, M={M}, d={d})")
+        raise RuntimeError(f"{symbol} kernel launch failed: CUDA error {rc} (K={K}, N={N}, "
+                           f"M={M}, d={d})")
     gaussian_kernel_mean.launches += 1
     return out
 
@@ -153,7 +180,7 @@ def gaussian_kernel_mean(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     tensors launch the kernel once."""
     if x.device.type == "cpu":
         return gaussian_kernel_mean_ref(x, y)
-    return _launch("gaussian_kernel_mean_f32", x, y, 1)[0]
+    return _launch("gaussian_kernel_mean_f32", x, y)[0]
 
 
 gaussian_kernel_mean.launches = 0
@@ -161,11 +188,12 @@ gaussian_kernel_mean.launches = 0
 
 def mmd_term_forward(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """[mean(x, x), mean(y, y), mean(x, y), MMD] of x (N, d) and y (M, d),
-    float32, without autograd. CPU tensors take the plain version; CUDA
-    tensors launch the kernel once for all three means."""
+    float32, without autograd; (K, 4) for y (K, M, d) against x (K, N, d) or
+    a shared x (N, d). CPU tensors take the plain version; CUDA tensors
+    launch the kernel once for all three means of every trial."""
     if x.device.type == "cpu":
         return mmd_term_ref(x, y)
-    return _launch("mmd_term_f32", x, y, 4)
+    return _launch("mmd_term_f32", x, y)
 
 
 class GaussianKernelMean(torch.autograd.Function):
@@ -195,35 +223,39 @@ class GaussianKernelMean(torch.autograd.Function):
 
 class MMDTerm(torch.autograd.Function):
     """MMD(x, y) = mean(x, x) + mean(y, y) - 2 mean(x, y) as one Function:
-    the forward is one launch for all three means, the backward is
-    ``_kmd_bwd``'s closed form for the means whose inputs need gradients. A
-    self mean's two sides sum to 2 coef (a * rowsum(K) - K a) with one
-    K = gaussian_kernel(a, a), coef = -2 / (n^2 d^2)."""
+    the forward is one launch for all three means (of every trial), the
+    backward is ``_kmd_bwd``'s closed form, in batched products with a trial
+    axis, for the means whose inputs need gradients. A self mean's two sides
+    sum to 2 coef (a * rowsum(K) - K a) with one K = gaussian_kernel(a, a),
+    coef = -2 / (n^2 d^2)."""
 
     @staticmethod
     def forward(ctx, x, y):
         ctx.save_for_backward(x, y)
-        return mmd_term_forward(x, y)[3]
+        return mmd_term_forward(x, y)[..., 3]
 
     @staticmethod
     def backward(ctx, g):
         x, y = ctx.saved_tensors
-        (n, d), m = x.shape, y.shape[0]
+        (n, d), m = x.shape[-2:], y.shape[-2]
         d2 = d * float(d)
         need_x, need_y = ctx.needs_input_grad
         dx = dy = None
         if not (need_x or need_y):
             return dx, dy
+        g = g.reshape(*g.shape, 1, 1)  # one value per trial
         kxy = gaussian_kernel(x, y)
         cross = g * (-2.0 / (n * m * d2)) * -2.0  # the -2 mean(x, y) part
         if need_x:
             kxx = gaussian_kernel(x, x)
-            dx = (g * (-4.0 / (n * n * d2)) * (x * kxx.sum(dim=1, keepdim=True) - kxx @ x)
-                  + cross * (x * kxy.sum(dim=1, keepdim=True) - kxy @ y))
+            dx = (g * (-4.0 / (n * n * d2)) * (x * kxx.sum(dim=-1, keepdim=True) - kxx @ x)
+                  + cross * (x * kxy.sum(dim=-1, keepdim=True) - kxy @ y))
+            if dx.dim() > x.dim():  # an x shared by the trials
+                dx = dx.sum(dim=0)
         if need_y:
             kyy = gaussian_kernel(y, y)
-            dy = (g * (-4.0 / (m * m * d2)) * (y * kyy.sum(dim=1, keepdim=True) - kyy @ y)
-                  + cross * (y * kxy.sum(dim=0)[:, None] - kxy.T @ x))
+            dy = (g * (-4.0 / (m * m * d2)) * (y * kyy.sum(dim=-1, keepdim=True) - kyy @ y)
+                  + cross * (y * kxy.sum(dim=-2).unsqueeze(-1) - kxy.mT @ x))
         return dx, dy
 
 
@@ -240,4 +272,4 @@ def mmd_loss_fused(z: torch.Tensor, x_hat: torch.Tensor, x: torch.Tensor,
     """``ops.losses.mmd_loss`` with the MMD through kernel B3; the counterpart
     of ``mmd_kernel.py::mmd_loss_pallas``."""
     prior = prior_or_draw(z, prior, generator, n_prior_samples)
-    return compute_mmd_fused(prior, z) + (x_hat - x).square().mean()
+    return compute_mmd_fused(prior, z) + recon_mse(x_hat, x)

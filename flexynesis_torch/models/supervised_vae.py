@@ -19,19 +19,27 @@ Noise (eps, the heads' dropout, the prior) is drawn from the ``loss_fn``
 generator. Validation passes none, and the prior then comes from a generator
 seeded with 0, so the validation loss is the same function in every epoch,
 as the JAX model's ``jax.random.key(0)`` makes it there.
+
+``SupervisedVAENet.forward_with`` is the network's function on given
+parameters, which may carry a leading trial axis (the stacked trials of
+``parallel/stacked.py``), and ``SupervisedVAE.mmd_of`` the MMD loss of its
+output against given prior draws. A batch that carries ``_aux`` (a padded
+trial's ``latent_mask`` and ``latent_dim``, ``parallel/hetero.py``) takes
+``masked_mmd_loss``, with ``fused_kernels`` too, as the JAX model does
+(supervised_vae.py:143-156): a padded round never reaches B3.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
 from ..kernels.mmd import mmd_loss_fused
 from ..ops.initializers import reset_linear_
-from ..ops.losses import mmd_loss
-from ..ops.mlp import MLP, Decoder, Encoder, standard_normal
+from ..ops.losses import N_PRIOR_SAMPLES, masked_mmd_loss, mmd_loss
+from ..ops.mlp import MLP, Decoder, Encoder, Tensors, dropout, linear, own, standard_normal
 from .base import BaseModel
 
 
@@ -84,25 +92,42 @@ class SupervisedVAENet(nn.Module):
     def forward(self, x: Dict[str, torch.Tensor],
                 generator: Optional[torch.Generator] = None) -> dict:
         """``generator`` draws eps and the heads' dropout in training mode."""
-        encoded = [getattr(self, f"encoder_{ln}")(x[ln]) for ln in self.layer_names]
-        mean = self.FC_mean(torch.cat([m for m, _ in encoded], dim=-1))
-        log_var = self.FC_log_var(torch.cat([lv for _, lv in encoded], dim=-1))
-        if self.training:
-            if generator is None:
-                raise ValueError("the training-mode latent needs a torch.Generator")
-            z = mean + log_var * standard_normal(log_var.shape, generator, log_var.device)
-        else:
-            z = mean
+        if self.training and generator is None:
+            raise ValueError("the training-mode latent needs a torch.Generator")
+        return self.forward_with(
+            dict(self.named_parameters()), dict(self.named_buffers()), x, self.training,
+            lambda shape, device: standard_normal(shape, generator, device),
+            lambda h, rate: dropout(h, rate, generator))
+
+    def forward_with(self, params: Tensors, buffers: Tensors, x: Dict[str, torch.Tensor],
+                     train: bool, normal: Optional[Callable] = None,
+                     drop: Optional[Callable] = None) -> dict:
+        """The network on ``params`` and ``buffers`` named as the module's own
+        (each with an optional leading trial axis). In training mode the
+        blocks use batch statistics and update the running ones in place,
+        ``normal(shape, device)`` draws eps and ``drop(h, rate)`` the heads'
+        dropout."""
+        def block(name, inp):
+            return getattr(self, name).forward_with(own(params, name), own(buffers, name), inp,
+                                                    train)
+
+        encoded = [block(f"encoder_{ln}", x[ln]) for ln in self.layer_names]
+        mean = linear(torch.cat([m for m, _ in encoded], dim=-1), params["FC_mean.weight"],
+                      params["FC_mean.bias"])
+        log_var = linear(torch.cat([lv for _, lv in encoded], dim=-1),
+                         params["FC_log_var.weight"], params["FC_log_var.bias"])
+        z = mean + log_var * normal(log_var.shape, log_var.device) if train else mean
         out = {
             "embeddings": z,
-            "outputs": {var: getattr(self, f"head_{var}")(z, generator)
-                        for var in self.variables},
+            "outputs": {var: getattr(self, f"head_{var}").forward_with(
+                own(params, f"head_{var}"), own(buffers, f"head_{var}"), z, train, drop)
+                for var in self.variables},
             "mean": mean,
             "log_var": log_var,
-            "x_hat": {ln: getattr(self, f"decoder_{ln}")(z) for ln in self.decoded_names},
+            "x_hat": {ln: block(f"decoder_{ln}", z) for ln in self.decoded_names},
         }
         if self.use_loss_weighting:
-            out["log_vars"] = {var: getattr(self, f"log_var_{var}")
+            out["log_vars"] = {var: params[f"log_var_{var}"]
                                for var in self.variables + ["mmd_loss"]}
         return out
 
@@ -131,7 +156,23 @@ class SupervisedVAE(BaseModel):
         layer, averaged (flexynesis_tpu supervised_vae.py:137-163)."""
         if generator is None:  # validation: the same prior in every epoch
             generator = torch.Generator().manual_seed(0)
-        loss = mmd_loss_fused if self.config.get("fused_kernels") else mmd_loss
-        terms = [loss(out["embeddings"], out["x_hat"][ln], batch["x"][ln], generator=generator)
-                 for ln in self.decoded_layers]
-        return {"mmd_loss": torch.stack(terms).mean()}
+        z = out["embeddings"]
+        priors = [standard_normal((N_PRIOR_SAMPLES, z.shape[-1]), generator, z.device)
+                  for _ in self.decoded_layers]
+        return {"mmd_loss": self.mmd_of(out, batch, priors)}
+
+    def mmd_of(self, out: dict, batch: dict, priors: List[torch.Tensor]) -> torch.Tensor:
+        """The MMD loss of the forward output ``out`` on ``batch``, one prior
+        per decoded layer, averaged over the layers; (K,) with a trial axis.
+        ``batch["_aux"]`` selects ``masked_mmd_loss``, else ``fused_kernels``
+        selects kernel B3."""
+        z, aux = out["embeddings"], batch.get("_aux")
+        if aux is not None:
+            terms = [masked_mmd_loss(z, out["x_hat"][ln], batch["x"][ln], aux["latent_mask"],
+                                     aux["latent_dim"], prior=p)
+                     for ln, p in zip(self.decoded_layers, priors)]
+        else:
+            loss = mmd_loss_fused if self.config.get("fused_kernels") else mmd_loss
+            terms = [loss(z, out["x_hat"][ln], batch["x"][ln], prior=p)
+                     for ln, p in zip(self.decoded_layers, priors)]
+        return torch.stack(terms).mean(dim=0)

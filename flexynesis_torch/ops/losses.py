@@ -14,10 +14,15 @@ serves every step and no value leaves the device:
 * ``gaussian_kernel``, ``compute_mmd``, ``mmd_loss`` - the VAE-MMD loss
                            (reference supervised_vae.py:494-550) in plain
                            torch ops: the ``fused_kernels: false`` path and
-                           the oracle of kernel B3 (``kernels/mmd.py``).
+                           the oracle of kernel B3 (``kernels/mmd.py``);
+* ``masked_mmd_loss``    - the same loss restricted to a padded trial's
+                           active latent dims (the mixed-architecture trial
+                           rounds of ``parallel/hetero.py``).
 
-The masked MMD of padded trials and the triplet loss come with the trial
-engine and the model that use them.
+The MMD functions take an optional leading trial axis K: ``z`` (K, B, L)
+against a prior of (K, N, L) or one (N, L) shared by the trials gives (K,)
+losses, as ``vmap`` of the JAX function gives them. The triplet loss comes
+with the model that uses it.
 """
 
 from __future__ import annotations
@@ -108,21 +113,34 @@ def compute_total_loss(losses: Dict[str, torch.Tensor],
     return sum(losses.values())
 
 
-def gaussian_kernel(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """(N, M) matrix exp(-||x_i - y_j||^2 / d^2), d = x.shape[-1], through the
-    Gram expansion ||x||^2 + ||y||^2 - 2 x.y clamped at 0, as
-    ``flexynesis_tpu/ops/losses.py::gaussian_kernel`` computes it."""
+def gaussian_kernel(x: torch.Tensor, y: torch.Tensor, divisor=None) -> torch.Tensor:
+    """(..., N, M) matrix exp(-||x_i - y_j||^2 / d^2), d = x.shape[-1], through
+    the Gram expansion ||x||^2 + ||y||^2 - 2 x.y clamped at 0, as
+    ``flexynesis_tpu/ops/losses.py::gaussian_kernel`` computes it; x (..., N,
+    d) and y (..., M, d) broadcast over their leading axes. ``divisor``
+    replaces d^2 (a padded trial's own latent_dim^2, broadcastable to the
+    result)."""
     d = x.shape[-1]
     x2 = x.square().sum(dim=-1, keepdim=True)
-    y2 = y.square().sum(dim=-1, keepdim=True).T
-    sq = torch.clamp(x2 + y2 - 2.0 * (x @ y.T), min=0.0)
-    return torch.exp(-sq / (d * float(d)))
+    y2 = y.square().sum(dim=-1).unsqueeze(-2)
+    sq = torch.clamp(x2 + y2 - 2.0 * (x @ y.mT), min=0.0)
+    return torch.exp(-sq / (d * float(d) if divisor is None else divisor))
+
+
+def kernel_mean(x: torch.Tensor, y: torch.Tensor, divisor=None) -> torch.Tensor:
+    """The mean of ``gaussian_kernel`` over its last two axes."""
+    return gaussian_kernel(x, y, divisor).mean(dim=(-2, -1))
 
 
 def compute_mmd(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """Maximum mean discrepancy between two sample sets."""
-    return (gaussian_kernel(x, x).mean() + gaussian_kernel(y, y).mean()
-            - 2.0 * gaussian_kernel(x, y).mean())
+    """Maximum mean discrepancy between two sample sets (per trial, with a
+    leading trial axis)."""
+    return kernel_mean(x, x) + kernel_mean(y, y) - 2.0 * kernel_mean(x, y)
+
+
+def recon_mse(x_hat: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The reconstruction MSE over the last two axes (per trial)."""
+    return (x_hat - x).square().mean(dim=(-2, -1))
 
 
 def prior_or_draw(z: torch.Tensor, prior: Optional[torch.Tensor],
@@ -143,4 +161,23 @@ def mmd_loss(z: torch.Tensor, x_hat: torch.Tensor, x: torch.Tensor,
     """MMD(prior, z) + the reconstruction MSE. ``prior`` holds the N(0, I)
     draws; without it they are drawn from ``generator``."""
     prior = prior_or_draw(z, prior, generator, n_prior_samples)
-    return compute_mmd(prior, z) + (x_hat - x).square().mean()
+    return compute_mmd(prior, z) + recon_mse(x_hat, x)
+
+
+def masked_mmd_loss(z: torch.Tensor, x_hat: torch.Tensor, x: torch.Tensor,
+                    latent_mask: torch.Tensor, latent_dim: torch.Tensor,
+                    prior: Optional[torch.Tensor] = None,
+                    generator: Optional[torch.Generator] = None,
+                    n_prior_samples: int = N_PRIOR_SAMPLES) -> torch.Tensor:
+    """``mmd_loss`` over a padded trial's first ``latent_dim`` latent dims
+    (``flexynesis_tpu/ops/losses.py::masked_mmd_loss``): the prior draws and
+    z are multiplied by ``latent_mask`` (L,) before the Gram expansion and
+    the kernel is divided by the trial's latent_dim^2, so a padded trial
+    gives its small architecture's exact loss. With a trial axis,
+    ``latent_mask`` is (K, L) and ``latent_dim`` (K,)."""
+    prior = prior_or_draw(z, prior, generator, n_prior_samples)
+    mask = latent_mask.unsqueeze(-2)
+    d2 = latent_dim.to(torch.float32).square().reshape(*latent_dim.shape, 1, 1)
+    p, zm = prior * mask, z * mask
+    mmd = kernel_mean(p, p, d2) + kernel_mean(zm, zm, d2) - 2.0 * kernel_mean(p, zm, d2)
+    return mmd + recon_mse(x_hat, x)

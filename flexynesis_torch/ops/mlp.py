@@ -20,10 +20,11 @@ statistics as ``new = 0.9 * old + 0.1 * batch``. (``BatchNorm1d`` would update
 hold the parameters and running statistics, so the layout ``convert.py``
 maps is unchanged, and the eval-mode normalisation is ``F.batch_norm``'s.
 
-``MLP.forward_with`` (and ``FusedMLP``'s) is the block's function on given
-parameters and running statistics, which may carry a leading trial axis K:
-the module's ``forward`` and the stacked trials of
-``parallel/stacked.py`` run the same body.
+Every block's ``forward_with`` (``MLP``, ``_HiddenStack``, ``Encoder``,
+``Decoder``, and ``FusedMLP``'s) is its function on given parameters and
+running statistics, which may carry a leading trial axis K: the module's
+``forward`` and the stacked trials of ``parallel/stacked.py`` run the same
+body.
 
 Random draws in a forward pass (dropout masks, the VAE's noise) come from an
 explicit ``torch.Generator`` on the generator's device and are moved to the
@@ -106,13 +107,6 @@ def batch_norm_eval(h: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
     return y.reshape(rows.shape).movedim(0, -2)
 
 
-def batch_norm(h: torch.Tensor, bn: nn.BatchNorm1d) -> torch.Tensor:
-    """``bn`` applied to ``h``: running statistics in eval mode; in training
-    mode Flax's batch statistics and running-statistics update."""
-    norm = batch_norm_train if bn.training else batch_norm_eval
-    return norm(h, bn.weight, bn.bias, bn.running_mean, bn.running_var)
-
-
 def module_forward(block: nn.Module, x: torch.Tensor,
                    generator: Optional[torch.Generator]) -> torch.Tensor:
     """``block.forward_with`` on the module's own state; ``generator`` draws
@@ -178,10 +172,27 @@ class _HiddenStack(nn.Module):
             getattr(self, f"bn_{i}").reset_parameters()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.forward_with(dict(self.named_parameters()), dict(self.named_buffers()), x,
+                                 self.training)
+
+    def forward_with(self, params: Tensors, buffers: Tensors, x: torch.Tensor,
+                     train: bool) -> torch.Tensor:
+        """The stack on ``params`` and ``buffers`` named as the module's own
+        (each with an optional leading trial axis); in training mode batch
+        statistics, the running ones updated in place."""
+        norm = batch_norm_train if train else batch_norm_eval
         for i in range(self.depth):
-            h = torch.nn.functional.leaky_relu(getattr(self, f"dense_{i}")(x), 0.2)
-            x = batch_norm(h, getattr(self, f"bn_{i}"))
+            h = F.leaky_relu(linear(x, params[f"dense_{i}.weight"], params[f"dense_{i}.bias"]),
+                             0.2)
+            x = norm(h, params[f"bn_{i}.weight"], params[f"bn_{i}.bias"],
+                     buffers[f"bn_{i}.running_mean"], buffers[f"bn_{i}.running_var"])
         return x
+
+
+def own(tree: Tensors, prefix: str) -> Tensors:
+    """The entries of ``tree`` under ``prefix.``, named as the submodule's own."""
+    start = len(prefix) + 1
+    return {n[start:]: t for n, t in tree.items() if n.startswith(prefix + ".")}
 
 
 class Encoder(nn.Module):
@@ -201,8 +212,15 @@ class Encoder(nn.Module):
         reset_linear_(self.FC_var, generator, xavier=True)
 
     def forward(self, x: torch.Tensor):
-        h = self.hidden_layers(x)
-        return self.FC_mean(h), self.FC_var(h)
+        return self.forward_with(dict(self.named_parameters()), dict(self.named_buffers()), x,
+                                 self.training)
+
+    def forward_with(self, params: Tensors, buffers: Tensors, x: torch.Tensor, train: bool):
+        """``(mean, log_var)`` on given parameters (see ``_HiddenStack``)."""
+        h = self.hidden_layers.forward_with(own(params, "hidden_layers"),
+                                            own(buffers, "hidden_layers"), x, train)
+        return (linear(h, params["FC_mean.weight"], params["FC_mean.bias"]),
+                linear(h, params["FC_var.weight"], params["FC_var.bias"]))
 
 
 class Decoder(nn.Module):
@@ -219,4 +237,12 @@ class Decoder(nn.Module):
         reset_linear_(self.FC_output, generator, xavier=True)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.sigmoid(self.FC_output(self.hidden_layers(x)))
+        return self.forward_with(dict(self.named_parameters()), dict(self.named_buffers()), x,
+                                 self.training)
+
+    def forward_with(self, params: Tensors, buffers: Tensors, x: torch.Tensor,
+                     train: bool) -> torch.Tensor:
+        """The reconstruction on given parameters (see ``_HiddenStack``)."""
+        h = self.hidden_layers.forward_with(own(params, "hidden_layers"),
+                                            own(buffers, "hidden_layers"), x, train)
+        return torch.sigmoid(linear(h, params["FC_output.weight"], params["FC_output.bias"]))

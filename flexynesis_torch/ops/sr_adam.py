@@ -25,7 +25,8 @@ active the norm's order of summation differs from XLA's, so the clip scale,
 and through it the step, may differ in the last place.
 
 The int8 moments (``q8_encode_*``, ``moment_dtype="int8"``) are not ported:
-they belong to the cross-validated rounds.
+the JAX engine reaches them only through ``trial_optimizer("int8")``, which
+neither its CLI nor its CV rounds set (they run the bfloat16 default).
 """
 
 from __future__ import annotations

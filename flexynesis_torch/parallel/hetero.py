@@ -1,24 +1,31 @@
 """Mixed-architecture HPO trials in one stacked program (pad to the maximum).
 
-Counterpart of ``flexynesis_tpu/parallel/hetero.py`` for DirectPred: one
-template is built at the round's largest dimensions (latent, per-modality
-hidden, supervisor hidden), and each trial's padded parameter regions are
-zeroed and kept at zero by element masks on its gradients (before the clip
-norm) and on its updates (after Adam). Zero weights, biases and BatchNorm
-scale and shift keep every padded activation at exactly 0, so a padded trial
-computes its small architecture's function; its initial parameters are
-rescaled by sqrt(fan_in_max / fan_in_trial), so each trial starts from the
-U(+-1/sqrt(fan_in)) law of its own architecture.
+Counterpart of ``flexynesis_tpu/parallel/hetero.py`` for DirectPred,
+supervised_vae and CrossModalPred: one template is built at the round's
+largest dimensions (latent, per-modality hidden, supervisor hidden), and each
+trial's padded parameter regions are zeroed and kept at zero by element masks
+on its gradients (before the clip norm) and on its updates (after Adam). Zero
+weights, biases and BatchNorm scale and shift keep every padded activation at
+exactly 0, so a padded trial computes its small architecture's function; its
+initial parameters are rescaled to its own architecture's init law:
+sqrt(fan_in_max / fan_in_trial) for the torch U(+-1/sqrt(fan_in)) law, and
+sqrt((fan_in_max + fan_out_max) / (fan_in_trial + fan_out_trial)) for the
+VAE's Xavier-uniform kernels. A VAE trial's padded latent dims also leave its
+MMD: ``build_padded_trials`` returns each trial's ``latent_mask`` and
+``latent_dim`` (``aux``), which the trial engine puts in every batch as
+``_aux`` for ``ops.losses.masked_mmd_loss``.
 
 The masks and scales are built on the Flax parameter tree of the template
 (``convert.to_flax``), as in the JAX package, and leave here as one tensor
 per parameter in the JAX flatten order and the Flax layout, the lists the
 trial engine's optimizer takes.
 
-A ``fused_kernels`` template is refused, as in the JAX package: FusedMLP's
-parameters (``layer_1_kernel``) are not the ``layer_1`` Dense tree the mask
-builder reads, so the JAX mask builder raises ``KeyError`` there.
-``supervised_vae_trial_mask`` and ``gnn_trial_mask`` are not ported yet.
+A ``fused_kernels`` DirectPred template is refused, as in the JAX package:
+FusedMLP's parameters (``layer_1_kernel``) are not the ``layer_1`` Dense tree
+the mask builder reads, so the JAX mask builder raises ``KeyError`` there. A
+VAE tree has no FusedMLP (the flag selects kernel B3 for its MMD), so a fused
+VAE round pads as JAX pads it, and its padded MMD is the masked plain one.
+``gnn_trial_mask`` is not ported yet (ROADMAP A item 5).
 """
 
 from __future__ import annotations
@@ -29,7 +36,7 @@ import numpy as np
 import torch
 
 from ..convert import to_flax
-from .stacked import StackedDirectPred
+from .stacked import stacked_model
 
 
 def _dims_of(config: dict, input_dims: List[int]) -> dict:
@@ -224,6 +231,122 @@ def directpred_trial_mask(
     return _conform(mask, template_params), _conform(scale, template_params)
 
 
+def supervised_vae_trial_mask(
+    template_params,
+    config: dict,
+    layer_names: List[str],
+    input_dims: List[int],
+) -> Tuple[dict, dict]:
+    """(mask, init_scale) trees for a supervised_vae / CrossModalPred trial.
+
+    ``layer_names``/``input_dims`` describe the ENCODED layers (for
+    CrossModalPred its ``input_layers``); decoders are found from the
+    template's ``decoder_*`` keys, each decoder's trial hidden width derived
+    from its own output width (CrossModalPred may decode other layers)."""
+    dims = _dims_of(config, input_dims)
+    factor = float(config["hidden_dim_factor"])
+    L_max = template_params["FC_mean"]["kernel"].shape[1]
+    H_max = {
+        ln: template_params[f"encoder_{ln}"]["hidden_layers"]["dense_0"]["kernel"].shape[1]
+        for ln in layer_names
+    }
+    L_t, S_t = dims["latent"], dims["sup"]
+    n_mod = len(layer_names)
+    l_col = _col_mask(L_max, L_t)
+    s_l = float(np.sqrt(L_max / L_t))
+
+    # Encoder/Decoder KERNELS are Xavier-uniform, bound sqrt(6 / (fi + fo)),
+    # so they rescale by sqrt((fi_max + fo_max) / (fi_t + fo_t)); their BIASES
+    # keep the torch law U(+-1/sqrt(fan_in)) and rescale by sqrt(fi_max / fi_t)
+    mask, scale = {}, {}
+    for li, ln in enumerate(layer_names):
+        Hm, Ht = H_max[ln], dims["hidden"][li]
+        in_dim = int(input_dims[li])
+        h_col = _col_mask(Hm, Ht)
+        enc = template_params[f"encoder_{ln}"]
+        mask[f"encoder_{ln}"] = {
+            "hidden_layers": {
+                "dense_0": {
+                    "kernel": np.broadcast_to(
+                        h_col, enc["hidden_layers"]["dense_0"]["kernel"].shape
+                    ).copy(),
+                    "bias": h_col.copy(),
+                },
+                "bn_0": {"scale": h_col.copy(), "bias": h_col.copy()},
+            },
+            "FC_mean": {"kernel": np.outer(h_col, l_col), "bias": l_col.copy()},
+            "FC_var": {"kernel": np.outer(h_col, l_col), "bias": l_col.copy()},
+        }
+        s_h = float(np.sqrt(Hm / Ht))  # torch bias law
+        s_enc0 = float(np.sqrt((in_dim + Hm) / (in_dim + Ht)))  # xavier
+        s_fc = float(np.sqrt((Hm + L_max) / (Ht + L_t)))  # xavier
+        scale[f"encoder_{ln}"] = {
+            "hidden_layers": {
+                "dense_0": {"kernel": s_enc0, "bias": 1.0},
+                "bn_0": {"scale": 1.0, "bias": 1.0},
+            },
+            "FC_mean": {"kernel": s_fc, "bias": s_h},
+            "FC_var": {"kernel": s_fc, "bias": s_h},
+        }
+
+    for key in template_params:
+        if not key.startswith("decoder_"):
+            continue
+        dec = template_params[key]
+        F = dec["FC_output"]["kernel"].shape[1]
+        Hm_dec = dec["hidden_layers"]["dense_0"]["kernel"].shape[1]
+        Ht_dec = max(int(F * factor), 2)
+        h_col = _col_mask(Hm_dec, Ht_dec)
+        mask[key] = {
+            "hidden_layers": {
+                "dense_0": {"kernel": np.outer(l_col, h_col), "bias": h_col.copy()},
+                "bn_0": {"scale": h_col.copy(), "bias": h_col.copy()},
+            },
+            "FC_output": {
+                "kernel": np.broadcast_to(
+                    h_col[:, None], dec["FC_output"]["kernel"].shape
+                ).copy(),
+                "bias": np.ones(F, np.float32),
+            },
+        }
+        s_h_dec = float(np.sqrt(Hm_dec / Ht_dec))  # torch bias law
+        s_dec0 = float(np.sqrt((L_max + Hm_dec) / (L_t + Ht_dec)))  # xavier
+        s_out = float(np.sqrt((Hm_dec + F) / (Ht_dec + F)))  # xavier
+        scale[key] = {
+            "hidden_layers": {
+                "dense_0": {"kernel": s_dec0, "bias": s_l},
+                "bn_0": {"scale": 1.0, "bias": 1.0},
+            },
+            "FC_output": {"kernel": s_out, "bias": s_h_dec},
+        }
+
+    # the top-level FC over the concatenated per-modality latents (block rows)
+    in_mask = np.concatenate([l_col] * n_mod)
+    for key in ("FC_mean", "FC_log_var"):
+        mask[key] = {"kernel": np.outer(in_mask, l_col), "bias": l_col.copy()}
+        s = float(np.sqrt((n_mod * L_max) / (n_mod * L_t)))
+        scale[key] = {"kernel": s, "bias": s}
+
+    for key, sub in template_params.items():
+        if not key.startswith("head_"):
+            continue
+        mask[key], scale[key] = _head_mask_scale(sub, L_max, L_t, S_t)
+
+    for key in template_params:
+        if key.startswith("log_var_"):
+            mask[key] = np.ones(1, np.float32)
+            scale[key] = 1.0
+
+    return _conform(mask, template_params), _conform(scale, template_params)
+
+
+MASK_BUILDERS = {
+    "DirectPred": directpred_trial_mask,
+    "supervised_vae": supervised_vae_trial_mask,
+    "CrossModalPred": supervised_vae_trial_mask,
+}
+
+
 def _leaf(tree, path):
     for key in path:
         tree = tree[key]
@@ -237,18 +360,19 @@ def build_padded_trials(model, configs: List[dict], seeds) -> dict:
     ``params`` and ``buffers`` (T, ...) by ``state_dict`` name, the trials'
     fresh parameters (``seeds[t]``) masked and rescaled, and ``masks``, one
     (T, ...) tensor per parameter in the JAX flatten order and the Flax
-    layout; all on the model's device."""
+    layout; for the VAE classes also ``aux``, each trial's ``latent_mask``
+    (T, L_max) and ``latent_dim`` (T,); all on the model's device."""
     from .trials import _init_stacked
 
-    if model.model_name != "DirectPred":
+    if model.model_name not in MASK_BUILDERS:
         raise NotImplementedError(
             f"mixed-architecture rounds of {model.model_name} are not ported to "
-            "flexynesis_torch yet (ROADMAP A item 1)"
+            "flexynesis_torch yet (ROADMAP A item 5)"
         )
     template_params, _ = to_flax(model.module)
-    trees = [directpred_trial_mask(template_params, cfg, model.layers, model.input_dims)
-             for cfg in configs]
-    stacked = StackedDirectPred(model, len(configs))
+    builder = MASK_BUILDERS[model.model_name]
+    trees = [builder(template_params, cfg, model.layers, model.input_dims) for cfg in configs]
+    stacked = stacked_model(model, len(configs))
     params, buffers = _init_stacked(model, seeds, stacked)
     masks = []
     for name in stacked.leaf_names:
@@ -262,4 +386,14 @@ def build_padded_trials(model, configs: List[dict], seeds) -> dict:
         m_port = m.mT if stacked.transposed[name] else m
         params[name] = p * m_port * s.reshape((-1,) + (1,) * (p.dim() - 1))
         masks.append(m)
-    return {"params": params, "buffers": buffers, "masks": masks}
+    out = {"params": params, "buffers": buffers, "masks": masks}
+    if model.model_name in ("supervised_vae", "CrossModalPred"):
+        # the exact small-architecture MMD needs the trial's latent mask and dim
+        L_max = template_params["FC_mean"]["kernel"].shape[1]
+        lat_dims = [int(c["latent_dim"]) for c in configs]
+        out["aux"] = {
+            "latent_mask": torch.from_numpy(
+                np.stack([_col_mask(L_max, ld) for ld in lat_dims])).to(model.device),
+            "latent_dim": torch.tensor(lat_dims, dtype=torch.float32, device=model.device),
+        }
+    return out

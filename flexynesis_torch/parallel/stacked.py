@@ -1,26 +1,38 @@
-"""K DirectPred trials stacked on a leading trial axis.
+"""K trials of one architecture stacked on a leading trial axis.
 
 The port's counterpart of ``vmap(model.loss_fn)`` in the JAX trial engine
 (``flexynesis_tpu/parallel/trials.py``): every parameter and running
-statistic of the single-model ``DirectPredNet`` gets a leading K axis, and
-slice ``[k]`` is trial k's tensor under the single model's ``state_dict``
-name. The trial axis is written out, not vmapped: kernels B1 and B2 are
-ctypes calls that ``torch.func.vmap`` cannot trace, the blocks update their
-running statistics in place, and dropout draws from explicit generators.
+statistic of the single-model network gets a leading K axis, and slice
+``[k]`` is trial k's tensor under the single model's ``state_dict`` name.
+The trial axis is written out, not vmapped: kernels B1, B2 and B3 are ctypes
+calls that ``torch.func.vmap`` cannot trace, the blocks update their running
+statistics in place, and the noise comes from explicit generators.
 
-* Each block runs its module's own body, ``forward_with`` of ``ops/mlp.py``
-  and ``ops/fused_mlp.py``, on the stacked tensors: Linear layers become
-  batched products (``torch.baddbmm``), as JAX leaves them to XLA, with an
-  input shared by all trials (a batch of the same rows) broadcast; the
-  unfused BatchNorm takes each trial's batch statistics from its (K, B, H)
-  slice; ``FusedMLP`` blocks run kernels B1 (training) and B2 (evaluation)
-  with the trial axis, one launch per block for all K trials.
-* The losses and the Kendall weighting (``ops.losses.compute_total_loss``)
-  are ``vmap``-ed per trial: ``loss`` returns a (K,) total, whose sum
-  autograd differentiates (the trials are independent).
+* ``StackedDirectPred``: each block runs its module's own body,
+  ``forward_with`` of ``ops/mlp.py`` and ``ops/fused_mlp.py``, on the stacked
+  tensors: Linear layers become batched products (``torch.baddbmm``), as JAX
+  leaves them to XLA, with an input shared by all trials (a batch of the
+  same rows) broadcast; the unfused BatchNorm takes each trial's batch
+  statistics from its (K, B, H) slice; ``FusedMLP`` blocks run kernels B1
+  (training) and B2 (evaluation) with the trial axis, one launch per block
+  for all K trials.
+* ``StackedSupervisedVAE`` (for supervised_vae and CrossModalPred, whose
+  network encodes the input layers and decodes the output layers) runs the
+  network's own ``forward_with`` (``models/supervised_vae.py``) on the
+  stacked tensors, with eps and the heads' dropout from a ``TrialNoise``.
+  The MMD is computed outside the per-trial ``vmap`` below, for all K trials
+  at once (``SupervisedVAE.mmd_of``): with ``fused_kernels`` one launch of
+  kernel B3 per decoded layer, the prior read at a trial stride of 0 where
+  the trials share their draws; a padded trial's batch carries ``_aux`` and
+  takes the masked MMD. It enters the loss as the ``mmd_loss`` term, with its Kendall
+  weight ``log_var_mmd_loss``.
+* The supervised losses and the Kendall weighting
+  (``ops.losses.compute_total_loss``) are ``vmap``-ed per trial: ``loss``
+  returns a (K,) total, whose sum autograd differentiates (the trials are
+  independent).
 
-The model is functional: ``forward`` and ``loss`` take the parameter and
-buffer dicts, so the engines can hand it float32 copies of bfloat16-stored
+The models are functional: ``forward`` and ``loss`` take the parameter and
+buffer dicts, so the engines can hand them float32 copies of bfloat16-stored
 leaves. ``leaf_names`` lists the parameters in the JAX flatten order (sorted
 Flax paths), the order the optimizer's seed mixing counts leaves in, and
 ``flax_layout`` gives each leaf as JAX holds it (Dense kernels (in, out),
@@ -35,8 +47,8 @@ import torch
 from torch import nn
 
 from ..models.base import supervised_loss_terms
-from ..ops.losses import compute_total_loss
-from ..ops.mlp import linear
+from ..ops.losses import N_PRIOR_SAMPLES, compute_total_loss
+from ..ops.mlp import linear, own, standard_normal
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -55,31 +67,55 @@ def flax_path(module: nn.Module, name: str) -> Tuple[Tuple[str, ...], bool]:
 
 
 class TrialNoise:
-    """Dropout masks of K trials from one generator: drawn once and shared by
-    every trial (``shared``; same-architecture rounds, whose JAX trials share
-    one seed and so one key), or drawn for each trial (mixed rounds)."""
+    """The noise of K trials from one generator (dropout masks, the VAE's eps
+    and prior draws), drawn once per distinct seed in ``seeds`` and shared by
+    the trials with that seed, as JAX trials with one seed share one key:
+    once for all trials in a same-architecture round (``shared``), once per
+    fold in a CV round of K suggestions x k folds, once per trial in a mixed
+    round."""
 
-    def __init__(self, generator: torch.Generator, shared: bool):
-        self.generator, self.shared = generator, shared
+    def __init__(self, generator: torch.Generator, seeds):
+        self.generator = generator
+        first: Dict[int, int] = {}
+        groups = [first.setdefault(int(s), len(first)) for s in seeds]
+        self.n_draws = len(first)
+        self.shared = self.n_draws == 1
+        # the draw of each trial, None where trial k takes draw k
+        self.index = (None if groups == list(range(len(groups)))
+                      else torch.tensor(groups))
+
+    def spread(self, draws: torch.Tensor) -> torch.Tensor:
+        """(K, ...) from ``n_draws`` (n_draws, ...) draws, each trial taking
+        its seed's; a shared draw is left as it is."""
+        if self.shared or self.index is None:
+            return draws
+        return draws.index_select(0, self.index.to(draws.device))
+
+    def _shape(self, shape) -> tuple:
+        return tuple(shape)[1:] if self.shared else (self.n_draws, *tuple(shape)[1:])
 
     def dropout(self, h: torch.Tensor, rate: float) -> torch.Tensor:
-        shape = h.shape[1:] if self.shared else h.shape
-        keep = torch.rand(shape, generator=self.generator,
+        keep = torch.rand(self._shape(h.shape), generator=self.generator,
                           device=self.generator.device) >= rate
-        return h * keep.to(h.device, h.dtype) / (1.0 - rate)
+        return h * self.spread(keep).to(h.device, h.dtype) / (1.0 - rate)
+
+    def normal(self, shape, device) -> torch.Tensor:
+        """N(0, 1) draws for a (K, ...) ``shape``: one (...) draw shared by
+        the trials, or (K, ...)."""
+        return self.spread(standard_normal(self._shape(shape), self.generator, device))
 
 
-class StackedDirectPred:
-    """K trials of ``model``'s DirectPred architecture (``model`` is the
-    template ``DirectPred``; its own weights are not used)."""
+class _Stacked:
+    """What the stacked models share: K trials of ``model``'s architecture
+    (``model`` is the template; its own weights are not used), the leaf
+    order, stacking, trial states, the Flax layout and the loss over the
+    subclass's ``forward``."""
 
     def __init__(self, model, K: int):
         self.model = model
         self.net = model.module
         self.K = int(K)
         net = self.net
-        self.blocks = ([f"encoder_{ln}" for ln in net.layer_names]
-                       + [f"head_{var}" for var in net.variables])
         params = [n for n, _ in net.named_parameters()]
         paths = {n: flax_path(net, n) for n in params}
         self.leaf_names: List[str] = sorted(params, key=lambda n: paths[n][0])
@@ -113,17 +149,45 @@ class StackedDirectPred:
         return [tensors[n].mT if self.transposed[n] else tensors[n]
                 for n in (names or self.leaf_names)]
 
-    # ---------------------------------------------------------------- forward
+    # ------------------------------------------------------------------ loss
+
+    def _extra_losses(self, out: dict, batch: dict, noise: Optional[TrialNoise],
+                      train: bool) -> Tensors:
+        """The model's (K,) loss terms beside the supervised ones; none here."""
+        return {}
+
+    def loss(self, params: Tensors, buffers: Tensors, batch: dict,
+             noise: Optional[TrialNoise] = None, train: bool = True):
+        """((K,) totals, {name: (K,) loss}) of the K trials on ``batch``
+        ({x: {layer: (B, F) or (K, B, F)}, y: {var: (B,) or (K, B)}[, _aux]}):
+        the masked supervised losses, the model's extra terms (the VAE's
+        MMD, computed for the K trials at once) and the Kendall weighting of
+        one trial, ``vmap``-ed over the K trials."""
+        m = self.model
+        out = self.forward(params, buffers, batch["x"], noise, train)
+        extra = self._extra_losses(out, batch, noise, train)
+        y = batch["y"]
+        y_dims = 0 if next(iter(y.values())).dim() == 2 else None
+
+        def trial_loss(outputs, labels, log_vars, extra):
+            losses = supervised_loss_terms(outputs, labels, m.variables, m.variable_types,
+                                           m.surv_event_var, m.surv_time_var)
+            losses.update(extra)
+            return compute_total_loss(losses, log_vars, m.use_loss_weighting), losses
+
+        log_vars = out.get("log_vars")
+        return torch.func.vmap(trial_loss, in_dims=(0, y_dims, None if log_vars is None else 0, 0))(
+            out["outputs"], y, log_vars, extra)
+
+
+class StackedDirectPred(_Stacked):
+    """K trials of ``model``'s DirectPred architecture."""
 
     def _block(self, prefix: str, params: Tensors, buffers: Tensors, x: torch.Tensor,
                noise: Optional[TrialNoise], train: bool) -> torch.Tensor:
-        start = len(prefix) + 1
-
-        def own(tree: Tensors) -> Tensors:
-            return {n[start:]: t for n, t in tree.items() if n.startswith(prefix + ".")}
-
         return getattr(self.net, prefix).forward_with(
-            own(params), own(buffers), x, train, noise.dropout if train else None)
+            own(params, prefix), own(buffers, prefix), x, train,
+            noise.dropout if train else None)
 
     def forward(self, params: Tensors, buffers: Tensors, x: Tensors,
                 noise: Optional[TrialNoise] = None, train: bool = False) -> dict:
@@ -146,22 +210,47 @@ class StackedDirectPred:
             out["log_vars"] = {var: params[f"log_var_{var}"] for var in net.variables}
         return out
 
-    def loss(self, params: Tensors, buffers: Tensors, batch: dict,
-             noise: Optional[TrialNoise] = None, train: bool = True):
-        """((K,) totals, {var: (K,) loss}) of the K trials on ``batch``
-        ({x: {layer: (B, F) or (K, B, F)}, y: {var: (B,) or (K, B)}}): the
-        masked supervised losses and the Kendall weighting of one trial,
-        ``vmap``-ed over the K trials."""
-        m = self.model
-        out = self.forward(params, buffers, batch["x"], noise, train)
-        y = batch["y"]
-        y_dims = 0 if next(iter(y.values())).dim() == 2 else None
 
-        def trial_loss(outputs, labels, log_vars):
-            losses = supervised_loss_terms(outputs, labels, m.variables, m.variable_types,
-                                           m.surv_event_var, m.surv_time_var)
-            return compute_total_loss(losses, log_vars, m.use_loss_weighting), losses
+class StackedSupervisedVAE(_Stacked):
+    """K trials of ``model``'s supervised_vae architecture."""
 
-        log_vars = out.get("log_vars")
-        return torch.func.vmap(trial_loss, in_dims=(0, y_dims, None if log_vars is None else 0))(
-            out["outputs"], y, log_vars)
+    def forward(self, params: Tensors, buffers: Tensors, x: Tensors,
+                noise: Optional[TrialNoise] = None, train: bool = False) -> dict:
+        """The network's outputs with a leading K axis (``embeddings``,
+        ``outputs``, ``mean``, ``log_var``, ``x_hat``, ``log_vars``) for x
+        {layer: (B, F) or (K, B, F)}. Training mode uses batch statistics,
+        updates the running ones in place and draws eps and the heads'
+        dropout from ``noise``."""
+        if train and noise is None:
+            raise ValueError("the training-mode latent needs a TrialNoise")
+        return self.net.forward_with(params, buffers, x, train,
+                                     noise.normal if train else None,
+                                     noise.dropout if train else None)
+
+    def _extra_losses(self, out: dict, batch: dict, noise: Optional[TrialNoise],
+                      train: bool) -> Tensors:
+        """{"mmd_loss": (K,)}: one prior per decoded layer, from ``noise`` in
+        training, and in validation the single model's draws from a
+        generator seeded with 0, shared by the trials (as JAX's key(0) is)."""
+        z = out["embeddings"]
+        shape = (self.K, N_PRIOR_SAMPLES, z.shape[-1])
+        layers = self.model.decoded_layers
+        if train:
+            priors = [noise.normal(shape, z.device) for _ in layers]
+        else:
+            generator = torch.Generator().manual_seed(0)
+            priors = [standard_normal(shape[1:], generator, z.device) for _ in layers]
+        return {"mmd_loss": self.model.mmd_of(out, batch, priors)}
+
+
+STACKED = {"DirectPred": StackedDirectPred, "supervised_vae": StackedSupervisedVAE,
+           "CrossModalPred": StackedSupervisedVAE}
+
+
+def stacked_model(model, K: int) -> _Stacked:
+    """The stacked class of ``model``'s class, for K trials."""
+    if model.model_name not in STACKED:
+        raise NotImplementedError(
+            f"stacked trials of {model.model_name} are not ported to flexynesis_torch yet "
+            "(ROADMAP A item 5)")
+    return STACKED[model.model_name](model, K)

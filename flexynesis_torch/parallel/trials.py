@@ -1,12 +1,18 @@
-"""Train K HPO trials of one DirectPred architecture at once.
+"""Train K HPO trials of one architecture at once.
 
 Counterpart of ``flexynesis_tpu/parallel/trials.py`` (``_init_stacked``,
 ``ParallelTrials.run``, ``vmapped_grid_fit``, ``equal_kfold_indices``),
-without the device mesh and the round checkpoint. The JAX engine vmaps the
-model's loss over a stacked trial axis; here ``parallel/stacked.py`` writes
-that axis out, so one host issue trains K trials: with ``fused_kernels`` every
-block of a training step is one launch of kernel B1 for all trials, and every
-block of a validation one launch of B2.
+without the device mesh and the round checkpoint, for DirectPred,
+supervised_vae and CrossModalPred (the stacked class is chosen by the
+template's ``model_name``). The JAX engine vmaps the model's loss over a
+stacked trial axis; here ``parallel/stacked.py`` writes that axis out, so one
+host issue trains K trials: with ``fused_kernels`` every DirectPred block of
+a training step is one launch of kernel B1 for all trials and every block of
+a validation one launch of B2, and every decoded layer of a VAE step or
+validation one launch of B3. ``vmapped_grid_fit`` gives each trial its own
+data split (the CV folds of ``train/hpo.py``), and a padded round's ``aux``
+(``parallel/hetero.py``) goes into every training and validation batch as
+``_aux``, as the JAX engine puts it there.
 
 The rules the JAX engine fixes, kept here:
 
@@ -22,11 +28,12 @@ The rules the JAX engine fixes, kept here:
   mode (running statistics);
 * randomness follows the seeds: trials that share one seed (a
   same-architecture HPO round) share their initial parameters, batch order,
-  dropout masks and SR bits, drawn once; trials with different seeds (a
-  mixed round) draw their own. The bits differ from JAX's threefry bits: the
-  port draws from torch generators (batch order from a CPU generator seeded
-  with the trial's seed, as the single-model ``Trainer`` does; dropout masks
-  and SR seeds from generators on the device).
+  dropout masks, VAE noise and SR bits, drawn once; trials with different
+  seeds (mixed and CV rounds) draw their own. The bits differ from JAX's
+  threefry bits: the port draws from torch generators (batch order from a
+  CPU generator seeded with the trial's seed, as the single-model
+  ``Trainer`` does; dropout masks, eps, priors and SR seeds from generators
+  on the device).
 
 The host reads only the (K,) validation losses, once per epoch, after the
 epoch's steps and its validation are issued; ``host_work(budget_s)`` (the
@@ -44,18 +51,18 @@ import torch
 
 from ..ops.optim import trial_optimizer
 from ..ops.sr_adam import cast_stacked_params_for_sr, sr_adam_init, trial_update_step
-from .stacked import StackedDirectPred, TrialNoise
+from .stacked import TrialNoise, stacked_model
 
 
 def _clone_state(module: torch.nn.Module) -> Dict[str, torch.Tensor]:
     return {n: t.detach().clone() for n, t in module.state_dict().items()}
 
 
-def _init_stacked(model, seeds, stacked: Optional[StackedDirectPred] = None):
+def _init_stacked(model, seeds, stacked=None):
     """(params, buffers) of K fresh trials, trial k initialised by
     ``model.init_params(seeds[k])`` (a seed shared by several trials is
     drawn once). The template's own weights are restored afterwards."""
-    stacked = stacked or StackedDirectPred(model, len(seeds))
+    stacked = stacked or stacked_model(model, len(seeds))
     saved = _clone_state(model.module)
     by_seed = {}
     for s in dict.fromkeys(int(s) for s in np.asarray(seeds)):
@@ -88,12 +95,12 @@ def _gather(data: dict, rows: torch.Tensor) -> dict:
 class _Round:
     """The state of one round of K stacked trials and its training loop."""
 
-    def __init__(self, model, params, buffers, *, lrs, seeds, masks=None,
+    def __init__(self, model, params, buffers, *, lrs, seeds, masks=None, aux=None,
                  param_dtype: str = "bfloat16_sr"):
         self.model = model
         self.device = model.device
         self.K = len(lrs)
-        self.stacked = StackedDirectPred(model, self.K)
+        self.stacked = stacked_model(model, self.K)
         self.seeds = [int(s) for s in np.asarray(seeds)]
         self.shared = len(set(self.seeds)) == 1
         self.sr = param_dtype == "bfloat16_sr"
@@ -109,9 +116,10 @@ class _Round:
         self.opt_state = sr_adam_init(self.views) if self.sr else self.tx.init(self.views)
         self.lrs = torch.as_tensor(np.asarray(lrs, np.float32), device=self.device)
         self.masks = masks
+        self.aux = aux
         dev = self.device
         self.noise = TrialNoise(torch.Generator(device=dev).manual_seed(self.seeds[0]),
-                                shared=self.shared)
+                                self.seeds)
         self.sr_gen = torch.Generator(device=dev).manual_seed(self.seeds[0] ^ 0x9E3779B9)
         self.perm_gens = [torch.Generator().manual_seed(s)
                           for s in (self.seeds[:1] if self.shared else self.seeds)]
@@ -125,21 +133,25 @@ class _Round:
             out[n] = t.requires_grad_() if grad else t
         return out
 
+    def _with_aux(self, batch: dict) -> dict:
+        return batch if self.aux is None else {**batch, "_aux": self.aux}
+
     def step(self, batch: dict, sr_seed: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One optimizer step of every trial on ``batch``; returns the (K,)
         training losses before the step, on the device. ``sr_seed`` (one
         value, or one per trial) replaces the step's draw of SR seeds."""
         names = self.stacked.leaf_names
         work = self.params32(grad=True)
-        total, _ = self.stacked.loss(work, self.buffers, batch, self.noise, True)
+        total, _ = self.stacked.loss(work, self.buffers, self._with_aux(batch), self.noise, True)
         grads = torch.autograd.grad(total.sum(), [work[n] for n in names], allow_unused=True)
         grads = {n: torch.zeros_like(work[n]) if g is None else g
                  for n, g in zip(names, grads)}
         with torch.no_grad():
             seed = sr_seed
             if self.sr and seed is None:
-                seed = torch.randint(0, 2 ** 32, (1 if self.shared else self.K,),
-                                     generator=self.sr_gen, device=self.device)
+                seed = self.noise.spread(torch.randint(
+                    0, 2 ** 32, (self.noise.n_draws,), generator=self.sr_gen,
+                    device=self.device))
             new, self.opt_state = trial_update_step(
                 self.views, self.opt_state, self.stacked.flax_layout(grads), self.lrs,
                 seed, sr=self.sr, tx=self.tx, masks=self.masks)
@@ -150,17 +162,21 @@ class _Round:
     @torch.no_grad()
     def validate(self, batch: dict) -> torch.Tensor:
         """(K,) sums of the per-variable eval-mode losses, on the device."""
-        _, losses = self.stacked.loss(self.params32(), self.buffers, batch, None, False)
+        _, losses = self.stacked.loss(self.params32(), self.buffers, self._with_aux(batch),
+                                      None, False)
         return sum(losses.values())
 
     def epoch_rows(self, train_idx: np.ndarray, n_batches: int, batch_size: int):
-        """This epoch's row table, (n_batches, B) shared or (n_batches, K, B)."""
+        """This epoch's row table: (n_batches, B) where every trial draws the
+        same rows, else (n_batches, K, B). Trials that share a seed share the
+        permutation, each applying it to its own training rows."""
         n_tr = train_idx.shape[1]
-        rows = []
-        for k, gen in enumerate(self.perm_gens):
-            perm = torch.randperm(n_tr, generator=gen).numpy()[: n_batches * batch_size]
-            rows.append(train_idx[k][perm].reshape(n_batches, batch_size))
-        table = rows[0] if self.shared else np.stack(rows, axis=1)
+        perms = [torch.randperm(n_tr, generator=gen).numpy()[: n_batches * batch_size]
+                 for gen in self.perm_gens]
+        rows = np.stack([train_idx[k][perms[0 if self.shared else k]] for k in range(self.K)])
+        table = rows.reshape(self.K, n_batches, batch_size).transpose(1, 0, 2)
+        if np.all(rows == rows[:1]):
+            table = table[:, 0]
         return torch.from_numpy(np.ascontiguousarray(table)).to(self.device)
 
     def fit(self, data: dict, train_idx: np.ndarray, val_batch: dict, *, batch_size: int,
@@ -214,7 +230,7 @@ def _val_batch(data: dict, val_idx: np.ndarray, device) -> dict:
 
 
 def vmapped_grid_fit(model, dataset, *, start_params=None, start_stats=None,
-                     lrs, seeds, train_idx, val_idx, masks=None,
+                     lrs, seeds, train_idx, val_idx, masks=None, aux=None,
                      batch_size: int = 32, max_epochs: int = 50,
                      early_stop_patience: int = -1,
                      host_work: Optional[Callable[[float], object]] = None) -> dict:
@@ -223,14 +239,15 @@ def vmapped_grid_fit(model, dataset, *, start_params=None, start_stats=None,
     Every trial sees its own train/val rows of the dataset (``train_idx``
     (T, n_tr), ``val_idx`` (T, n_val)), its own lr and seed and optionally its
     own element masks (per leaf, in the JAX flatten order and Flax layout,
-    ``parallel/hetero.py``). ``start_params`` / ``start_stats``: None for
-    fresh per-seed parameters, or the state (parameters and buffers by
-    ``state_dict`` name) of one model broadcast to all trials, or stacked
-    (T, ...) states. Returns {best_val_loss (T,), best_epoch (T,),
-    epochs_run}."""
+    ``parallel/hetero.py``) and ``aux`` (a padded VAE round's per-trial
+    ``latent_mask`` and ``latent_dim``, put in every batch as ``_aux``).
+    ``start_params`` / ``start_stats``: None for fresh per-seed parameters,
+    or the state (parameters and buffers by ``state_dict`` name) of one model
+    broadcast to all trials, or stacked (T, ...) states. Returns
+    {best_val_loss (T,), best_epoch (T,), epochs_run}."""
     T = len(lrs)
     train_idx, val_idx = np.asarray(train_idx), np.asarray(val_idx)
-    stacked = StackedDirectPred(model, T)
+    stacked = stacked_model(model, T)
     if start_params is None:
         params, buffers = _init_stacked(model, seeds, stacked)
     else:
@@ -244,7 +261,7 @@ def vmapped_grid_fit(model, dataset, *, start_params=None, start_stats=None,
             return {n: (t if already else t.expand(T, *t.shape)).to(model.device).clone()
                     for n, t in tree.items()}
         params, buffers = place(params), place(buffers)
-    trial_round = _Round(model, params, buffers, lrs=lrs, seeds=seeds, masks=masks)
+    trial_round = _Round(model, params, buffers, lrs=lrs, seeds=seeds, masks=masks, aux=aux)
     data = model.make_batch(dataset)
     out = trial_round.fit(data, train_idx, _val_batch(data, val_idx, model.device),
                           batch_size=batch_size, max_epochs=max_epochs,

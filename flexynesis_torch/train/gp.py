@@ -9,9 +9,8 @@ main.py:336-341) with a GP-EI/PI/LCB hedge on the unit cube.
 Model: Matern-5/2 GP with standardized targets; (length scale, noise) fitted
 per ask by a log-marginal-likelihood grid search. Acquisition maximized over
 quasi-random candidates plus perturbations of the incumbent. ``ask(n)`` with
-n > 1 (constant-liar fantasies) and ``AskSession`` serve the JAX package's
-batched trial engine, which the port does not have yet (ROADMAP A.8); the
-port's HPO asks one suggestion at a time.
+n > 1 (constant-liar fantasies) and ``AskSession`` serve the batched rounds
+of the K-stacked trial engine (``train/hpo.py``, ``parallel/trials.py``).
 """
 
 from __future__ import annotations

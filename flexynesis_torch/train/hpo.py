@@ -2,15 +2,17 @@
 
 Counterpart of ``flexynesis_tpu/train/hpo.py`` (``HyperparameterTuning``;
 reference main.py:28-456): GP Bayesian optimisation with 10 initial points,
-trials trained on a validation split, HPO-level patience, the YAML
-search-space override and the dataset-size-derived batch-size space
-(main.py:183-190). The same seed gives the same suggestions, splits and
-batch-size space as the JAX package; the trained models differ, because the
-two packages draw initial weights and dropout masks from different generators.
+trials trained on a validation split or by k-fold CV (``use_cv``),
+HPO-level patience, the YAML search-space override and the
+dataset-size-derived batch-size space (main.py:183-190). The same seed gives
+the same suggestions, splits, folds and batch-size space as the JAX package;
+the trained models differ, because the two packages draw initial weights and
+noise from different generators.
 
 ``batch_ask`` suggestions per GP round: one trains as one sequential trial
-(``objective``); several DirectPred suggestions train at once on the trial
-engine (``parallel/trials.py``), grouped by ``_bucket_by_architecture``:
+(``objective``); several suggestions (DirectPred, supervised_vae,
+CrossModalPred) train at once on the trial engine (``parallel/trials.py``),
+grouped by ``_bucket_by_architecture``:
 
 * a group of one architecture (only ``lr`` differs) is one stacked program
   (``_run_parallel_group``): ``ParallelTrials`` with SR-bf16 Adam and one
@@ -18,16 +20,28 @@ engine (``parallel/trials.py``), grouped by ``_bucket_by_architecture``:
 * a group of mixed architectures (the usual case: the default space samples
   latent, hidden factor and supervisor widths) trains padded to its largest
   dims with element masks (``_run_parallel_group_hetero``,
-  ``parallel/hetero.py``), each trial from its own seed.
+  ``parallel/hetero.py``), each trial from its own seed. As in JAX, only the
+  classes whose class name is in ``PADDABLE_MODELS`` form such groups:
+  supervised_vae's suggestions (class ``SupervisedVAE``) group by
+  architecture identity, so a sampled architecture trains alone.
+
+With ``use_cv`` the CV_FOLDS folds run on the same engine, as JAX's
+default ``parallel_folds`` runs them: the folds of one suggestion as one
+stacked program (``_objective_cv_parallel``), and a group of K suggestions
+as one program of K x k trials (``_run_parallel_group_cv``), padded where the
+architectures differ; each suggestion scores the mean of its folds' best
+validation losses. Folds are ``equal_kfold_indices`` (n % k rows trimmed).
+JAX's ``cv_splits`` option and its sequential fold path (``parallel_folds``
+off) are not copied: its CLI uses neither.
 
 With ``pipeline_ask`` the next round's suggestions (``AskSession``, with this
 round's as constant-liar pending) are computed in the gaps while a round
-trains. A batched round keeps no model, so the best configuration is
-retrained on the whole training set at the end (``objective(full_train=
-True)``).
+trains. A batched round and a CV run keep no model, so the best
+configuration is retrained on the whole training set at the end
+(``objective(full_train=True)``).
 
-Not ported yet, and refused by the CLI: cross-validated trials, batched rounds
-of the VAE-MMD classes (ROADMAP A item 1) and the HPO state checkpoint.
+Not ported yet, and refused by the CLI: the HPO state checkpoint (ROADMAP A
+item 3).
 """
 
 from __future__ import annotations
@@ -41,6 +55,8 @@ from ..config import get_search_space
 from .gp import BayesianOptimizer
 from .space import Categorical, SearchSpace, load_and_convert_config
 from .trainer import train_val_split
+
+CV_FOLDS = 5  # the CLI's k (JAX's cv_splits default)
 
 
 class HyperparameterTuning:
@@ -56,6 +72,7 @@ class HyperparameterTuning:
         n_iter: int = 10,
         config_path: Optional[str] = None,
         val_size: float = 0.2,
+        use_cv: bool = False,
         use_loss_weighting: bool = True,
         early_stop_patience: int = -1,
         device_type: Optional[str] = None,
@@ -75,6 +92,7 @@ class HyperparameterTuning:
         self.surv_time_var = surv_time_var
         self.n_iter = n_iter
         self.val_size = val_size
+        self.use_cv = use_cv
         self.use_loss_weighting = use_loss_weighting
         self.early_stop_patience = early_stop_patience
         self.device_type = device_type
@@ -84,11 +102,11 @@ class HyperparameterTuning:
         self.output_layers = output_layers
         self.n_units = len(dataset)
         self.batch_ask = max(int(batch_ask), 1)
-        if self.batch_ask > 1 and model_class.__name__ not in self.BATCHED_MODELS:
+        if ((self.batch_ask > 1 or use_cv)
+                and model_class.model_name not in self.BATCHED_MODELS):
             raise NotImplementedError(
-                f"batched GP rounds of {model_class.__name__} need the VAE-MMD trial "
-                "engine (B3's trial axis, supervised_vae_trial_mask, masked_mmd_loss), "
-                "not ported to flexynesis_torch yet (ROADMAP A item 1)"
+                f"batched and cross-validated rounds of {model_class.__name__} need its "
+                "stacked trials, not ported to flexynesis_torch yet (ROADMAP A item 5)"
             )
         self.pipeline_ask = bool(pipeline_ask)
         self._host_work = None
@@ -133,27 +151,55 @@ class HyperparameterTuning:
             args["output_layers"] = self.output_layers
         return args
 
-    # the model classes whose suggestions train as batched rounds here
-    BATCHED_MODELS = ("DirectPred",)
+    # the model classes (``model_name``) whose suggestions train on the trial
+    # engine here
+    BATCHED_MODELS = ("DirectPred", "supervised_vae", "CrossModalPred")
 
     def objective(self, params: dict, full_train: bool = False):
-        """Train with ``params`` on a validation split; returns (val_loss,
-        epochs_run, model) (main.py:228-332). With ``full_train``, train on
-        the whole training set for ``params["epochs"]`` epochs and return
-        the model (the retrain after batched rounds, hpo.py:188-198)."""
-        model = self.model_class(**self._model_args(params))
+        """Train with ``params``; returns (val_loss, epochs_run, model), the
+        fold means under ``use_cv`` (main.py:228-332). With ``full_train``,
+        train on the whole training set for ``params["epochs"]`` epochs and
+        return the model (the retrain after batched rounds and CV,
+        hpo.py:188-198)."""
+        n = self.n_units
         if full_train:
+            model = self.model_class(**self._model_args(params))
             model.fit(self.dataset, lr=params["lr"], batch_size=int(params["batch_size"]),
                       max_epochs=int(params["epochs"]), early_stop_patience=-1,
                       seed=self.seed)
             return model
-        train_idx, val_idx = train_val_split(self.n_units, self.val_size, seed=self.seed)
+        if self.use_cv:
+            return self._objective_cv_parallel(params, n)
+        train_idx, val_idx = train_val_split(n, self.val_size, seed=self.seed)
+        model = self.model_class(**self._model_args(params))
         res = model.fit(
             self.dataset, train_idx, val_idx, lr=params["lr"],
             batch_size=int(params["batch_size"]), max_epochs=int(params["epochs"]),
             early_stop_patience=self.early_stop_patience, seed=self.seed,
         )
         return float(res.val_loss), int(res.epochs_run), model
+
+    def _objective_cv_parallel(self, params: dict, n: int):
+        """The k CV folds of one suggestion as one stacked program
+        (hpo.py:232-267): equal folds (n % k rows trimmed; the final retrain
+        uses every row), a seed per fold, the suggestion's lr for every fold.
+        Returns (mean best validation loss, mean best epoch, None)."""
+        from ..parallel.trials import equal_kfold_indices, vmapped_grid_fit
+
+        k = CV_FOLDS
+        tr, va = equal_kfold_indices(n, k, seed=self.seed)
+        out = vmapped_grid_fit(
+            self._get_template(params), self.dataset,
+            lrs=np.full(k, float(params["lr"]), np.float32),
+            seeds=np.arange(self.seed, self.seed + k),
+            train_idx=tr, val_idx=va,
+            batch_size=int(params["batch_size"]), max_epochs=int(params["epochs"]),
+            early_stop_patience=self.early_stop_patience,
+        )
+        avg_loss = float(np.mean(out["best_val_loss"]))
+        avg_epochs = int(np.mean(out["best_epoch"]))
+        print(f"[INFO] {k}-fold CV (stacked, concurrent): avg val loss {avg_loss:.4f}")
+        return avg_loss, avg_epochs, None
 
     # ------------------------------------------------------- batched rounds
 
@@ -167,15 +213,27 @@ class HyperparameterTuning:
             self._templates[key] = self.model_class(**self._model_args(params))
         return self._templates[key]
 
+    # the families whose parameters pad to a common max shape
+    # (parallel/hetero.py), by class name as JAX checks them (hpo.py:302-309):
+    # the class SupervisedVAE is not "supervised_vae", so its suggestions
+    # group by architecture identity, in JAX and here
+    PADDABLE_MODELS = ("DirectPred", "MultiTripletNetwork", "supervised_vae",
+                       "CrossModalPred", "GNN")
+
     def _bucket_by_architecture(self, suggestions):
-        """Group suggestions that can train as one stacked program: DirectPred
-        pads its architecture dims, so only epochs and batch size must match
-        (``hetero.bucket_key``)."""
+        """Group suggestions that can train as one stacked program
+        (hpo.py:311-334): for a paddable class only epochs and batch size
+        must match (``hetero.bucket_key``), the architecture dims pad to the
+        group's maximum; other classes group by architecture identity, lr
+        free."""
         from ..parallel.hetero import bucket_key
 
+        name = self.model_class.__name__
         buckets: dict = {}
         for params in suggestions:
-            buckets.setdefault(bucket_key(self.model_class.__name__, params), []).append(params)
+            key = (bucket_key(name, params) if name in self.PADDABLE_MODELS
+                   else tuple((k, params[k]) for k in sorted(params) if k != "lr"))
+            buckets.setdefault(key, []).append(params)
         return list(buckets.values())
 
     def _arch_identical(self, group) -> bool:
@@ -230,19 +288,59 @@ class HyperparameterTuning:
             start_params=trials["params"], start_stats=trials["buffers"],
             lrs=np.asarray([p["lr"] for p in group], np.float32), seeds=seeds,
             train_idx=np.tile(train_idx, (K, 1)), val_idx=np.tile(val_idx, (K, 1)),
-            masks=trials["masks"],
+            masks=trials["masks"], aux=trials.get("aux"),
             batch_size=int(group[0]["batch_size"]), max_epochs=int(group[0]["epochs"]),
             early_stop_patience=self.early_stop_patience, host_work=self._host_work,
         )
         return self._group_results(out, K)
+
+    def _run_parallel_group_cv(self, group):
+        """K suggestions x k CV folds as one stacked program of K x k trials
+        (hpo.py:387-455): the fold tables tiled across the suggestions, each
+        suggestion's lr repeated across its folds, the per-fold seeds tiled
+        (as K runs of ``_objective_cv_parallel``), padded to the group's
+        largest dims with each suggestion's masks repeated across its folds
+        where the architectures differ. Each suggestion scores its fold
+        means."""
+        from ..parallel.trials import equal_kfold_indices, vmapped_grid_fit
+
+        n, k, K = self.n_units, CV_FOLDS, len(group)
+        tr, va = equal_kfold_indices(n, k, seed=self.seed)
+        lrs = np.repeat(np.asarray([p["lr"] for p in group], np.float32), k)
+        seeds = np.tile(np.arange(self.seed, self.seed + k), K)
+        if self._arch_identical(group):
+            template = self._get_template(group[0])
+            trials: dict = {}
+        else:
+            from ..parallel.hetero import build_padded_trials, max_config
+
+            template_cfg = dict(group[0])
+            template_cfg.update(max_config(group, [
+                len(self.dataset.features[key]) for key in self.dataset.dat.keys()]))
+            template = self._get_template(template_cfg)
+            trials = build_padded_trials(template, [p for p in group for _ in range(k)], seeds)
+        print(f"[INFO] Training {K} suggestions x {k} CV folds = {K * k} trials "
+              "concurrently (stacked)")
+        out = vmapped_grid_fit(
+            template, self.dataset,
+            start_params=trials.get("params"), start_stats=trials.get("buffers"),
+            lrs=lrs, seeds=seeds, train_idx=np.tile(tr, (K, 1)), val_idx=np.tile(va, (K, 1)),
+            masks=trials.get("masks"), aux=trials.get("aux"),
+            batch_size=int(group[0]["batch_size"]), max_epochs=int(group[0]["epochs"]),
+            early_stop_patience=self.early_stop_patience, host_work=self._host_work,
+        )
+        loss = np.asarray(out["best_val_loss"]).reshape(K, k).mean(axis=1)
+        ep = np.asarray(out["best_epoch"]).reshape(K, k).mean(axis=1)
+        return [(float(loss[i]), int(round(ep[i])), None) for i in range(K)]
 
     # -------------------------------------------------------------- tuning
 
     def perform_tuning(self, hpo_patience: int = 0):
         """GP rounds of ``batch_ask`` suggestions, each group trained and told
         in turn (hpo.py:514-617); returns the best model and its parameters
-        (``epochs`` set to its best epoch count). A batched round keeps no
-        model, so the best configuration then retrains on the full set."""
+        (``epochs`` set to its best epoch count). A batched round and a CV
+        run keep no model, so the best configuration then retrains on the
+        full set."""
         opt = BayesianOptimizer(self.space, n_initial_points=10, seed=self.seed)
         best_loss = np.inf
         best_params = None
@@ -257,14 +355,17 @@ class HyperparameterTuning:
             # the next round's ask runs in this round's gaps, with this
             # round's suggestions pending, if a group trains on the engine
             q_next = min(self.batch_ask, self.n_iter - i - len(suggestions))
+            drains = any(len(g) > 1 for g in groups)
             session = (opt.ask_session(q_next, pending=suggestions)
-                       if pipeline and any(len(g) > 1 for g in groups) and q_next > 0
-                       else None)
+                       if pipeline and drains and q_next > 0 else None)
             self._host_work = session.work if session is not None else None
             for group in groups:
                 t0 = time.perf_counter()
                 results = None
-                if len(group) > 1:
+                if len(group) > 1 and self.use_cv:
+                    # suggestions x folds train as one program of K x k trials
+                    results = self._run_parallel_group_cv(group)
+                elif len(group) > 1 and not self.use_cv:
                     results = (self._run_parallel_group(group) if self._arch_identical(group)
                                else self._run_parallel_group_hetero(group))
                 for gi, params in enumerate(group):
@@ -296,7 +397,8 @@ class HyperparameterTuning:
         if best_params is None:
             raise RuntimeError("no HPO trial produced a finite validation loss")
         best_params["epochs"] = max(best_epochs, 1)
-        if best_model is None:
+        if self.use_cv or best_model is None:
+            # CV keeps no single model: retrain on the full set
             print(f"[INFO] Final full-data training with best params: {best_params}")
             best_model = self.objective(best_params, full_train=True)
         return best_model, best_params

@@ -338,3 +338,56 @@ def test_b3_ticket_resets_between_calls_of_any_shape(card):
         torch.testing.assert_close(mean, gaussian_kernel_mean_ref(x, y), rtol=1e-5, atol=1e-6)
         _check_term(term, x, y)
         assert torch.equal(mean, mean2) and torch.equal(term, term2)
+
+
+# kernel B3 with a trial axis: the prior shared by the trials (read at a
+# trial stride of 0) or per trial; one launch for all trials, and each
+# trial's bits those of a one-trial call on its slice
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,N,M,d,per_trial", [(16, 200, 64, 64, False), (16, 200, 64, 64, True),
+                                               (16, 200, 400, 64, False), (1, 200, 64, 64, True),
+                                               (3, 37, 129, 17, True), (5, 1, 1, 1, False)])
+def test_b3_trial_axis_matches_plain_version_and_single_calls(card, K, N, M, d, per_trial):
+    g = torch.Generator().manual_seed(K + N + M + d)
+    x = torch.randn(*((K,) if per_trial else ()), N, d, generator=g).to(card)
+    y = torch.randn(K, M, d, generator=g).to(card)
+    before = gaussian_kernel_mean.launches
+    got = mmd_term_forward(x, y)
+    torch.cuda.synchronize()
+    assert gaussian_kernel_mean.launches == before + 1 and got.shape == (K, 4)
+    for k in range(K):
+        xk = x[k] if per_trial else x
+        _check_term(got[k], xk, y[k])
+        assert torch.equal(got[k], mmd_term_forward(xk, y[k]))
+    assert torch.equal(got, mmd_term_forward(x, y))
+    torch.testing.assert_close(compute_mmd_fused(x, y), got[:, 3], rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_trial", [False, True])
+def test_b3_trial_axis_gradients_match_autograd(card, per_trial):
+    g = torch.Generator().manual_seed(5)
+    K, N, M, d = 4, 200, 64, 64
+    x = torch.randn(*((K,) if per_trial else ()), N, d, generator=g).to(card)
+    y = torch.randn(K, M, d, generator=g).to(card)
+    w = torch.arange(1.0, K + 1.0, device=card)
+    grads = []
+    for fn in (compute_mmd_fused, compute_mmd):
+        leaves = [t.clone().requires_grad_() for t in (x, y)]
+        (fn(*leaves) * w).sum().backward()
+        grads.append([t.grad for t in leaves])
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * float(want.abs().max()))
+
+
+@pytest.mark.cuda
+def test_b3_trial_axis_rejects_bad_operands(card):
+    x, y = torch.randn(3, 20, 8, device=card), torch.randn(3, 9, 8, device=card)
+    with pytest.raises(ValueError):
+        mmd_term_forward(x[:2], y)  # trial counts differ
+    with pytest.raises(ValueError):
+        mmd_term_forward(x, y[0])  # a stacked prior against one batch
+    with pytest.raises(ValueError):
+        gaussian_kernel_mean(x, y)  # one mean takes no trial axis
+    with pytest.raises(ValueError):
+        mmd_term_forward(x, y[:0])

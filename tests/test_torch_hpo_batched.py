@@ -11,8 +11,10 @@
   retrains the best configuration on the full set and returns that model;
 * a same-architecture round (only ``lr`` free) trains stacked;
 * ``--hpo_batch 4 --device cpu`` writes the output tables, ``--hpo_batch 0``
-  resolves to 1 on the CPU and to min(16, hpo_iter) on the card, and
-  supervised_vae with ``--hpo_batch 4`` raises ``NotImplementedError``."""
+  resolves to 1 on the CPU and to min(16, hpo_iter) on the card for every
+  ported class, and the VAE-MMD classes, whose batched rounds raised until
+  their trial engine was ported, tune with ``batch_ask`` 4 (a
+  same-architecture round of supervised_vae trains stacked)."""
 
 import argparse
 import os
@@ -184,15 +186,29 @@ def test_hpo_batch_zero_resolves_by_device(capsys):
     assert resolve_hpo_batch(_args("DirectPred", 0, hpo_iter=5), torch.device("cuda")) == 5
     assert "HPO trial fan-out: 5 suggestions per GP round" in capsys.readouterr().out
     assert resolve_hpo_batch(_args("DirectPred", 3), torch.device("cpu")) == 3
-    assert resolve_hpo_batch(_args("supervised_vae", 0), torch.device("cuda")) == 1
-    assert "resolves to 1 for supervised_vae" in capsys.readouterr().out
+    for vae in ("supervised_vae", "CrossModalPred"):
+        assert resolve_hpo_batch(_args(vae, 0), torch.device("cuda")) == 16
+        assert resolve_hpo_batch(_args(vae, 0, hpo_iter=5), torch.device("cuda")) == 5
+        assert resolve_hpo_batch(_args(vae, 0), torch.device("cpu")) == 1
+    assert "HPO trial fan-out: 16 suggestions per GP round" in capsys.readouterr().out
 
 
-def test_vae_batched_rounds_raise(folder, tmp_path, train_ds):
-    args = _cli(folder, tmp_path / "out", "--hpo_batch", "4", "--model_class",
-                "supervised_vae")
-    with pytest.raises(NotImplementedError, match="VAE-MMD trial engine"):
-        main(args)
-    with pytest.raises(NotImplementedError, match="VAE-MMD trial engine"):
-        HyperparameterTuning(train_ds, SupervisedVAE, "supervised_vae", ["subtype"],
-                             device="cpu", batch_ask=4)
+def test_vae_batched_rounds_raise(train_ds, tmp_path, capsys):
+    """The VAE-MMD classes' batched rounds raised until their trial engine was
+    ported; a round of four suggestions of one architecture now trains
+    stacked and retrains the best on the full set."""
+    cfg = tmp_path / "vae.yaml"
+    cfg.write_text("supervised_vae:\n"
+                   "  - {type: Categorical, categories: [8], name: latent_dim}\n"
+                   "  - {type: Categorical, categories: [0.3], name: hidden_dim_factor}\n"
+                   "  - {type: Real, low: 0.0001, high: 0.01, prior: log-uniform, name: lr}\n"
+                   "  - {type: Categorical, categories: [8], name: supervisor_hidden_dim}\n"
+                   "  - {type: Categorical, categories: [2], name: epochs}\n"
+                   "  - {type: Categorical, categories: [16], name: batch_size}\n")
+    tuner = HyperparameterTuning(train_ds, SupervisedVAE, "supervised_vae", ["subtype"],
+                                 n_iter=4, batch_ask=4, device="cpu", config_path=str(cfg))
+    model, best = tuner.perform_tuning()
+    log = capsys.readouterr().out
+    assert "Training 4 same-architecture trials concurrently (stacked)" in log
+    assert "Final full-data training with best params" in log
+    assert isinstance(model, SupervisedVAE) and model.train_result.epochs_run == best["epochs"]

@@ -256,9 +256,9 @@ def test_port_saved_model_loads_in_jax(trained, tmp_path):
 def test_unported_paths_raise(trained, tmp_path):
     args = _infer_args(trained["weights"], trained["artifacts"], trained["test"],
                        str(tmp_path))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):  # training: CV, not ported
+    with pytest.raises(NotImplementedError, match="ROADMAP"):  # training: not ported
         main(["--data_path", "x", "--model_class", "DirectPred", "--data_types", "gex",
-              "--target_variables", "y", "--use_cv", "--device", "cpu"])
+              "--target_variables", "y", "--hpo_checkpoint", "ck.json", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="fine-tuning"):
         main(args + ["--finetuning_samples", "5"])
     with pytest.raises(ValueError, match="tpu"):

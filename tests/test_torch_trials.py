@@ -114,7 +114,8 @@ def test_stacked_forward_and_loss_equal_single_models(fused, per_trial_x):
         batch = trials_mod._gather(data, torch.from_numpy(np.stack(rows)))
     else:
         batch = trials_mod._gather(data, torch.from_numpy(rows[0]))
-    noise = TrialNoise(torch.Generator().manual_seed(0), shared=not per_trial_x)
+    noise = TrialNoise(torch.Generator().manual_seed(0),
+                       range(K) if per_trial_x else [0] * K)
     for train in (True, False):
         totals, losses = stacked.loss(params, buffers, batch, noise, train)
         assert totals.shape == (K,)
