@@ -4,8 +4,10 @@ The same flags and defaults as ``python -m flexynesis_tpu``, on the CUDA card
 unless ``--device cpu`` is given.
 
 * Training mode (``--data_path``, ``--model_class`` DirectPred,
-  supervised_vae or CrossModalPred, ``--data_types``, targets): imports the
-  CSV folder and selects features, runs GP hyperparameter search (each
+  supervised_vae, MultiTripletNetwork, CrossModalPred or GNN,
+  ``--data_types``, targets): imports the CSV folder and selects features
+  (a GNN then builds its node tensor over ``--user_graph`` or STRING, the
+  test split over the training node set), runs GP hyperparameter search (each
   round's ``--hpo_batch`` suggestions train at once on the K-stacked trial
   engine, and with ``--use_cv`` each suggestion's five folds too; then the
   best retrains on the whole training set), trains with Adam and early
@@ -19,8 +21,9 @@ unless ``--device cpu`` is given.
   load the saved model. CrossModalPred encodes ``--input_layers``, decodes
   ``--output_layers`` and also writes ``<prefix>.<layer>_decoded.csv``.
 * Inference mode (``--pretrained_model``, ``--artifacts``,
-  ``--data_path_test``) loads a model saved by either package, scores the
-  test cohort and writes the embeddings, the feature importances, the
+  ``--data_path_test``) loads a model saved by either package (a GNN's node
+  tensor is rebuilt over its saved node set and graph), scores the test
+  cohort and writes the embeddings, the feature importances, the
   predicted labels and stats (and a CrossModalPred's decoded layers).
 
 Marker finding on a DirectPred built with ``fused_kernels`` raises
@@ -157,6 +160,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def run_inference(args, device) -> int:
+    import numpy as np
+
     from .data.inference_importer import DataImporterInference
     from .inference import check_model_type, load_and_sniff_artifacts, reconstruct_model
     from .interpret.attribution import check_attributable
@@ -181,6 +186,15 @@ def run_inference(args, device) -> int:
     if not args.disable_marker_finding:
         check_attributable(model)
     test_dataset = DataImporterInference(args.data_path_test, artifacts).import_data()
+    if model.model_name == "GNN":
+        # the node tensor over the training node set, through the interaction
+        # graph embedded in the saved weights
+        from .data.dataset import MultiOmicDatasetNW
+
+        nodes = list(model.nw_dataset.node_names)
+        src, dst = np.asarray(model.nw_dataset.edge_index)
+        edges = {"protein1": [nodes[i] for i in src], "protein2": [nodes[i] for i in dst]}
+        test_dataset = MultiOmicDatasetNW(test_dataset, edges, node_names=nodes)
     _write_eval_outputs(args, model, None, test_dataset)
     return 0
 
@@ -207,6 +221,22 @@ def _build_importer(args, device):
         downsample=args.subsample,
         device=device,
     )
+
+
+def _load_graph(args, dataset):
+    """The training set's node tensor over ``--user_graph``, or over STRING
+    (``--string_organism``, ``--string_node_name``; a warm cache, or a
+    download)."""
+    from .data.dataset import MultiOmicDatasetNW
+    from .data.graph import STRING, read_user_graph
+
+    if args.user_graph:
+        graph = read_user_graph(args.user_graph)
+    else:
+        graph = STRING(organism=args.string_organism, node_name=args.string_node_name).graph_df
+    nw = MultiOmicDatasetNW(dataset, graph)
+    nw.print_stats()
+    return nw
 
 
 def _save_model_files(args, model, data_importer) -> None:
@@ -246,6 +276,11 @@ def run_training(args, device):
     train_dataset, test_dataset = data_importer.import_data()
     for layer, rows in data_importer.feature_logs.items():
         write_rows(os.path.join(args.outdir, f"{args.prefix}.feature_logs.{layer}.csv"), rows)
+    if args.model_class == "GNN":
+        train_dataset = _load_graph(args, train_dataset)
+        # the test split reuses the training node set and interaction graph
+        test_dataset = type(train_dataset)(test_dataset, train_dataset.interaction_df,
+                                           node_names=train_dataset.node_names)
     phases["import_and_feature_selection"] = time.perf_counter() - t0
 
     t = time.perf_counter()
@@ -264,6 +299,7 @@ def run_training(args, device):
         use_loss_weighting=args.use_loss_weighting == "True",
         early_stop_patience=args.early_stop_patience,
         device=device,
+        gnn_conv_type=args.gnn_conv_type,
         input_layers=_split(args.input_layers),
         output_layers=_split(args.output_layers),
         batch_ask=batch_ask,
@@ -304,11 +340,6 @@ def _check_training_args(parser, args) -> None:
         raise NotImplementedError(
             f"--model_class {args.model_class} (classical baselines) is not ported "
             "to flexynesis_torch yet (ROADMAP item 13)"
-        )
-    if args.model_class not in ("DirectPred", "supervised_vae", "CrossModalPred"):
-        raise NotImplementedError(
-            f"--model_class {args.model_class} is not ported to flexynesis_torch "
-            "yet (ROADMAP A.12)"
         )
     if args.finetuning_samples > 0:
         raise NotImplementedError("fine-tuning is not ported yet (ROADMAP A.12)")

@@ -10,8 +10,11 @@ the JAX package in both directions:
 * artifacts: the JSON form only (``--safetensors`` in training). A joblib
   artifact holds pickled sklearn objects that the port cannot load.
 
-``reconstruct_model`` rebuilds DirectPred, supervised_vae and CrossModalPred;
-the other model classes are not ported yet (ROADMAP A.12).
+``reconstruct_model`` rebuilds every class of ``models.MODEL_REGISTRY``. A
+GNN's weights file also holds its interaction graph (``graph/edge_index``,
+int32 (2, E)) and its config the node set (``node_names``, ``n_node_feats``)
+and ``gnn_conv_type``, so inference rebuilds the node tensor without the
+graph source.
 """
 
 from __future__ import annotations
@@ -26,16 +29,6 @@ from .convert import from_flax, to_flax
 from .data.preprocessing import encoder_categories, normalize_encoder_state
 from .models import MODEL_REGISTRY
 from .utils.safetensors_io import load_file, save_file
-
-MODEL_CLASS_NAMES = [
-    "DirectPred",
-    "supervised_vae",
-    "SupervisedVAE",
-    "MultiTripletNetwork",
-    "CrossModalPred",
-    "GNN",
-]
-
 
 # ---------------------------------------------------------------- save side
 
@@ -62,17 +55,22 @@ def _unflatten(flat: Dict[str, np.ndarray]) -> dict:
 
 
 def save_model(model, path: str) -> str:
-    """Save the module's weights as ``params/...`` and ``batch_stats/...``."""
+    """Save the module's weights as ``params/...`` and ``batch_stats/...``;
+    a GNN also embeds its interaction graph as ``graph/edge_index``."""
     params, batch_stats = to_flax(model.module)
     flat = {f"params/{k}": v for k, v in _flatten(params).items()}
     flat.update({f"batch_stats/{k}": v for k, v in _flatten(batch_stats).items()})
+    if hasattr(model, "nw_dataset"):
+        flat["graph/edge_index"] = np.ascontiguousarray(
+            np.asarray(model.nw_dataset.edge_index, dtype=np.int32))
     save_file(flat, path)
     return path
 
 
-def load_weights(path: str):
-    """(params, batch_stats) as nested dicts of numpy arrays."""
-    flat = load_file(path)
+def load_weights(path: str, flat: dict = None):
+    """(params, batch_stats) as nested dicts of numpy arrays; ``flat`` is the
+    file's contents where the caller has read it already."""
+    flat = load_file(path) if flat is None else flat
     params = _unflatten(
         {k[len("params/"):]: v for k, v in flat.items() if k.startswith("params/")}
     )
@@ -99,10 +97,14 @@ def save_model_config(model, path: str) -> str:
         "config",
         "output_dims",
         "use_loss_weighting",
+        "gnn_conv_type",
         "batch_variables",
     ):
         if hasattr(model, attr):
             config[attr] = getattr(model, attr)
+    if hasattr(model, "nw_dataset"):
+        config["node_names"] = list(model.nw_dataset.node_names)
+        config["n_node_feats"] = int(model.nw_dataset.node_features.shape[2])
     config["num_layers"] = len(model.layers)
     config["variable_types"] = {v: model.variable_types[v] for v in model.variables}
     config.update(model.config)
@@ -237,24 +239,37 @@ def reconstruct_model(weights_path: str, config_path: str, artifacts, device="au
 
     cls_name = config["model_class"]
     if cls_name not in MODEL_REGISTRY:
-        if cls_name in MODEL_CLASS_NAMES:
-            raise NotImplementedError(
-                f"{cls_name} is not ported to flexynesis_torch yet (ROADMAP A.12)"
-            )
         raise ValueError(f"Unknown model class: {cls_name}")
 
+    # gnn_readout and fused_kernels change the module; gnn_sparse only the
+    # operator's form (dense and sparse compute the same function)
     hyper = {
         k: config[k]
         for k in ("latent_dim", "hidden_dim_factor", "lr", "supervisor_hidden_dim",
-                  "epochs", "batch_size", "fused_kernels")
+                  "epochs", "batch_size", "node_embedding_dim", "num_convs",
+                  "activation", "gnn_readout", "gnn_sparse", "fused_kernels")
         if k in config
     }
+    ds = build_dataset_namespace(config, artifacts)
     extra = {}
+    flat = None
     if cls_name == "CrossModalPred":
         extra = {k: config.get(k) for k in ("input_layers", "output_layers")}
+    if cls_name == "GNN":
+        flat = load_file(weights_path)
+        if "graph/edge_index" not in flat:
+            raise ValueError("GNN weights are missing the embedded interaction graph.")
+        node_names = config["node_names"]
+        n_mods = int(config.get("n_node_feats", 1))
+        ds.node_names = node_names
+        ds.node_features = np.zeros((1, len(node_names), n_mods), np.float32)
+        ds.edge_index = np.asarray(flat["graph/edge_index"], np.int32)
+        ds.dat = {"all": np.zeros((1, len(node_names) * n_mods), np.float32)}
+        ds.features = {"all": [f"{g}:{m}" for g in node_names for m in range(n_mods)]}
+        extra = {"gnn_conv_type": config.get("gnn_conv_type", "GC")}
     model = MODEL_REGISTRY[cls_name](
         config=hyper,
-        dataset=build_dataset_namespace(config, artifacts),
+        dataset=ds,
         target_variables=[
             v for v in config.get("target_variables", [])
             if v != config.get("surv_event_var")
@@ -267,6 +282,6 @@ def reconstruct_model(weights_path: str, config_path: str, artifacts, device="au
         device=device,
         **extra,
     )
-    params, batch_stats = load_weights(weights_path)
+    params, batch_stats = load_weights(weights_path, flat)
     model.module.load_state_dict(from_flax(params, batch_stats))
     return model

@@ -19,6 +19,10 @@ for bit. Products run in f32 (PyTorch's default keeps TF32 off), as on the
 eval path. Each attribution function takes a list of classes and returns one
 ``{layer: (B, F)}`` attribution per class.
 
+The GNN's forward carries its operator (``GNN._module_eval``, as JAX's
+``_eval_extra_args`` passes it), and ``GNN.compute_feature_importance``
+splits the (nodes x layers) attributions back per omic layer.
+
 A DirectPred built with ``fused_kernels`` cannot be attributed: its eval
 blocks are kernel B2, which has no backward, in the JAX package as here.
 """

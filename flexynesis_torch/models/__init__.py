@@ -3,10 +3,14 @@
 
 from .crossmodal_pred import CrossModalPred
 from .direct_pred import DirectPred
+from .gnn import GNN
 from .supervised_vae import SupervisedVAE
+from .triplet_encoder import MultiTripletNetwork
 
 MODEL_REGISTRY = {
     "DirectPred": DirectPred,
     "supervised_vae": SupervisedVAE,
+    "MultiTripletNetwork": MultiTripletNetwork,
     "CrossModalPred": CrossModalPred,
+    "GNN": GNN,
 }

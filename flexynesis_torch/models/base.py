@@ -142,7 +142,7 @@ class BaseModel:
         module uses batch statistics and draws its noise (dropout, the VAE's
         reparameterisation) from ``generator``; validation passes None."""
         self.module.train(train)
-        out = self.module(batch["x"], generator)
+        out = self._module_train(batch, generator)
         losses = supervised_loss_terms(
             out["outputs"], batch["y"], self.variables, self.variable_types,
             self.surv_event_var, self.surv_time_var,
@@ -151,10 +151,30 @@ class BaseModel:
         total = compute_total_loss(losses, out.get("log_vars"), self.use_loss_weighting)
         return total, losses
 
+    def _module_train(self, batch: dict, generator: Optional[torch.Generator]) -> dict:
+        """The module's outputs on ``batch`` in its current mode (the GNN
+        adds its operator)."""
+        return self.module(batch["x"], generator)
+
+    def _module_eval(self, x: Dict[str, torch.Tensor]) -> dict:
+        """The module's eval outputs on ``x`` (the GNN adds its operator)."""
+        return self.module(x)
+
     def _extra_losses(self, out: dict, batch: dict,
                       generator: Optional[torch.Generator]) -> Dict[str, torch.Tensor]:
         """Model-specific loss terms (the VAE's MMD); none here."""
         return {}
+
+    @classmethod
+    def n_units(cls, dataset, target_variables: List[str]) -> int:
+        """The rows a model of this class trains over in ``dataset``: its
+        splits, folds and batch-size space count them (the triplet model's
+        anchors)."""
+        return len(dataset)
+
+    def n_train_samples(self, dataset) -> int:
+        """The rows ``make_batch`` indexes (the triplet model's anchors)."""
+        return len(dataset)
 
     def fit(self, dataset, train_idx=None, val_idx=None, *, lr: float,
             batch_size: int, max_epochs: int, early_stop_patience: int = -1,
@@ -166,7 +186,7 @@ class BaseModel:
 
         self.init_params(seed)
         if train_idx is None:
-            train_idx = np.arange(len(dataset))
+            train_idx = np.arange(self.n_train_samples(dataset))
         train_data = self.make_batch(dataset, train_idx)
         val_data = self.make_batch(dataset, val_idx) if val_idx is not None else None
         trainer = Trainer(self.module, self.loss_fn, lr=lr)
@@ -194,9 +214,9 @@ class BaseModel:
         self.module.eval()
         n = next(iter(x.values())).shape[0]
         if n <= self.EVAL_CHUNK:
-            return self.module(x)
+            return self._module_eval(x)
         outs = [
-            self.module({k: v[s:s + self.EVAL_CHUNK] for k, v in x.items()})
+            self._module_eval({k: v[s:s + self.EVAL_CHUNK] for k, v in x.items()})
             for s in range(0, n, self.EVAL_CHUNK)
         ]
 
@@ -241,7 +261,7 @@ class BaseModel:
         (B, n_out): running statistics, no dropout, the VAE's z = mean.
         (``_forward_eval`` runs under ``inference_mode`` and cannot serve.)"""
         self.module.eval()
-        return self.module(x)["outputs"][target_var]
+        return self._module_eval(x)["outputs"][target_var]
 
     def compute_feature_importance(self, dataset, target_var: str,
                                    method: str = "IntegratedGradients",

@@ -17,12 +17,13 @@ serves every step and no value leaves the device:
                            the oracle of kernel B3 (``kernels/mmd.py``);
 * ``masked_mmd_loss``    - the same loss restricted to a padded trial's
                            active latent dims (the mixed-architecture trial
-                           rounds of ``parallel/hetero.py``).
+                           rounds of ``parallel/hetero.py``);
+* ``triplet_margin_loss`` - MultiTripletNetwork's margin loss on squared
+                           distances (``models/triplet_encoder.py``).
 
-The MMD functions take an optional leading trial axis K: ``z`` (K, B, L)
-against a prior of (K, N, L) or one (N, L) shared by the trials gives (K,)
-losses, as ``vmap`` of the JAX function gives them. The triplet loss comes
-with the model that uses it.
+The MMD and triplet functions take an optional leading trial axis K: ``z``
+(K, B, L) against a prior of (K, N, L) or one (N, L) shared by the trials
+gives (K,) losses, as ``vmap`` of the JAX function gives them.
 """
 
 from __future__ import annotations
@@ -181,3 +182,15 @@ def masked_mmd_loss(z: torch.Tensor, x_hat: torch.Tensor, x: torch.Tensor,
     p, zm = prior * mask, z * mask
     mmd = kernel_mean(p, p, d2) + kernel_mean(zm, zm, d2) - 2.0 * kernel_mean(p, zm, d2)
     return mmd + recon_mse(x_hat, x)
+
+
+def triplet_margin_loss(anchor: torch.Tensor, positive: torch.Tensor,
+                        negative: torch.Tensor, margin: float = 1.0) -> torch.Tensor:
+    """mean(relu(||a - p||^2 - ||a - n||^2 + margin)) over the rows (axis -2)
+    of (B, L) or (K, B, L) embeddings, on SQUARED distances as the reference
+    computes it (triplet_encoder.py:178-194;
+    ``flexynesis_tpu/models/triplet_encoder.py::_squared_triplet_loss``),
+    which is not ``torch.nn.TripletMarginLoss``."""
+    d_pos = (anchor - positive).square().sum(dim=-1)
+    d_neg = (anchor - negative).square().sum(dim=-1)
+    return torch.clamp(d_pos - d_neg + margin, min=0.0).mean(dim=-1)

@@ -1,7 +1,9 @@
 """Mixed-architecture HPO trials in one stacked program (pad to the maximum).
 
-Counterpart of ``flexynesis_tpu/parallel/hetero.py`` for DirectPred,
-supervised_vae and CrossModalPred: one template is built at the round's
+Counterpart of ``flexynesis_tpu/parallel/hetero.py`` for the five classes
+(MultiTripletNetwork pads as DirectPred, its tree being DirectPred's plus
+``log_var_triplet_loss``; the GNN pads its node embedding, latent and
+supervisor widths, and buckets on its structure): one template is built at the round's
 largest dimensions (latent, per-modality hidden, supervisor hidden), and each
 trial's padded parameter regions are zeroed and kept at zero by element masks
 on its gradients (before the clip norm) and on its updates (after Adam). Zero
@@ -25,7 +27,6 @@ FusedMLP's parameters (``layer_1_kernel``) are not the ``layer_1`` Dense tree
 the mask builder reads, so the JAX mask builder raises ``KeyError`` there. A
 VAE tree has no FusedMLP (the flag selects kernel B3 for its MMD), so a fused
 VAE round pads as JAX pads it, and its padded MMD is the masked plain one.
-``gnn_trial_mask`` is not ported yet (ROADMAP A item 5).
 """
 
 from __future__ import annotations
@@ -340,10 +341,94 @@ def supervised_vae_trial_mask(
     return _conform(mask, template_params), _conform(scale, template_params)
 
 
+def gnn_trial_mask(
+    template_params,
+    config: dict,
+    layer_names: List[str],
+    input_dims: List[int],
+) -> Tuple[dict, dict]:
+    """(mask, init_scale) trees for a GNN trial against the padded template.
+
+    Pads ``node_embedding_dim`` (every conv's output channels and BatchNorm),
+    ``latent_dim`` (the fc readout) and ``supervisor_hidden_dim`` (heads);
+    ``num_convs``, ``activation`` and the readout are structural and bucket
+    instead (``bucket_key``). Covers the four conv parameterisations
+    (``ops/graph_conv.py``): GCN ``lin``, SAGE/GC ``lin_root`` + ``lin_nbr``,
+    GAT ``lin`` + ``att_src`` + ``att_dst`` + ``bias``."""
+    enc = template_params["encoder"]
+    E_t = max(int(config["node_embedding_dim"]), 1)
+    L_t = int(config["latent_dim"])
+    S_t = max(int(config["supervisor_hidden_dim"]), 2)
+
+    conv_keys = sorted((k for k in enc if k.startswith("conv_")), key=lambda s: int(s[5:]))
+    first = enc[conv_keys[0]]
+    lin0 = first.get("lin", first.get("lin_root"))
+    E_max = lin0["kernel"].shape[1]
+    fc_rows, L_max = enc["fc"]["kernel"].shape
+    e_col = _col_mask(E_max, E_t)
+    l_col = _col_mask(L_max, L_t)
+
+    def conv_mask(sub, in_col):
+        """Mask/scale for one DenseGraphConvLayer parameter subtree."""
+        m, s = {}, {}
+        for name, leaf in sub.items():
+            if name in ("lin", "lin_root", "lin_nbr"):
+                rows = leaf["kernel"].shape[0]
+                row_col = in_col if in_col is not None else np.ones(rows, np.float32)
+                fi_max, fi_t = rows, int(row_col.sum())
+                if name == "lin":
+                    # GCN/GAT 'lin' uses xavier_uniform: U(+-sqrt(6/(fi+fo)))
+                    sc = float(np.sqrt((fi_max + E_max) / (fi_t + E_t)))
+                else:
+                    # SAGE/GC root/neighbour use torch U(+-1/sqrt(fan_in))
+                    sc = float(np.sqrt(fi_max / fi_t))
+                m[name] = {"kernel": np.outer(row_col, e_col)}
+                s[name] = {"kernel": sc}
+                if "bias" in leaf:
+                    m[name]["bias"] = e_col.copy()
+                    s[name]["bias"] = sc
+            elif name in ("att_src", "att_dst"):
+                m[name] = {"kernel": e_col[:, None].copy()}
+                s[name] = {"kernel": float(np.sqrt((E_max + 1) / (E_t + 1)))}
+            elif name == "bias":  # GAT layer-level bias
+                m[name] = e_col.copy()
+                s[name] = 1.0
+        return m, s
+
+    enc_mask, enc_scale = {}, {}
+    for i, ck in enumerate(conv_keys):
+        in_col = None if i == 0 else e_col  # conv_0 consumes raw node features
+        enc_mask[ck], enc_scale[ck] = conv_mask(enc[ck], in_col)
+        bk = f"bn_{i}"
+        enc_mask[bk] = {"scale": e_col.copy(), "bias": e_col.copy()}
+        enc_scale[bk] = {"scale": 1.0, "bias": 1.0}
+
+    if fc_rows == E_max:  # mean-pool readout
+        fc_row_mask = e_col
+    else:  # flatten readout: per-node blocks of E_max channels
+        fc_row_mask = np.tile(e_col, fc_rows // E_max)
+    enc_mask["fc"] = {"kernel": np.outer(fc_row_mask, l_col), "bias": l_col.copy()}
+    s_fc = float(np.sqrt(E_max / E_t))  # fan_in ratio (n_nodes cancels)
+    enc_scale["fc"] = {"kernel": s_fc, "bias": s_fc}
+
+    mask = {"encoder": enc_mask}
+    scale = {"encoder": enc_scale}
+    for key, sub in template_params.items():
+        if key.startswith("head_"):
+            mask[key], scale[key] = _head_mask_scale(sub, L_max, L_t, S_t)
+    for key in template_params:
+        if key.startswith("log_var_"):
+            mask[key] = np.ones(1, np.float32)
+            scale[key] = 1.0
+    return _conform(mask, template_params), _conform(scale, template_params)
+
+
 MASK_BUILDERS = {
     "DirectPred": directpred_trial_mask,
+    "MultiTripletNetwork": directpred_trial_mask,
     "supervised_vae": supervised_vae_trial_mask,
     "CrossModalPred": supervised_vae_trial_mask,
+    "GNN": gnn_trial_mask,
 }
 
 
@@ -364,11 +449,6 @@ def build_padded_trials(model, configs: List[dict], seeds) -> dict:
     (T, L_max) and ``latent_dim`` (T,); all on the model's device."""
     from .trials import _init_stacked
 
-    if model.model_name not in MASK_BUILDERS:
-        raise NotImplementedError(
-            f"mixed-architecture rounds of {model.model_name} are not ported to "
-            "flexynesis_torch yet (ROADMAP A item 5)"
-        )
     template_params, _ = to_flax(model.module)
     builder = MASK_BUILDERS[model.model_name]
     trees = [builder(template_params, cfg, model.layers, model.input_dims) for cfg in configs]

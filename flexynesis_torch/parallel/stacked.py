@@ -26,6 +26,13 @@ statistics in place, and the noise comes from explicit generators.
   the trials share their draws; a padded trial's batch carries ``_aux`` and
   takes the masked MMD. It enters the loss as the ``mmd_loss`` term, with its Kendall
   weight ``log_var_mmd_loss``.
+* ``StackedTriplet`` (MultiTripletNetwork) runs DirectPred's stacked body
+  on the anchor, positive and negative rows as one 3B-row batch, each
+  trial's partners drawn from ``TrialNoise`` (once per distinct seed), and
+  adds the (K,) triplet loss with its weight ``log_var_triplet_loss``.
+* ``StackedGNN`` runs ``GNNNet.forward_with`` on the stacked tensors with
+  the template's operator (or the batch's ``_adj``) broadcast to every
+  trial: a dense aggregation is one (N, N) @ (N, K * B * F) product.
 * The supervised losses and the Kendall weighting
   (``ops.losses.compute_total_loss``) are ``vmap``-ed per trial: ``loss``
   returns a (K,) total, whose sum autograd differentiates (the trials are
@@ -47,7 +54,8 @@ import torch
 from torch import nn
 
 from ..models.base import supervised_loss_terms
-from ..ops.losses import N_PRIOR_SAMPLES, compute_total_loss
+from ..models.triplet_encoder import draw_partners, generator_draw, validation_generator
+from ..ops.losses import N_PRIOR_SAMPLES, compute_total_loss, triplet_margin_loss
 from ..ops.mlp import linear, own, standard_normal
 
 Tensors = Dict[str, torch.Tensor]
@@ -151,6 +159,12 @@ class _Stacked:
 
     # ------------------------------------------------------------------ loss
 
+    def _forward_batch(self, params: Tensors, buffers: Tensors, batch: dict,
+                       noise: Optional[TrialNoise], train: bool) -> dict:
+        """The stacked forward on a batch (the GNN adds its operator, the
+        triplet model draws its partners)."""
+        return self.forward(params, buffers, batch["x"], noise, train)
+
     def _extra_losses(self, out: dict, batch: dict, noise: Optional[TrialNoise],
                       train: bool) -> Tensors:
         """The model's (K,) loss terms beside the supervised ones; none here."""
@@ -164,7 +178,7 @@ class _Stacked:
         MMD, computed for the K trials at once) and the Kendall weighting of
         one trial, ``vmap``-ed over the K trials."""
         m = self.model
-        out = self.forward(params, buffers, batch["x"], noise, train)
+        out = self._forward_batch(params, buffers, batch, noise, train)
         extra = self._extra_losses(out, batch, noise, train)
         y = batch["y"]
         y_dims = 0 if next(iter(y.values())).dim() == 2 else None
@@ -243,14 +257,74 @@ class StackedSupervisedVAE(_Stacked):
         return {"mmd_loss": self.model.mmd_of(out, batch, priors)}
 
 
+class StackedTriplet(StackedDirectPred):
+    """K trials of ``model``'s MultiTripletNetwork architecture: each trial
+    draws its partners from ``noise`` (once per distinct seed, as its
+    dropout), validation from ``validation_generator()`` shared by the
+    trials; anchor, positive and negative rows run as one 3B-row forward."""
+
+    def forward(self, params: Tensors, buffers: Tensors, x: Tensors,
+                noise: Optional[TrialNoise] = None, train: bool = False) -> dict:
+        out = super().forward(params, buffers, x, noise, train)
+        if self.net.use_loss_weighting:
+            out["log_vars"] = {**out["log_vars"],
+                               "triplet_loss": params["log_var_triplet_loss"]}
+        return out
+
+    def _forward_batch(self, params: Tensors, buffers: Tensors, batch: dict,
+                       noise: Optional[TrialNoise], train: bool) -> dict:
+        m = self.model
+        anchor_idx, groups = batch["anchor_idx"], batch["anchor_group"]
+        B = anchor_idx.shape[-1]
+        if train:
+            shape = groups.shape[-1:] if noise.shared else (noise.n_draws, B)
+            gen = noise.generator
+
+            def draw(high):
+                u = torch.randint(0, high, shape, generator=gen, device=gen.device)
+                return noise.spread(u.to(groups.device))
+        else:
+            draw = generator_draw(validation_generator(), groups.shape[-1:], groups.device)
+        pos_idx, neg_idx = draw_partners(groups, m._group_table, m._group_counts, draw)
+        idx3 = torch.cat(torch.broadcast_tensors(anchor_idx, pos_idx, neg_idx), dim=-1)
+        x3 = {k: v.index_select(0, idx3.reshape(-1)).reshape(*idx3.shape, v.shape[-1])
+              for k, v in batch["_full_x"].items()}
+        out = self.forward(params, buffers, x3, noise, train)
+        emb = out["embeddings"]
+        out["triplet_loss"] = triplet_margin_loss(emb[..., :B, :], emb[..., B:2 * B, :],
+                                                  emb[..., 2 * B:, :])
+        out["outputs"] = {var: o[..., :B, :] for var, o in out["outputs"].items()}
+        return out
+
+    def _extra_losses(self, out: dict, batch: dict, noise: Optional[TrialNoise],
+                      train: bool) -> Tensors:
+        return {"triplet_loss": out["triplet_loss"]}
+
+
+class StackedGNN(_Stacked):
+    """K trials of ``model``'s GNN architecture: the network's own
+    ``forward_with`` on the stacked tensors, the template's operator (or the
+    batch's ``_adj``) broadcast to every trial, dropout from ``noise``."""
+
+    def forward(self, params: Tensors, buffers: Tensors, x: Tensors,
+                noise: Optional[TrialNoise] = None, train: bool = False,
+                adj=None) -> dict:
+        if train and noise is None:
+            raise ValueError("training-mode dropout needs a TrialNoise")
+        return self.net.forward_with(params, buffers, x,
+                                     self.model._adj if adj is None else adj, train,
+                                     noise.dropout if train else None)
+
+    def _forward_batch(self, params: Tensors, buffers: Tensors, batch: dict,
+                       noise: Optional[TrialNoise], train: bool) -> dict:
+        return self.forward(params, buffers, batch["x"], noise, train, batch.get("_adj"))
+
+
 STACKED = {"DirectPred": StackedDirectPred, "supervised_vae": StackedSupervisedVAE,
-           "CrossModalPred": StackedSupervisedVAE}
+           "CrossModalPred": StackedSupervisedVAE, "MultiTripletNetwork": StackedTriplet,
+           "GNN": StackedGNN}
 
 
 def stacked_model(model, K: int) -> _Stacked:
     """The stacked class of ``model``'s class, for K trials."""
-    if model.model_name not in STACKED:
-        raise NotImplementedError(
-            f"stacked trials of {model.model_name} are not ported to flexynesis_torch yet "
-            "(ROADMAP A item 5)")
     return STACKED[model.model_name](model, K)

@@ -2,9 +2,12 @@
 
 Counterpart of ``flexynesis_tpu/parallel/trials.py`` (``_init_stacked``,
 ``ParallelTrials.run``, ``vmapped_grid_fit``, ``equal_kfold_indices``),
-without the device mesh and the round checkpoint, for DirectPred,
-supervised_vae and CrossModalPred (the stacked class is chosen by the
-template's ``model_name``). The JAX engine vmaps the model's loss over a
+without the device mesh and the round checkpoint, for the five classes (the
+stacked class is chosen by the template's ``model_name``). Batch entries
+under a ``_`` key (the triplet model's ``_full_x``, the GNN's ``_adj``, a
+padded round's ``_aux``) pass whole into every step, as in JAX; the GNN's
+operator needs no passing at initialisation (the port's modules know their
+shapes without a forward, where JAX's ``init`` traces one). The JAX engine vmaps the model's loss over a
 stacked trial axis; here ``parallel/stacked.py`` writes that axis out, so one
 host issue trains K trials: with ``fused_kernels`` every DirectPred block of
 a training step is one launch of kernel B1 for all trials and every block of
@@ -85,11 +88,14 @@ def equal_kfold_indices(n: int, k: int, seed: int = 42):
 
 
 def _gather(data: dict, rows: torch.Tensor) -> dict:
-    """Rows of every leaf of a ``{x: {...}, y: {...}}`` tree: ``rows`` (B,)
-    gives (B, ...) leaves, ``rows`` (K, B) gives (K, B, ...) leaves."""
+    """Rows of every leaf of a batch tree: ``rows`` (B,) gives (B, ...)
+    leaves, ``rows`` (K, B) gives (K, B, ...) leaves; entries under a ``_``
+    key (``_full_x``, ``_adj``, ``_aux``) are whole, as in JAX."""
     flat = rows.reshape(-1)
-    return {k: {n: t.index_select(0, flat).reshape(*rows.shape, *t.shape[1:])
-                for n, t in v.items()} for k, v in data.items()}
+    return {k: v if k.startswith("_") else
+            _gather(v, rows) if isinstance(v, dict) else
+            v.index_select(0, flat).reshape(*rows.shape, *v.shape[1:])
+            for k, v in data.items()}
 
 
 class _Round:

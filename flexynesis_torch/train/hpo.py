@@ -10,9 +10,9 @@ the trained models differ, because the two packages draw initial weights and
 noise from different generators.
 
 ``batch_ask`` suggestions per GP round: one trains as one sequential trial
-(``objective``); several suggestions (DirectPred, supervised_vae,
-CrossModalPred) train at once on the trial engine (``parallel/trials.py``),
-grouped by ``_bucket_by_architecture``:
+(``objective``); several suggestions (of any of the five classes) train at
+once on the trial engine (``parallel/trials.py``), grouped by
+``_bucket_by_architecture``:
 
 * a group of one architecture (only ``lr`` differs) is one stacked program
   (``_run_parallel_group``): ``ParallelTrials`` with SR-bf16 Adam and one
@@ -20,10 +20,16 @@ grouped by ``_bucket_by_architecture``:
 * a group of mixed architectures (the usual case: the default space samples
   latent, hidden factor and supervisor widths) trains padded to its largest
   dims with element masks (``_run_parallel_group_hetero``,
-  ``parallel/hetero.py``), each trial from its own seed. As in JAX, only the
+  ``parallel/hetero.py``), each trial from its own seed; a GNN group also
+  shares its conv count, activation and readout. As in JAX, only the
   classes whose class name is in ``PADDABLE_MODELS`` form such groups:
   supervised_vae's suggestions (class ``SupervisedVAE``) group by
   architecture identity, so a sampled architecture trains alone.
+
+MultiTripletNetwork trains over anchors (samples with a first-target label):
+its splits, folds and batch-size space count anchors (``n_units``). The GNN's
+conv type (``gnn_conv_type``) is fixed for a tuner and reaches every model and
+template it builds (``_model_args``).
 
 With ``use_cv`` the CV_FOLDS folds run on the same engine, as JAX's
 default ``parallel_folds`` runs them: the folds of one suggestion as one
@@ -78,6 +84,7 @@ class HyperparameterTuning:
         device_type: Optional[str] = None,
         seed: int = 42,
         device="auto",
+        gnn_conv_type: Optional[str] = None,
         input_layers: Optional[List[str]] = None,
         output_layers: Optional[List[str]] = None,
         batch_ask: int = 1,
@@ -98,16 +105,12 @@ class HyperparameterTuning:
         self.device_type = device_type
         self.seed = seed
         self.device = device
+        self.gnn_conv_type = gnn_conv_type
         self.input_layers = input_layers
         self.output_layers = output_layers
-        self.n_units = len(dataset)
+        # the triplet model trains over anchors (reference main.py:159-162)
+        self.n_units = model_class.n_units(dataset, target_variables)
         self.batch_ask = max(int(batch_ask), 1)
-        if ((self.batch_ask > 1 or use_cv)
-                and model_class.model_name not in self.BATCHED_MODELS):
-            raise NotImplementedError(
-                f"batched and cross-validated rounds of {model_class.__name__} need its "
-                "stacked trials, not ported to flexynesis_torch yet (ROADMAP A item 5)"
-            )
         self.pipeline_ask = bool(pipeline_ask)
         self._host_work = None
         # templates and trial engines reused across GP rounds (the dataset
@@ -146,14 +149,12 @@ class HyperparameterTuning:
             "device_type": self.device_type,
             "device": self.device,
         }
+        if self.model_class.__name__ == "GNN":
+            args["gnn_conv_type"] = self.gnn_conv_type
         if self.model_class.__name__ == "CrossModalPred":
             args["input_layers"] = self.input_layers
             args["output_layers"] = self.output_layers
         return args
-
-    # the model classes (``model_name``) whose suggestions train on the trial
-    # engine here
-    BATCHED_MODELS = ("DirectPred", "supervised_vae", "CrossModalPred")
 
     def objective(self, params: dict, full_train: bool = False):
         """Train with ``params``; returns (val_loss, epochs_run, model), the

@@ -98,8 +98,12 @@ class ClippedAdam:
 
 
 def gather(data: dict, idx: torch.Tensor) -> dict:
-    """Rows ``idx`` of every leaf of a ``{x: {...}, y: {...}}`` batch tree."""
-    return {k: {n: t.index_select(0, idx) for n, t in v.items()} for k, v in data.items()}
+    """Rows ``idx`` of every leaf of a batch tree (``{x: {...}, y: {...}}``,
+    the triplet model's anchor tensors); entries under a ``_`` key (the
+    GNN's ``_adj``, the triplet model's ``_full_x``) are whole, as in JAX."""
+    return {k: v if k.startswith("_") else
+            gather(v, idx) if isinstance(v, dict) else v.index_select(0, idx)
+            for k, v in data.items()}
 
 
 class Trainer:
@@ -143,7 +147,7 @@ class Trainer:
         the last state otherwise. The per-epoch permutations come from a CPU
         ``torch.Generator`` seeded with ``seed``, the dropout masks from one on
         the module's device, so a seed gives the same batches on every device."""
-        device = next(iter(train_data["x"].values())).device
+        device = next(self.module.parameters()).device
         batch_size = min(batch_size, n_samples)
         n_batches = max(n_samples // batch_size, 1)
         perm_gen = torch.Generator().manual_seed(seed)

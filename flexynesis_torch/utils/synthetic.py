@@ -6,6 +6,11 @@ labels as the JAX package, written in the same folder layout
 (``train/`` and ``test/`` with ``{layer}.csv`` as features x samples and
 ``clin.csv`` as samples x variables). Latent clusters drive both the omic
 matrices and the labels, so a model can learn from the data.
+
+``gene_names=True`` names every layer's rows ``g0, g1, ...`` (the layers
+share gene names, as a GNN's folder does, in place of ``{layer}_f{j}``);
+``write_user_graph`` writes a GeneA/GeneB/Score network over such names: a
+ring plus random edges per gene.
 """
 
 from __future__ import annotations
@@ -70,6 +75,7 @@ def write_synthetic_folder(
     n_classes: int = 3,
     seed: int = 0,
     survival: bool = True,
+    gene_names: bool = False,
 ) -> List[str]:
     """Write the synthetic dataset as train/ + test/ CSV folders; returns layers."""
     sample_ids, mats, clin = make_synthetic_arrays(
@@ -85,7 +91,8 @@ def write_synthetic_folder(
                 writer = csv.writer(fh, lineterminator="\n")
                 writer.writerow(["", *ids])
                 for j, col in enumerate(X[sl].T):
-                    writer.writerow([f"{layer}_f{j}", *(format_cell(v) for v in col)])
+                    name = f"g{j}" if gene_names else f"{layer}_f{j}"
+                    writer.writerow([name, *(format_cell(v) for v in col)])
         with open(os.path.join(path, split, "clin.csv"), "w", newline="") as fh:
             writer = csv.writer(fh, lineterminator="\n")
             writer.writerow(["", *clin])
@@ -94,3 +101,19 @@ def write_synthetic_folder(
                     [sample_ids[i], *(format_cell(v[i]) for v in clin.values())]
                 )
     return list(mats)
+
+
+def write_user_graph(path: str, n_genes: int) -> int:
+    """A GeneA,GeneB,Score CSV over genes g0..g{n_genes-1}: the ring
+    g_i -> g_{i+1} plus two random partners per gene (seed 0), scores
+    uniform in [0.4, 1); returns the edge count."""
+    rng = np.random.default_rng(0)
+    src = np.concatenate([np.arange(n_genes), np.repeat(np.arange(n_genes), 2)])
+    dst = np.concatenate([(np.arange(n_genes) + 1) % n_genes,
+                          rng.integers(0, n_genes, n_genes * 2)])
+    score = rng.uniform(0.4, 1.0, len(src))
+    with open(path, "w", newline="") as fh:
+        writer = csv.writer(fh, lineterminator="\n")
+        writer.writerow(["GeneA", "GeneB", "Score"])
+        writer.writerows((f"g{a}", f"g{b}", f"{w:.4f}") for a, b, w in zip(src, dst, score))
+    return len(src)

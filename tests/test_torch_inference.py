@@ -274,6 +274,7 @@ def test_unported_paths_raise(trained, tmp_path):
     config["model_class"] = "GNN"
     gnn_config = tmp_path / "gnn.final_model_config.json"
     gnn_config.write_text(json.dumps(config))
-    with pytest.raises(NotImplementedError, match="GNN"):
+    # a GNN rebuilds its node tensor from the graph its weights embed
+    with pytest.raises(ValueError, match="interaction graph"):
         inference.reconstruct_model(trained["weights"], str(gnn_config),
                                     trained["artifacts"], device="cpu")

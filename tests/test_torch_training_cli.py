@@ -7,7 +7,10 @@
 * the options that are not ported yet raise ``NotImplementedError``
   (``--use_cv`` and the VAE classes' ``--hpo_batch 4`` run since their trial
   engine was ported: ``tests/test_torch_cv.py`` and
-  ``tests/test_torch_vae_trials.py`` run them through the CLI).
+  ``tests/test_torch_vae_trials.py`` run them through the CLI; the
+  MultiTripletNetwork and GNN classes train since they were ported:
+  ``tests/test_torch_zoo_cli.py`` runs them);
+* a GNN run refuses early fusion and covariates as the JAX CLI does.
 
 Tolerance for the two inference CLIs: rtol=1e-4, atol=1e-5 (f32)."""
 
@@ -97,13 +100,11 @@ def test_port_trained_model_serves_in_the_jax_cli(folder, trained):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--model_class", "GNN"], "A.12"),
     (["--covariates", "age", "--model_class", "supervised_vae"], "A.11"),
     (["--hpo_checkpoint", "ck.json"], "item 9"),
     (["--finetuning_samples", "5"], "A.12"),
     (["--evaluate_baseline_performance"], "item 13"),
     (["--profile"], "item 13"),
-    (["--model_class", "MultiTripletNetwork"], "A.12"),
     (["--model_class", "RandomForest"], "item 13"),
     (["--covariates", "age"], "A.11"),
     (["--fusion_type", "early"], "A.11"),
@@ -112,6 +113,19 @@ def test_not_ported_options_raise(folder, tmp_path, extra, item):
     args = train_args(folder, tmp_path / "out") + extra
     with pytest.raises(NotImplementedError, match=item):
         main(args)
+
+
+@pytest.mark.parametrize("extra,message", [
+    (["--fusion_type", "early"], "--fusion_type early is not applicable to GNN"),
+    (["--covariates", "age"], "--covariates are not supported for GNN models"),
+])
+def test_gnn_refuses_what_the_jax_cli_refuses(folder, tmp_path, capsys, extra, message):
+    args = train_args(folder, tmp_path / "out") + ["--model_class", "GNN", "--user_graph",
+                                                   str(tmp_path / "graph.csv"), *extra]
+    for entry in (main, jax_main):
+        with pytest.raises(SystemExit):
+            entry(args)
+        assert message in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("drop", ["--safetensors", "--disable_marker_finding"])
