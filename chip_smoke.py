@@ -137,7 +137,25 @@ Phases (any failure exits nonzero):
    mixed round of the default space (buckets by ``num_convs``), and STRING
    scale at 10,000 nodes at the model level (``gnn_sparse: "auto"`` takes
    the edge list; steps and the eval forward card against CPU; dense
-   against sparse there).
+   against sparse there);
+11. fine-tuning, covariates and early fusion, and ``--hpo_checkpoint`` (after
+   phase 10, on phase 5's folder): B1 and B2 against their plain versions at
+   the covariate encoder (F = H = 2), the early-fusion encoder (gex, cnv and
+   age: F = 3001, H = 900) at 64 and 400 rows, and the fine-tuning grid's
+   K = 45 trials with x per trial (32-row steps, 20-row validations) at the
+   headline gex block, the early-fusion encoder, the head and the covariate
+   block (one launch per call, two calls bit for bit); a fused DirectPred at
+   the headline width through the training CLI with ``--covariates age
+   --fusion_type early --finetuning_samples 100``: B1 and B2 launches grow
+   with the grid's steps and validations, not with its 45 trials, every leaf
+   of a frozen subtree is bit-identical after the final fit (and after a fit
+   with each freeze configuration), and the fine-tuned model serves alike on
+   the card and on the CPU; the same fine-tuning in inference mode, whose
+   saved model serves alike too; three grid steps of K = 45 on the card
+   against the CPU, and the grid step's time; a same-architecture round of
+   16 suggestions with ``--hpo_checkpoint`` in a subprocess, killed once its
+   round checkpoint appears and rerun: the rerun prints the resume line and
+   tells the GP the same 16 losses, bit for bit, as an uninterrupted run.
 
 (The port groups supervised_vae suggestions by architecture identity, as
 the JAX tuner does: its class name ``SupervisedVAE`` is not the
@@ -549,15 +567,16 @@ def _trial_inputs(K, B, F, H, per_trial, seed, eval_mode):
     return (x, w, b, gamma, be, rm, rv)
 
 
-def check_trial_kernels():
+def check_trial_kernels(cases=None):
     """B1 and B2 with a trial axis against their plain versions: B1 at the
     three blocks of a 16-trial DirectPred training step (x shared and x per
     trial), B2 at the three blocks of a 16-trial validation of 400 rows (x
     shared), K = 1 (the same bits as the call without the axis) and a ragged
-    K = 3; within TOL, two calls bit for bit, one launch per stacked call (two
-    above 64 rows for B1), B1's gradients against autograd through the plain
-    version. Prints CUDA-event, device and host-issue times per stacked call
-    and the bound; returns per-shape rows."""
+    K = 3, or at ``cases`` ((kernel, label, K, B, F, H, x per trial)); within
+    TOL, two calls bit for bit, one launch per stacked call (two above 64
+    rows for B1), B1's gradients against autograd through the plain version
+    at the 16-trial training blocks. Prints CUDA-event, device and host-issue
+    times per stacked call and the bound; returns per-shape rows."""
     import torch
     from flexynesis_torch.kernels.fused_linear import (
         ROW_TILE,
@@ -575,17 +594,18 @@ def check_trial_kernels():
     blocks = [("encoder_gex", GEX, h_gex), ("encoder_cnv", CNV, h_cnv),
               ("head_subtype", LATENT, SUP_HIDDEN)]
     val_rows = int(math.ceil(FIT_TRAIN * VAL_SIZE))
-    cases = []  # (kernel, label, K, B, F, H, x per trial)
-    for name, F, H in blocks:
-        cases += [("B1", f"{name}_shared_x", TRIALS, BATCH, F, H, False),
-                  ("B1", f"{name}_x_per_trial", TRIALS, BATCH, F, H, True)]
-    cases += [("B1", "k1_encoder_gex", 1, BATCH, GEX, h_gex, False),
-              ("B1", "k3_ragged", 3, 37, 129, 67, True),
-              ("B1", "k3_ragged_b130", 3, 130, 129, 67, False)]
-    cases += [("B2", f"{name}_val{val_rows}", TRIALS, val_rows, F, H, False)
-              for name, F, H in blocks]
-    cases += [("B2", "k1_encoder_gex", 1, val_rows, GEX, h_gex, False),
-              ("B2", "k3_ragged", 3, 37, 129, 67, True)]
+    if cases is None:
+        cases = []  # (kernel, label, K, B, F, H, x per trial)
+        for name, F, H in blocks:
+            cases += [("B1", f"{name}_shared_x", TRIALS, BATCH, F, H, False),
+                      ("B1", f"{name}_x_per_trial", TRIALS, BATCH, F, H, True)]
+        cases += [("B1", "k1_encoder_gex", 1, BATCH, GEX, h_gex, False),
+                  ("B1", "k3_ragged", 3, 37, 129, 67, True),
+                  ("B1", "k3_ragged_b130", 3, 130, 129, 67, False)]
+        cases += [("B2", f"{name}_val{val_rows}", TRIALS, val_rows, F, H, False)
+                  for name, F, H in blocks]
+        cases += [("B2", "k1_encoder_gex", 1, val_rows, GEX, h_gex, False),
+                  ("B2", "k3_ragged", 3, 37, 129, 67, True)]
     rows = []
     for kind, label, K, B, F, H, per_trial in cases:
         args = _trial_inputs(K, B, F, H, per_trial, K * 7 + B * 5 + F * 3 + H, kind == "B2")
@@ -3457,6 +3477,375 @@ def gnn(workdir: Path, importer_cache: ImportOnce) -> tuple:
                          "string_cli": string_s, "string_scale": scale}
 
 
+# phase 11: fine-tuning, covariates and early fusion, --hpo_checkpoint
+FT_SAMPLES = 100  # --finetuning_samples: 5 folds of 80 training and 20 validation rows
+FT_FOLDS, FT_CELLS = 5, 9  # 3 lrs x 3 freeze configurations
+FT_K = FT_CELLS * FT_FOLDS  # the grid's trials
+FT_BATCH = 32  # the grid's steps: min(32, 80 training rows)
+FT_VAL = FT_SAMPLES // FT_FOLDS
+FUSED_F = GEX + CNV + 1  # the early-fusion encoder: gex, cnv and age
+FUSED_H = int(FUSED_F * HIDDEN_FACTOR)
+FT_BLOCKS = 2  # the early-fusion encoder and the head
+FT_ARGS = ("--covariates", "age", "--fusion_type", "early",
+           "--finetuning_samples", str(FT_SAMPLES))
+CKPT_EPOCH = 5  # the round checkpoint's cadence (ParallelTrials' epochs_per_eval)
+
+
+def check_finetune_kernels():
+    """B1 and B2 against their plain versions at phase 11's shapes: the
+    covariate encoder (F = H = 2, 4-byte copies) and the early-fusion encoder
+    (gex, cnv and age: F = 3001, H = 900) at the 64-row batch and the
+    400-row validation; then the fine-tuning grid's K = 45 trials with x per
+    trial (each fold its rows: 32-row steps, 20-row validations) at the
+    headline gex block, the early-fusion encoder, the head and the covariate
+    block. Returns (B1 rows, B2 rows, trial rows)."""
+    h_gex = int(GEX * HIDDEN_FACTOR)
+    shapes = [("covariate_encoder", (BATCH, 2, 2)), ("covariate_encoder_n400", (400, 2, 2)),
+              ("early_fusion_encoder", (BATCH, FUSED_F, FUSED_H)),
+              ("early_fusion_encoder_n400", (400, FUSED_F, FUSED_H))]
+    b1_rows = check_b1(shapes, [])
+    b2_rows = check_kernel(shapes)
+    cases = [("B1", "grid_gex_x_per_trial", FT_K, FT_BATCH, GEX, h_gex, True),
+             ("B1", "grid_all_x_per_trial", FT_K, FT_BATCH, FUSED_F, FUSED_H, True),
+             ("B1", "grid_head_x_per_trial", FT_K, FT_BATCH, LATENT, SUP_HIDDEN, True),
+             ("B1", "grid_covariates_x_per_trial", FT_K, FT_BATCH, 2, 2, True),
+             ("B2", f"grid_gex_val{FT_VAL}", FT_K, FT_VAL, GEX, h_gex, True),
+             ("B2", f"grid_all_val{FT_VAL}", FT_K, FT_VAL, FUSED_F, FUSED_H, True),
+             ("B2", f"grid_head_val{FT_VAL}", FT_K, FT_VAL, LATENT, SUP_HIDDEN, True)]
+    return b1_rows, b2_rows, check_trial_kernels(cases)
+
+
+class FineTuneWatch:
+    """Records, while active, each fine-tuning grid's results
+    (``vmapped_grid_fit``), each ``FineTuner`` and each final fit's start and
+    fitted states with its freeze configuration."""
+
+    def __enter__(self):
+        from flexynesis_torch.parallel import trials
+        from flexynesis_torch.train import finetune
+
+        self.trials, self.finetune = trials, finetune
+        self.grid_fit, self.fit_once = trials.vmapped_grid_fit, finetune.FineTuner._fit_once
+        self.run = finetune.FineTuner.run_experiments
+        self.grids, self.tuners, self.finals = [], [], []
+        watch = self
+
+        def grid_fit(*a, **kw):
+            watch.grids.append(watch.grid_fit(*a, **kw))
+            return watch.grids[-1]
+
+        def fit_once(tuner, lr, freeze, train_idx, val_idx, max_epochs=None):
+            start = {n: t.clone() for n, t in tuner.model.module.state_dict().items()}
+            out = watch.fit_once(tuner, lr, freeze, train_idx, val_idx, max_epochs)
+            if val_idx is None:
+                watch.finals.append((freeze, start, out[1]))
+            return out
+
+        def run(tuner, *a, **kw):
+            watch.tuners.append(tuner)
+            return watch.run(tuner, *a, **kw)
+
+        trials.vmapped_grid_fit = grid_fit
+        finetune.FineTuner._fit_once = fit_once
+        finetune.FineTuner.run_experiments = run
+        return self
+
+    def __exit__(self, *exc):
+        self.trials.vmapped_grid_fit = self.grid_fit
+        self.finetune.FineTuner._fit_once = self.fit_once
+        self.finetune.FineTuner.run_experiments = self.run
+
+
+def check_frozen(freeze, start: dict, fitted: dict, what: str) -> int:
+    """Every leaf of a frozen subtree bit-identical after a fit, and some
+    trainable leaf moved; returns the number of frozen leaves."""
+    from flexynesis_torch.train.finetune import _make_mask_fn
+
+    trainable = _make_mask_fn(freeze)
+    params = [n for n in start if not n.endswith(("running_mean", "running_var",
+                                                  "num_batches_tracked"))]
+    frozen = [n for n in params if not trainable(n.split(".")[0])]
+    moved = [n for n in frozen if not torch_equal(start[n], fitted[n])]
+    if moved:
+        fail(f"{what}: frozen leaves changed in the fit: {moved[:5]}")
+    if not any(not torch_equal(start[n], fitted[n]) for n in params if n not in frozen):
+        fail(f"{what}: no trainable leaf moved in the fit")
+    return len(frozen)
+
+
+def torch_equal(a, b) -> bool:
+    import torch
+
+    return bool(torch.equal(a.cpu(), b.cpu()))
+
+
+def finetune_launches(watch: FineTuneWatch, k: int = -1):
+    """(B1, B2) launches of the ``k``-th fine-tuning of ``watch``: one per
+    block of every grid step for all 45 trials, and of every grid
+    validation; one per block of every step of the final fit."""
+    out = watch.grids[k]
+    tuner = watch.tuners[k]
+    final_epochs = tuner.final_choice[2]
+    grid_steps = out["epochs_run"] * ((FT_SAMPLES - FT_VAL) // FT_BATCH)
+    final_steps = final_epochs * (FT_SAMPLES // FT_BATCH)
+    return FT_BLOCKS * (grid_steps + final_steps), FT_BLOCKS * out["epochs_run"], grid_steps
+
+
+def check_grid_steps(out: Path, cohort):
+    """Three stacked steps of the 45-trial fine-tuning grid (f32 parameters
+    and bfloat16 moments, the masks of the three freeze configurations, x per
+    trial from the folds, dropout 0) from the fine-tuned model saved in
+    ``out``, on the card and on the CPU: losses rtol 1e-4, states rtol/atol
+    1e-4 (the shift-only entries within their bound); frozen leaves unchanged
+    on the card. Returns the card's median step time in ms (synchronised)."""
+    import numpy as np
+    import torch
+    from flexynesis_torch.inference import reconstruct_model
+    from flexynesis_torch.parallel.stacked import stacked_model
+    from flexynesis_torch.parallel.trials import _Round, _gather, equal_kfold_indices
+    from flexynesis_torch.train.finetune import FREEZE_CONFIGS, trial_masks
+
+    saved = [str(out / f"fit.{name}") for name in ("final_model.safetensors",
+                                                    "final_model_config.json", "artifacts.json")]
+    lr0 = float(reconstruct_model(*saved, device="cpu").config["lr"])
+    lrs = np.repeat([lr0 * f for f in (1, 0.1, 0.01) for _ in FREEZE_CONFIGS], FT_FOLDS)
+    freezes = [f for _ in range(3) for f in FREEZE_CONFIGS for _ in range(FT_FOLDS)]
+    rows = np.random.default_rng(42).choice(len(cohort), FT_SAMPLES, replace=False)
+    ft = cohort.subset(rows)
+    fold_train, _ = equal_kfold_indices(FT_SAMPLES, FT_FOLDS, seed=42)
+    tiled = np.tile(fold_train, (FT_CELLS, 1))  # (45, 80): each trial its fold's rows
+    n_tr = tiled.shape[1]
+    table = np.stack([tiled[:, a:a + FT_BATCH] for a in (0, FT_BATCH, n_tr - FT_BATCH)], 1)
+    runs = {}
+    for device in (DEVICE, "cpu"):
+        m = _no_dropout(reconstruct_model(*saved, device=device))
+        state = {n: t.detach().cpu().clone() for n, t in m.module.state_dict().items()}
+        stacked = stacked_model(m, FT_K)
+        params, buffers = stacked.stack([{n: t.to(device) for n, t in state.items()}] * FT_K)
+        r = _Round(m, params, buffers, lrs=lrs, seeds=np.arange(42, 42 + FT_K),
+                   masks=trial_masks(stacked, freezes, device), param_dtype="float32",
+                   moment_dtype="bfloat16")
+        data = m.make_batch(ft)
+        steps = [torch.from_numpy(np.ascontiguousarray(table[:, s])).to(device)
+                 for s in range(3)]
+        losses = torch.stack([r.step(_gather(data, idx)).cpu() for idx in steps])
+        runs[device] = (losses, [stacked.trial_state(r.params, r.buffers, k)
+                                 for k in range(FT_K)], r, data, steps)
+    (card_losses, card_states, r, data, steps), (cpu_losses, cpu_states, *_) = \
+        runs[DEVICE], runs["cpu"]
+    if not torch.allclose(card_losses, cpu_losses, rtol=1e-4, atol=0):
+        fail(f"finetune: grid steps on the card {card_losses.tolist()} differ from the CPU's "
+             f"{cpu_losses.tolist()} (rtol 1e-4)")
+    err, share = map(max, zip(*(
+        _state_err(card_states[k], cpu_states[k], float(lrs[k]), 3,
+                   f"finetune grid trial {k} card against cpu") for k in range(FT_K))))
+    frozen = sum(check_frozen(freezes[k], state, card_states[k], f"finetune grid trial {k}")
+                 for k in range(FT_K) if freezes[k] != FREEZE_CONFIGS[2])
+    times = []
+    for i in range(33):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r.step(_gather(data, steps[i % 3]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    step_ms = statistics.median(times[3:]) * 1e3
+    print(f"finetune: 3 grid steps of K={FT_K} (x per trial, f32 parameters, bf16 moments) "
+          f"card vs cpu: losses max rel diff "
+          f"{float(((card_losses - cpu_losses) / cpu_losses).abs().max()):.3e}, states max abs "
+          f"diff {err:.3e} (rtol/atol 1e-4; shift-only entries at most {share:.3f} of their "
+          f"bounds); {frozen} frozen leaves unchanged over the trials; grid step on the card "
+          f"median of 30: {step_ms:.3f} ms", flush=True)
+    return step_ms
+
+
+def hpo_checkpoint_resume(workdir: Path) -> dict:
+    """``--hpo_checkpoint`` through the training CLI in subprocesses, a
+    same-architecture round of TRIALS suggestions on phase 5's folder: one
+    run killed (SIGTERM) once the round's checkpoint appears, its rerun, and
+    an uninterrupted run. The rerun must print the resume line, and the GP
+    must be told the same TRIALS losses (each trial's best validation loss),
+    bit for bit, as in the uninterrupted run. Returns the seconds of each."""
+    import glob
+    import os
+    import signal
+    import subprocess
+
+    config = workdir / "ckpt_hpo.yaml"
+    config.write_text(TRIAL_CONFIG % (LATENT, HIDDEN_FACTOR, SUP_HIDDEN, FIT_EPOCHS, BATCH))
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+
+    def command(name):
+        args = train_args(workdir / "fit_data", config, workdir / f"{name}_out", DEVICE)
+        args[args.index("--hpo_iter") + 1] = str(TRIALS)
+        state = workdir / f"{name}.json"
+        return [sys.executable, "-m", "flexynesis_torch", *args, "--hpo_batch", str(TRIALS),
+                "--hpo_checkpoint", str(state)], state
+
+    seconds = {}
+    cmd, state = command("ckpt_killed")
+    t = time.perf_counter()
+    with open(workdir / "ckpt_killed.log", "w") as log:
+        proc = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=log, stderr=subprocess.STDOUT)
+        try:
+            pattern = f"{state}.round-*/round.safetensors"
+            while proc.poll() is None and not glob.glob(pattern):
+                time.sleep(0.02)
+            if proc.poll() is not None:
+                fail("hpo_checkpoint: the run ended before its round saved a checkpoint; see "
+                     f"{workdir / 'ckpt_killed.log'}")
+            proc.send_signal(signal.SIGTERM)
+            proc.wait(timeout=60)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    seconds["killed"] = time.perf_counter() - t
+    if state.exists() or not glob.glob(pattern):
+        fail("hpo_checkpoint: the killed run should leave the round checkpoint and no tell")
+    runs = {}
+    for name, cmd_state in (("resumed", (cmd, state)), ("uninterrupted",
+                                                        command("ckpt_uninterrupted"))):
+        t = time.perf_counter()
+        done = subprocess.run(cmd_state[0], cwd=REPO, env=env, capture_output=True, text=True,
+                              timeout=600)
+        seconds[name] = time.perf_counter() - t
+        (workdir / f"ckpt_{name}.log").write_text(done.stdout + done.stderr)
+        if done.returncode != 0:
+            fail(f"hpo_checkpoint: the {name} run returned {done.returncode}: "
+                 f"{done.stderr[-2000:]}")
+        runs[name] = (done.stdout, json.loads(cmd_state[1].read_text()))
+    resumed_log, resumed = runs["resumed"]
+    line = f"Resumed trial round from epoch {CKPT_EPOCH}"
+    if line not in resumed_log:
+        fail(f"hpo_checkpoint: the rerun did not print '{line}'")
+    if glob.glob(pattern):
+        fail("hpo_checkpoint: the finished round left its checkpoint behind")
+    got, want = resumed["optimizer"]["y"], runs["uninterrupted"][1]["optimizer"]["y"]
+    if len(got) != TRIALS or got != want:
+        fail(f"hpo_checkpoint: the resumed round's losses {got} differ from the "
+             f"uninterrupted run's {want}")
+    print(f"hpo_checkpoint: killed after the epoch-{CKPT_EPOCH} round checkpoint, rerun "
+          f"printed '{line}'; its {TRIALS} best validation losses equal the uninterrupted "
+          f"run's bit for bit (best {min(got)!r}); seconds "
+          + json.dumps({k: round(v, 2) for k, v in seconds.items()}), flush=True)
+    return seconds
+
+
+def finetune_phase(workdir: Path, importer_cache: "ImportOnce"):
+    """Phase 11 on phase 5's folder: a fused DirectPred trained with
+    ``--covariates age --fusion_type early --finetuning_samples 100`` through
+    the training CLI (B1 and B2 launches counted: per block and step, not per
+    trial; frozen leaves of the final fit bit-identical, and of fits with each
+    freeze configuration), served alike on the card and the CPU; the same
+    fine-tuning in inference mode; three grid steps card against CPU; the
+    killed and resumed ``--hpo_checkpoint`` round. Returns the launches and
+    the summary."""
+    import numpy as np
+    import torch
+    from flexynesis_torch.__main__ import main as cli, parse_args, run_training
+    from flexynesis_torch.data.inference_importer import DataImporterInference
+    from flexynesis_torch.kernels.fused_linear import (
+        fused_linear_bn_relu as b1,
+        fused_linear_bn_relu_eval as b2,
+    )
+    from flexynesis_torch.kernels.mmd import gaussian_kernel_mean as b3
+    from flexynesis_torch.train.finetune import FREEZE_CONFIGS
+
+    data = workdir / "fit_data"
+    config = workdir / "ft_hpo.yaml"
+    config.write_text(HPO_CONFIG % ("DirectPred", LATENT, HIDDEN_FACTOR, SUP_HIDDEN,
+                                    FIT_EPOCHS, BATCH))
+    out = workdir / "ft_out"
+    torch.cuda.reset_peak_memory_stats()
+    b1.launches = b2.launches = b3.launches = 0
+    with importer_cache, FineTuneWatch() as watch:
+        model = run_training(*parse_args([*train_args(data, config, out, DEVICE), *FT_ARGS]))
+    launches = (b1.launches, b2.launches, b3.launches)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    if model.layers != ["all"] or model.input_dims != [FUSED_F]:
+        fail(f"finetune: early fusion gave layers {model.layers} of {model.input_dims}")
+    if model.module.encoder_all.layer_1_kernel.shape[1] != FUSED_H:
+        fail("finetune: the early-fusion encoder's hidden width is not "
+             f"{FUSED_H}")
+    res = model.train_result
+    n_fit = FIT_TRAIN - int(math.ceil(FIT_TRAIN * VAL_SIZE))
+    ft_b1, ft_b2, grid_steps = finetune_launches(watch)
+    want = (FT_BLOCKS * res.epochs_run * (n_fit // BATCH) + ft_b1,
+            FT_BLOCKS * (res.epochs_run + EVAL_FORWARDS) + ft_b2, 0)
+    if launches != want:
+        fail(f"finetune: training launches (B1, B2) = {launches}, expected {want}: "
+             f"{FT_BLOCKS} per step and validation, the grid's {FT_K} trials in one")
+    lr, freeze, final_epochs = watch.tuners[-1].final_choice
+    freeze_name = FREEZE_CONFIGS.index(freeze)
+    final_frozen = check_frozen(freeze, *watch.finals[-1][1:], "finetune: the final fit") \
+        if freeze != FREEZE_CONFIGS[2] else 0
+    tuner = watch.tuners[-1]
+    frozen_fits = []
+    for cfg in FREEZE_CONFIGS[:2]:  # each freeze configuration freezes for real
+        start = {n: t.clone() for n, t in model.module.state_dict().items()}
+        _, fitted, _ = tuner._fit_once(lr, cfg, np.arange(FT_SAMPLES), None, max_epochs=2)
+        frozen_fits.append(check_frozen(cfg, start, fitted, f"finetune: a fit with freeze {cfg}"))
+    print(f"finetune: training CLI with {' '.join(FT_ARGS)} on {DEVICE}: the grid ran "
+          f"{watch.grids[-1]['epochs_run']} epochs ({grid_steps} stacked steps of {FT_K} "
+          f"trials); chose lr {lr:.3g}, freeze config {freeze_name} {freeze}, {final_epochs} "
+          f"final epochs ({final_frozen} frozen leaves bit-identical after the final fit; "
+          f"{frozen_fits} after 2-epoch fits with freeze configs 0 and 1); "
+          f"launches B1 {launches[0]}, B2 {launches[1]}, B3 {launches[2]} (as expected: "
+          f"{FT_BLOCKS} per step and validation, one for all {FT_K} trials); CLI phases "
+          "(host clock, s): "
+          + json.dumps({k: round(v, 4) for k, v in model.cli_phases.items()})
+          + f"; peak allocated on the card {peak_gib:.3f} GiB", flush=True)
+
+    # the fine-tuned model serves alike on the card and on the CPU
+    art = out / "fit.artifacts.json"
+    classes = len(json.loads(art.read_text())["label_encoders"]["subtype"]["categories"][0])
+    for device in (DEVICE, "cpu"):
+        if cli(["--pretrained_model", str(out / "fit.final_model.safetensors"),
+                "--artifacts", str(art), "--data_path_test", str(data / "test"),
+                "--outdir", str(workdir / f"ft_served_{device}"), "--prefix", "smoke",
+                "--disable_marker_finding", "--device", device]) != 0:
+            fail(f"finetune: serving the fine-tuned model on {device} returned nonzero")
+    compare_outputs(workdir / f"ft_served_{DEVICE}", workdir / "ft_served_cpu", FIT_TEST,
+                    classes, "finetune: the fine-tuned model served")
+
+    # inference mode: fine-tune the saved model on test samples, then serve it
+    b1.launches = b2.launches = b3.launches = 0
+    t = time.perf_counter()
+    with FineTuneWatch() as infer_watch:
+        if cli(["--pretrained_model", str(out / "fit.final_model.safetensors"),
+                "--artifacts", str(art), "--data_path_test", str(data / "test"),
+                "--outdir", str(workdir / "ft_infer"), "--prefix", "smoke",
+                "--disable_marker_finding", "--device", DEVICE,
+                "--finetuning_samples", str(FT_SAMPLES)]) != 0:
+            fail("finetune: inference mode with --finetuning_samples returned nonzero")
+    infer_s = time.perf_counter() - t
+    infer_launches = (b1.launches, b2.launches, b3.launches)
+    i_b1, i_b2, _ = finetune_launches(infer_watch)
+    if infer_launches != (i_b1, i_b2 + FT_BLOCKS * 2, 0):  # transform and predict first
+        fail(f"finetune: inference-mode launches {infer_launches}, expected "
+             f"{(i_b1, i_b2 + FT_BLOCKS * 2, 0)}")
+    weights = workdir / "ft_infer" / "smoke.final_model.safetensors"
+    for device in (DEVICE, "cpu"):
+        if cli(["--pretrained_model", str(weights), "--artifacts", str(art),
+                "--data_path_test", str(data / "test"),
+                "--outdir", str(workdir / f"ft_infer_served_{device}"), "--prefix", "smoke",
+                "--disable_marker_finding", "--device", device]) != 0:
+            fail(f"finetune: serving the inference-mode fine-tuned model on {device} failed")
+    compare_outputs(workdir / f"ft_infer_served_{DEVICE}", workdir / "ft_infer_served_cpu",
+                    FIT_TEST, classes, "finetune: the inference-mode fine-tuned model served")
+    print(f"finetune: inference mode with --finetuning_samples {FT_SAMPLES}: {infer_s:.2f} s, "
+          f"launches B1 {infer_launches[0]}, B2 {infer_launches[1]}, B3 {infer_launches[2]}",
+          flush=True)
+
+    cohort = DataImporterInference(str(data / "test"), str(art), verbose=False).import_data()
+    step_ms = check_grid_steps(out, cohort)
+    ckpt_s = hpo_checkpoint_resume(workdir)
+    summary = {"grid_step_ms": step_ms, "finetuning_s": model.cli_phases["finetuning"],
+               "inference_finetuning_cli_s": infer_s, "peak_allocated_gib": peak_gib,
+               "grid_epochs": watch.grids[-1]["epochs_run"], "hpo_checkpoint_s": ckpt_s}
+    return {"finetune_training": launches, "finetune_inference": infer_launches}, summary
+
+
 def build_all(names):
     """Build the kernels' libraries and the CSV reader's, one compiler per
     source (nvcc, or g++ for the reader), started together."""
@@ -3507,6 +3896,22 @@ def b3_trial_entry(rows):
             "per_call": [{k: r[k] for k in ("label", "shape", "per_trial", "ms", "device_ms",
                                              "host_ms", "plain_ms", "bound_ms", "bound_by",
                                              "max_abs_err")} for r in rows]}
+
+
+def grid_entry(rows, kind: str):
+    """The fine-tuning grid's trial axis in the kernels line: one stacked
+    step (B1) or validation (B2) of FT_K trials over the early-fusion path's
+    two blocks, x per trial."""
+    path = [r for r in rows if r["kernel"] == kind and r["K"] == FT_K
+            and ("grid_all" in r["label"] or "grid_head" in r["label"])]
+    bms, by = bound_ms(sum(r["ops_ms"] for r in path), sum(r["bytes"] for r in path))
+    return {"K": FT_K, "launches_per_pass": sum(r["launches"] for r in path),
+            "ms": sum(r["ms"] for r in path),
+            "device_ms": (None if any(r["device_ms"] is None for r in path)
+                          else sum(r["device_ms"] for r in path)),
+            "host_ms": sum(r["host_ms"] for r in path),
+            "plain_ms": sum(r["plain_ms"] for r in path), "bound_ms": bms, "bound_by": by,
+            "shapes": [[r["K"], r["B"], r["F"], r["H"]] for r in path]}
 
 
 def kernel_entry(name, source, replaces, rows, path_rows, launches, by_path, per_path=1,
@@ -3628,35 +4033,45 @@ def main() -> int:
     triplet_launches, triplet_summary = triplet(workdir, importer_cache, cohort)
     gnn_launches, gnn_summary = gnn(workdir, importer_cache)
     zoo = {**triplet_launches, **gnn_launches}
+    ft_b1_rows, ft_b2_rows, ft_trial_rows = check_finetune_kernels()
+    ft_launches, ft_summary = finetune_phase(workdir, importer_cache)
+    trial_rows += ft_trial_rows
 
     trial_b1 = [r for r in trial_rows if r["kernel"] == "B1"]
     trial_b2 = [r for r in trial_rows if r["kernel"] == "B2"]
     trial_b3 = [r for r in trial_rows if r["kernel"] == "B3"]
     entries = [
         kernel_entry("fused_linear_bn_relu", "flexynesis_torch/csrc/fused_linear_train.cu",
-                     "flexynesis_tpu/ops/pallas/fused_linear.py:115", b1_rows + trial_b1,
+                     "flexynesis_tpu/ops/pallas/fused_linear.py:115",
+                     b1_rows + ft_b1_rows + trial_b1,
                      b1_rows[:len(train_shapes)],  # one training forward
                      train_b1, {"training": train_b1,
                                 **{k: v[0] for k, v in {**hpo_launches, **vae_launches}.items()},
                                 "default_directpred_markers": marker_b1,
-                                **{k: v[0] for k, v in zoo.items()}},
-                     extra={"trial_axis": trial_entry(trial_b1, "shared_x")}),
+                                **{k: v[0] for k, v in zoo.items()},
+                                **{k: v[0] for k, v in ft_launches.items()}},
+                     extra={"trial_axis": trial_entry(trial_b1, "shared_x"),
+                            "finetune_grid_axis": grid_entry(trial_b1, "B1")}),
         kernel_entry("fused_linear_bn_relu_eval", "flexynesis_torch/csrc/fused_linear_eval.cu",
-                     "flexynesis_tpu/ops/pallas/fused_linear.py:223", rows + trial_b2,
+                     "flexynesis_tpu/ops/pallas/fused_linear.py:223",
+                     rows + ft_b2_rows + trial_b2,
                      rows[:len(b2_blocks())],  # one eval forward over the cohort
                      serve_b2, {"serving": serve_b2, "training": train_b2,
                                 **{k: v[1] for k, v in {**hpo_launches, **vae_launches}.items()},
                                 "default_directpred_markers": marker_b2,
-                                **{k: v[1] for k, v in zoo.items()}},
+                                **{k: v[1] for k, v in zoo.items()},
+                                **{k: v[1] for k, v in ft_launches.items()}},
                      extra={"gemm_only_addmm_device_ms": passes["cohort"]["addmm_device_ms"],
-                            "passes": passes, "trial_axis": trial_entry(trial_b2, "_val")}),
+                            "passes": passes, "trial_axis": trial_entry(trial_b2, "_val"),
+                            "finetune_grid_axis": grid_entry(trial_b2, "B2")}),
         kernel_entry("gaussian_kernel_mean", "flexynesis_torch/csrc/mmd_kernel.cu",
                      "flexynesis_tpu/ops/pallas/mmd_kernel.py:66", b3_rows + term_rows + trial_b3,
                      term_rows[:1], vae_b3,
                      {"supervised_vae_training": vae_b3, "crossmodal_training": cm_b3,
                       **{k: v[2] for k, v in {**hpo_launches, **vae_launches}.items()},
                       "default_directpred_markers": marker_b3,
-                      **{k: v[2] for k, v in zoo.items()}},
+                      **{k: v[2] for k, v in zoo.items()},
+                      **{k: v[2] for k, v in ft_launches.items()}},
                      per_path=2,  # one training step: an MMD term per decoded layer
                      extra={"trial_axis": b3_trial_entry(trial_b3)}),
     ]
@@ -3665,6 +4080,7 @@ def main() -> int:
     print("markers: summary " + json.dumps(marker_summary), flush=True)
     print("triplet: summary " + json.dumps(triplet_summary), flush=True)
     print("gnn: summary " + json.dumps(gnn_summary), flush=True)
+    print("finetune: summary " + json.dumps(ft_summary), flush=True)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": entries}))
     print(card)

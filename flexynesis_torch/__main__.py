@@ -26,11 +26,25 @@ unless ``--device cpu`` is given.
   cohort and writes the embeddings, the feature importances, the
   predicted labels and stats (and a CrossModalPred's decoded layers).
 
+``--covariates`` adds a ``covariates`` input block built from clin.csv
+(DirectPred, supervised_vae, MultiTripletNetwork and CrossModalPred; the GNN
+refuses it) and ``--fusion_type early`` joins the omics layers and the
+covariates into one layer ``all`` (CrossModalPred and GNN refuse it); both
+carry into inference mode through the artifacts. ``--finetuning_samples n``
+fine-tunes the trained (or loaded) model on n test samples drawn with
+``default_rng(42)`` (``train/finetune.py``: the 3 lr x 3 freeze x k-fold grid
+as one stacked round, then the winning cell on all n samples); inference
+mode then saves the fine-tuned weights and config. ``--hpo_checkpoint PATH``
+keeps the HPO state in a JSON file and each stacked round's state beside
+it, so a killed run resumes (``train/hpo.py``).
+
 Marker finding on a DirectPred built with ``fused_kernels`` raises
 ``NotImplementedError``, as the JAX package cannot attribute one either; where
 the configuration to train or load fixes ``fused_kernels``, before any work.
 
-What is not ported yet raises ``NotImplementedError`` naming its ROADMAP item.
+What is not ported yet raises ``NotImplementedError`` naming its ROADMAP
+item: HDF5 folders, the classical baselines, ``--evaluate_baseline_performance``
+and ``--profile``.
 """
 
 from __future__ import annotations
@@ -196,7 +210,24 @@ def run_inference(args, device) -> int:
         edges = {"protein1": [nodes[i] for i in src], "protein2": [nodes[i] for i in dst]}
         test_dataset = MultiOmicDatasetNW(test_dataset, edges, node_names=nodes)
     _write_eval_outputs(args, model, None, test_dataset)
+    if args.finetuning_samples > 0:
+        _finetune(args, model, test_dataset)
+        _save_model_files(args, model, None)
     return 0
+
+
+def _finetune(args, model, test_dataset) -> None:
+    """Fine-tune ``model`` on ``--finetuning_samples`` test samples drawn with
+    ``default_rng(42)`` (flexynesis_tpu/__main__.py:306-318)."""
+    import numpy as np
+
+    from .train.finetune import FineTuner
+
+    n = len(test_dataset)
+    k = min(args.finetuning_samples, n)
+    idx = np.random.default_rng(42).choice(n, size=k, replace=False)
+    print(f"[INFO] Fine-tuning on {k} test samples")
+    FineTuner(model, test_dataset.subset(idx)).run_experiments()
 
 
 def _split(s):
@@ -240,6 +271,7 @@ def _load_graph(args, dataset):
 
 
 def _save_model_files(args, model, data_importer) -> None:
+    """The weights and config, and with a training importer the artifacts."""
     from .inference import build_artifacts, save_model, save_model_config, write_artifacts
 
     outdir, prefix = args.outdir, args.prefix
@@ -247,6 +279,8 @@ def _save_model_files(args, model, data_importer) -> None:
     save_model(model, weights)
     save_model_config(model, os.path.join(outdir, f"{prefix}.final_model_config.json"))
     print(f"[INFO] Model saved to {weights}")
+    if data_importer is None:
+        return
     artifacts = build_artifacts(
         data_importer, _split(args.data_types) or [], _split(args.target_variables) or [],
         covariates=_split(args.covariates), join_key=args.join_key,
@@ -304,10 +338,15 @@ def run_training(args, device):
         output_layers=_split(args.output_layers),
         batch_ask=batch_ask,
         pipeline_ask=args.hpo_pipeline == "True",
+        checkpoint_path=args.hpo_checkpoint,
     )
     model, best_params = tuner.perform_tuning(hpo_patience=args.hpo_patience)
     phases["hpo_fit"] = time.perf_counter() - t
     print(f"[INFO] Best hyperparameters: {best_params}")
+    if args.finetuning_samples > 0:
+        t = time.perf_counter()
+        _finetune(args, model, test_dataset)
+        phases["finetuning"] = time.perf_counter() - t
 
     t = time.perf_counter()
     phases["marker_finding"] = _write_eval_outputs(args, model, train_dataset, test_dataset)
@@ -341,18 +380,12 @@ def _check_training_args(parser, args) -> None:
             f"--model_class {args.model_class} (classical baselines) is not ported "
             "to flexynesis_torch yet (ROADMAP item 13)"
         )
-    if args.finetuning_samples > 0:
-        raise NotImplementedError("fine-tuning is not ported yet (ROADMAP A.12)")
     if args.evaluate_baseline_performance:
         raise NotImplementedError(
             "--evaluate_baseline_performance is not ported yet (ROADMAP item 13)"
         )
     if args.profile:
         raise NotImplementedError("--profile is not ported yet (ROADMAP item 13)")
-    if args.hpo_checkpoint:
-        raise NotImplementedError(
-            "--hpo_checkpoint is not ported yet (ROADMAP item 9)"
-        )
     if not args.safetensors:
         raise NotImplementedError(
             "joblib artifacts hold pickled sklearn objects that flexynesis_torch "
@@ -457,10 +490,6 @@ def parse_args(argv=None):
     if args.pretrained_model and not (args.artifacts and args.data_path_test):
         parser.error(
             "inference mode needs --pretrained_model, --artifacts and --data_path_test"
-        )
-    if args.finetuning_samples > 0:
-        raise NotImplementedError(
-            "fine-tuning in inference mode is not ported yet (ROADMAP A.12)"
         )
     os.makedirs(args.outdir, exist_ok=True)
     return args, device

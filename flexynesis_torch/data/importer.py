@@ -15,9 +15,13 @@ restricts the features to a user list, then per split:
   device (``feature_selection.py``);
 
 then ``harmonize`` keeps the features common to both splits, ``log1p`` if
-asked, fits the standard scaler on train and applies it to both, encodes the
+asked, fits the standard scaler on train and applies it to both, builds the
+``covariates`` block from clin.csv after normalisation (``covariates.py``;
+``harmonize`` keeps the columns both splits have, and ``covariate_columns``
+records each covariate's trained columns for inference), encodes the
 categorical clinical variables (ordinal, sorted categories, missing labels
-NaN) and builds the datasets.
+NaN) and builds the datasets; early fusion (``concatenate``) joins the
+``data_types`` in order, then the covariates, into one layer ``all``.
 
 pandas' semantics are kept: the matrices hold float32 values, variance and
 standard deviation use ddof=1 and skip NaN, quantiles interpolate linearly,
@@ -26,8 +30,7 @@ scale of 1. One difference: the JAX package orders samples by Python set
 iteration (its ``get_labels``), which changes with the hash seed; here samples
 keep the order of the first layer's file.
 
-Not ported yet (``NotImplementedError`` naming the ROADMAP item): covariates
-and early fusion (A.11) and HDF5 folders (A.11).
+Not ported yet: HDF5 folders (``NotImplementedError``, ROADMAP A item 4).
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ import numpy as np
 
 from ..utils.csvio import NA_VALUES, read_table
 from ..utils.device import resolve_device
+from .covariates import create_covariate_matrix, get_variable_types
 from .dataset import MultiOmicDataset
 from .fastcsv import read_matrix_csv
 from .feature_selection import filter_by_laplacian
@@ -129,16 +133,10 @@ class DataImporter:
         downsample: int = 0,
         device="auto",
     ):
-        if covariates:
-            raise NotImplementedError(
-                "--covariates are not ported to flexynesis_torch yet (ROADMAP A.11)"
-            )
-        if concatenate:
-            raise NotImplementedError(
-                "--fusion_type early is not ported to flexynesis_torch yet (ROADMAP A.11)"
-            )
         self.path = path
         self.data_types = list(data_types)
+        self.covariates = covariates
+        self.concatenate = concatenate
         self.log_transform = log_transform
         self.min_features = min_features
         self.top_percentile = top_percentile
@@ -154,6 +152,7 @@ class DataImporter:
         # artifacts for inference mode
         self.train_features: Dict[str, List[str]] = {}
         self.label_encoders: Dict[str, dict] = {}
+        self.covariate_columns: Dict[str, List[str]] = {}
         self.restrict_to_features = self._load_user_features(restrict_to_features)
 
     @staticmethod
@@ -172,7 +171,7 @@ class DataImporter:
             if any(os.path.exists(os.path.join(p, f"{dt}.h5")) for dt in self.data_types):
                 raise NotImplementedError(
                     "HDF5 data folders are not ported to flexynesis_torch yet "
-                    "(ROADMAP A.11); use CSV files"
+                    "(ROADMAP A item 4); use CSV files"
                 )
         required = {"clin.csv"} | {f"{dt}.csv" for dt in self.data_types}
         for split, p in (("training", training_path), ("testing", testing_path)):
@@ -420,6 +419,25 @@ class DataImporter:
             label_mappings=label_mappings,
         )
 
+    def _add_covariates(self, clin_types, clins, mats, features) -> None:
+        """The ``covariates`` block of each split (importer.py:373-398 of the
+        JAX package): built from its clin.csv rows with the types of its whole
+        file, then only the columns both splits have, in the training order;
+        ``covariate_columns`` keeps each covariate's trained columns."""
+        print(f"[INFO] Building covariate matrix: {self.covariates}")
+        groups: Dict[str, List[str]] = {}
+        blocks = [create_covariate_matrix(self.covariates, types, clin,
+                                          groups_out=groups if split == 0 else None)
+                  for split, (types, clin) in enumerate(zip(clin_types, clins))]
+        (train_names, train_block), (test_names, test_block) = blocks
+        kept = [c for c in train_names if c in set(test_names)]
+        for (names, block), mat, feats in zip(blocks, mats, features):
+            pos = {c: j for j, c in enumerate(names)}
+            mat["covariates"] = block[:, [pos[c] for c in kept]].astype(np.float32)
+            feats["covariates"] = list(kept)
+        self.covariate_columns = {v: [c for c in cols if c in set(kept)]
+                                  for v, cols in groups.items()}
+
     # ---------------------------------------------------------------- main
 
     def import_data(self):
@@ -430,6 +448,8 @@ class DataImporter:
 
         train_dat = self.read_data(training_path)
         test_dat = self.read_data(testing_path)
+        # column types of the whole files, as pandas types them on reading
+        clin_types = [get_variable_types(d["clin"]) for d in (train_dat, test_dat)]
         if self.downsample > 0:
             print(f"[INFO] Randomly drawing {self.downsample} training samples")
             train_dat = self.subsample(train_dat, self.downsample)
@@ -448,9 +468,19 @@ class DataImporter:
         features = {x: d.features for x, d in train_layers.items()}
         train_mats = self.normalize_data(train_layers, fit=True)
         test_mats = self.normalize_data(test_layers, fit=False)
+        test_features = dict(features)
+        if self.covariates:
+            self._add_covariates(clin_types, (train_clin, test_clin),
+                                 (train_mats, test_mats), (features, test_features))
 
         training_dataset = self.get_dataset(train_mats, features, train_clin, train_samples)
-        testing_dataset = self.get_dataset(test_mats, features, test_clin, test_samples)
+        testing_dataset = self.get_dataset(test_mats, test_features, test_clin, test_samples)
+        if self.concatenate:
+            for ds in (training_dataset, testing_dataset):
+                order = [m for m in self.data_types if m in ds.dat]
+                order += [m for m in ds.dat if m not in order]
+                ds.dat = {"all": np.concatenate([ds.dat[m] for m in order], axis=1)}
+                ds.features = {"all": [f for m in order for f in ds.features[m]]}
         self.train_features = dict(training_dataset.features)
         print("[INFO] Training Data Stats:", training_dataset.get_dataset_stats())
         print("[INFO] Test Data Stats:", testing_dataset.get_dataset_stats())

@@ -7,8 +7,16 @@ and ``clin.csv``, reorders features to each scaler's ``feature_names_in``
 training mean after scaling), intersects the samples and encodes labels with
 the stored encoders (missing or unknown -> -1, shown as "Unknown").
 
-Rebuilding covariates from clin.csv and early fusion raise
-``NotImplementedError`` for now (ROADMAP A.11).
+A model trained with covariates gets its ``covariates`` block rebuilt from
+the test clin.csv (``covariates.py``, the column types and medians of the
+whole test file, as the JAX package reads it with pandas), also under early
+fusion: reindexed to the trained columns, a column the test cohort lacks
+filled with 0 (the one-hot "level absent") and an unseen level dropped. If
+every trained column of one covariate would be filled, the import raises:
+the test cohort encodes that covariate otherwise. Early fusion (artifacts
+with the one layer ``all``) reads every ``original_modalities`` layer,
+joins them and the covariates in the training order and keeps the trained
+``all`` features, raising where they cannot be reproduced.
 """
 
 from __future__ import annotations
@@ -19,6 +27,7 @@ from typing import Dict, Optional
 import numpy as np
 
 from ..utils.csvio import parse_floats, read_matrix, read_table
+from .covariates import create_covariate_matrix, get_variable_types
 from .dataset import MultiOmicDataset
 from .preprocessing import apply_standard_scaler, encode_labels, encoder_mapping
 
@@ -69,22 +78,68 @@ class DataImporterInference:
             scaled[np.isnan(scaled)] = 0.0
         return samples, scaled
 
+    def _covariate_block(self, clin, to_load, early_fusion: bool):
+        """(trained covariate columns, (clin rows, columns) matrix) rebuilt
+        from the test clin.csv and reindexed to the trained columns
+        (inference_importer.py:110-208 of the JAX package)."""
+        from .importer import Clinical
+
+        cov_vars = self.artifacts.get("covariate_vars", [])
+        if self.verbose:
+            print(f"[INFO] Rebuilding covariate matrix for: {cov_vars}")
+        table = Clinical(*clin)
+        names, block = create_covariate_matrix(cov_vars, get_variable_types(table), table)
+        col_groups = self.artifacts.get("covariate_columns") or {}
+        if early_fusion:
+            recorded = {c for cols in col_groups.values() for c in cols}
+            if recorded:  # the recorded groups say which 'all' columns are covariates
+                train_cols = [f for f in self.feature_names["all"] if f in recorded]
+            else:  # older artifacts: what no omics scaler names
+                omics = {f for m in to_load for f in self.scalers[m]["feature_names_in"]}
+                train_cols = [f for f in self.feature_names["all"] if f not in omics]
+        else:
+            train_cols = list(self.feature_names.get("covariates", names))
+        train_set, rebuilt = set(train_cols), set(names)
+        dropped = [c for c in names if c not in train_set]
+        filled = [c for c in train_cols if c not in rebuilt]
+        # each covariate must keep one trained column: an all-zero block for
+        # it would pass every width check while the model reads nothing
+        for var in cov_vars:
+            cols_v = col_groups.get(var) or [c for c in train_cols
+                                             if c == var or c.startswith(f"{var}_")]
+            cols_v = [c for c in cols_v if c in train_set]
+            if cols_v and not any(c in rebuilt for c in cols_v):
+                raise ValueError(
+                    f"Inference covariates: none of '{var}'s trained columns "
+                    f"({cols_v[:5]}) can be rebuilt from the test clin.csv (rebuilt "
+                    f"columns: {names[:8]}). The test cohort likely encodes this "
+                    "covariate with different types/levels than the training data."
+                )
+        if (dropped or filled) and self.verbose:
+            print(f"[INFO] covariates: aligning to training columns ({len(filled)} "
+                  f"zero-filled, {len(dropped)} unseen test levels dropped)")
+        pos = {c: j for j, c in enumerate(names)}
+        out = np.zeros((block.shape[0], len(train_cols)))
+        for j, c in enumerate(train_cols):
+            if c in pos:
+                out[:, j] = block[:, pos[c]]
+        return train_cols, out
+
     def import_data(self) -> MultiOmicDataset:
-        if self.modalities == ["all"]:
-            raise NotImplementedError(
-                "early-fusion inference is not ported yet (ROADMAP A.11)"
-            )
-        if "covariates" in self.modalities:
-            raise NotImplementedError(
-                "rebuilding covariates in inference is not ported yet (ROADMAP A.11)"
-            )
+        early_fusion = self.modalities == ["all"]
+        if early_fusion:
+            to_load = list(self.artifacts.get("original_modalities", []))
+            if not to_load:
+                raise ValueError("Early fusion artifacts must record original_modalities.")
+        else:
+            to_load = [m for m in self.modalities if m != "covariates"]
 
         clin_path = os.path.join(self.test_data_path, "clin.csv")
         clin = read_table(clin_path) if os.path.exists(clin_path) else None
 
         mats: Dict[str, tuple] = {}
         samples: Optional[list] = None
-        for modality in self.modalities:
+        for modality in to_load:
             mod_samples, scaled = self._read_modality(modality)
             mats[modality] = (mod_samples, scaled)
             if samples is None:
@@ -92,6 +147,15 @@ class DataImporterInference:
         if mats:
             common = set.intersection(*[set(s) for s, _ in mats.values()])
             samples = [s for s in samples if s in common]
+
+        # the covariates of a model trained with them, under early fusion too
+        cov_cols = None
+        if clin is not None and self.artifacts.get("covariate_vars") and (
+                "covariates" in self.modalities or early_fusion):
+            cov_cols, block = self._covariate_block(clin, to_load, early_fusion)
+            if samples is None:
+                samples = list(clin[0])
+            mats["covariates"] = (clin[0], block)
 
         ann, variable_types, label_mappings = {}, {}, {}
         if clin is not None:
@@ -125,17 +189,24 @@ class DataImporterInference:
         for var in self.target_variables:
             variable_types.setdefault(var, "numerical")
 
+        if early_fusion:
+            features = {m: list(self.scalers[m]["feature_names_in"]) for m in to_load}
+            if cov_cols is not None:
+                features["covariates"] = cov_cols
+            ordered = to_load + ["covariates"]
+        else:
+            features = {m: list(self.feature_names[m]) for m in self.modalities
+                        if m in self.feature_names}
+            ordered = self.modalities
         dat = {}
-        for m, (mod_samples, scaled) in mats.items():
-            pos = {s: i for i, s in enumerate(mod_samples)}
-            dat[m] = np.ascontiguousarray(
-                scaled[[pos[s] for s in samples]], dtype=np.float32
-            )
-        features = {
-            m: list(self.feature_names[m])
-            for m in self.modalities
-            if m in self.feature_names
-        }
+        for m in ordered:
+            if m in mats:
+                mod_samples, scaled = mats[m]
+                pos = {s: i for i, s in enumerate(mod_samples)}
+                dat[m] = np.ascontiguousarray(scaled[[pos[s] for s in samples]],
+                                              dtype=np.float32)
+        if early_fusion:
+            dat, features = self._fuse(dat, features)
         return MultiOmicDataset(
             dat=dat,
             ann=ann,
@@ -144,3 +215,33 @@ class DataImporterInference:
             samples=list(samples or []),
             label_mappings=label_mappings,
         )
+
+    def _fuse(self, dat: dict, features: dict):
+        """The one ``all`` layer: the layers joined in the training order
+        (``original_modalities``, then the covariates), restricted to the
+        trained features, which must come out in the trained order."""
+        order = list(self.artifacts.get("original_modalities", list(dat)))
+        if "covariates" in dat and "covariates" not in order:
+            order.append("covariates")
+        concat = np.concatenate([dat[m] for m in order], axis=1)
+        all_feats = [f for m in order for f in features[m]]
+        expected = list(self.feature_names["all"])
+        expected_set = set(expected)
+        keep = [i for i, f in enumerate(all_feats) if f in expected_set]
+        kept = [all_feats[i] for i in keep]
+        if kept != expected:
+            missing = sorted(expected_set - set(kept))
+            if missing:
+                detail = f"{len(missing)} trained features unmatched, e.g. {missing[:5]}"
+            else:  # the same features, in another order or repeated
+                diff = next((i for i, (a, b) in enumerate(zip(kept, expected)) if a != b),
+                            min(len(kept), len(expected)))
+                detail = ("features match but the order/multiplicity differs "
+                          f"(got {len(kept)} vs {len(expected)} trained; first "
+                          f"difference at index {diff})")
+            raise ValueError(
+                "Early-fusion inference: test features do not reproduce the trained "
+                f"'all' block ({detail}). Check that the test folder carries every "
+                "training modality (and clinical covariates, if trained with --covariates)."
+            )
+        return {"all": np.ascontiguousarray(concat[:, keep])}, {"all": kept}

@@ -128,7 +128,8 @@ def build_artifacts(data_importer, data_types, target_variables, covariates=None
         "transforms": data_importer.scalers or {},
         "label_encoders": data_importer.label_encoders or {},
         "covariate_vars": list(covariates or []),
-        "covariate_columns": {},
+        "covariate_columns": {k: list(v) for k, v in
+                              (getattr(data_importer, "covariate_columns", {}) or {}).items()},
         "join_key": join_key,
         "string_organism": string_organism,
         "string_node_name": string_node_name,

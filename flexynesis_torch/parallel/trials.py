@@ -1,8 +1,8 @@
 """Train K HPO trials of one architecture at once.
 
 Counterpart of ``flexynesis_tpu/parallel/trials.py`` (``_init_stacked``,
-``ParallelTrials.run``, ``vmapped_grid_fit``, ``equal_kfold_indices``),
-without the device mesh and the round checkpoint, for the five classes (the
+``ParallelTrials.run`` with its round checkpoint, ``vmapped_grid_fit``,
+``equal_kfold_indices``), without the device mesh, for the five classes (the
 stacked class is chosen by the template's ``model_name``). Batch entries
 under a ``_`` key (the triplet model's ``_full_x``, the GNN's ``_adj``, a
 padded round's ``_aux``) pass whole into every step, as in JAX; the GNN's
@@ -19,11 +19,14 @@ data split (the CV folds of ``train/hpo.py``), and a padded round's ``aux``
 
 The rules the JAX engine fixes, kept here:
 
-* each trial has its own lr; the optimizer is SR-bf16 Adam
-  (``ops/sr_adam.py``), with the global-norm clip per trial (a ``_Round``
-  given ``param_dtype="float32"`` runs the float32 chain
-  ``ops/optim.py::trial_optimizer("float32")`` instead, the reference that
-  checks the stacked steps against single trials);
+* each trial has its own lr, and the global-norm clip is per trial; a
+  ``ParallelTrials`` round (fresh-initialised) runs SR-bf16 Adam
+  (``ops/sr_adam.py``); ``vmapped_grid_fit`` defaults to JAX's float32
+  parameters with bfloat16 Adam moments (``trial_optimizer("bfloat16")``,
+  the fine-tuner's grid), and its HPO callers (mixed and CV rounds) ask for
+  ``param_dtype="bfloat16_sr"``, as JAX's do; a ``_Round`` given
+  ``param_dtype="float32"`` and no ``moment_dtype`` runs the float32 chain,
+  the reference that checks the stacked steps against single trials;
 * early stopping: a trial's stall count grows in every epoch whose validation
   loss does not beat its best; the round stops when EVERY trial has stalled
   for ``early_stop_patience`` epochs; ``best_epoch`` is at least 1;
@@ -42,18 +45,33 @@ The host reads only the (K,) validation losses, once per epoch, after the
 epoch's steps and its validation are issued; ``host_work(budget_s)`` (the
 pipelined GP ask, ``train/gp.py::AskSession.work``) runs just before that
 read, while the card finishes the epoch.
+
+``ParallelTrials.run(checkpoint_dir=...)`` saves the round's whole state
+every ``epochs_per_eval`` epochs (never after the last), and a rerun of the
+same round resumes from it: parameters, buffers, the optimizer's moments and
+count, the early-stopping arrays and every generator (``TrialNoise``'s, the
+SR seeds', each permutation generator), so the resumed round returns what
+an uninterrupted one returns. A fingerprint of the round (class, config,
+conv type, lrs, seeds, schedule, split rows and the optimizer's state layout,
+its dtypes included) must match, else the file is ignored with a warning; the file is
+deleted when the round ends. The file format is ``train/checkpoint.py``'s,
+not JAX's orbax directory, so the two packages do not share round
+checkpoints.
 """
 
 from __future__ import annotations
 
+import hashlib
+import os
 import time
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
-from ..ops.optim import trial_optimizer
-from ..ops.sr_adam import cast_stacked_params_for_sr, sr_adam_init, trial_update_step
+from ..ops.optim import AdamState, trial_optimizer
+from ..ops.sr_adam import (SRAdamState, cast_stacked_params_for_sr, sr_adam_init,
+                           trial_update_step)
 from .stacked import TrialNoise, stacked_model
 
 
@@ -102,7 +120,7 @@ class _Round:
     """The state of one round of K stacked trials and its training loop."""
 
     def __init__(self, model, params, buffers, *, lrs, seeds, masks=None, aux=None,
-                 param_dtype: str = "bfloat16_sr"):
+                 param_dtype: str = "bfloat16_sr", moment_dtype: str = "float32"):
         self.model = model
         self.device = model.device
         self.K = len(lrs)
@@ -118,7 +136,7 @@ class _Round:
             self.params = dict(params)
         self.buffers = buffers
         self.views = self.stacked.flax_layout(self.params)
-        self.tx = None if self.sr else trial_optimizer("float32")
+        self.tx = None if self.sr else trial_optimizer(moment_dtype)
         self.opt_state = sr_adam_init(self.views) if self.sr else self.tx.init(self.views)
         self.lrs = torch.as_tensor(np.asarray(lrs, np.float32), device=self.device)
         self.masks = masks
@@ -185,10 +203,46 @@ class _Round:
             table = table[:, 0]
         return torch.from_numpy(np.ascontiguousarray(table)).to(self.device)
 
+    def generators(self) -> List[torch.Generator]:
+        return [self.noise.generator, self.sr_gen, *self.perm_gens]
+
+    def state_tensors(self) -> Dict[str, torch.Tensor]:
+        """The round's tensors for a checkpoint: parameters, buffers, the
+        optimizer's moments and every generator's state."""
+        out = {f"params/{n}": t for n, t in self.params.items()}
+        out.update({f"buffers/{n}": t for n, t in self.buffers.items()})
+        first, second = _moments(self.opt_state)
+        out.update({f"m/{i}": t for i, t in enumerate(first)})
+        out.update({f"v/{i}": t for i, t in enumerate(second)})
+        out.update({f"gen/{i}": g.get_state() for i, g in enumerate(self.generators())})
+        return out
+
+    def load_state_tensors(self, tensors: Dict[str, torch.Tensor], count: int) -> None:
+        """Restore what ``state_tensors`` saved (shapes and types checked)."""
+        first, second = _moments(self.opt_state)
+        pairs = ([(self.params[n], tensors[f"params/{n}"]) for n in self.params]
+                 + [(self.buffers[n], tensors[f"buffers/{n}"]) for n in self.buffers]
+                 + [(t, tensors[f"m/{i}"]) for i, t in enumerate(first)]
+                 + [(t, tensors[f"v/{i}"]) for i, t in enumerate(second)])
+        for dst, src in pairs:
+            if dst.shape != src.shape or dst.dtype != src.dtype:
+                raise ValueError(f"state layout changed: {tuple(src.shape)} {src.dtype} "
+                                 f"for {tuple(dst.shape)} {dst.dtype}")
+        with torch.no_grad():
+            for dst, src in pairs:
+                dst.copy_(src)
+        self.opt_state = _with_count(self.opt_state, count)
+        for i, g in enumerate(self.generators()):
+            g.set_state(tensors[f"gen/{i}"])
+
     def fit(self, data: dict, train_idx: np.ndarray, val_batch: dict, *, batch_size: int,
             max_epochs: int, early_stop_patience: int,
             host_work: Optional[Callable[[float], object]] = None,
-            wall_est: Optional[float] = None) -> dict:
+            wall_est: Optional[float] = None, checkpoint=None,
+            epochs_per_eval: int = 5) -> dict:
+        """Train until every trial has stalled or ``max_epochs``; with a
+        ``_RoundCheckpoint``, resume from it and save every
+        ``epochs_per_eval`` epochs, never after the last."""
         n_tr = train_idx.shape[1]
         batch_size = min(batch_size, n_tr)
         n_batches = max(n_tr // batch_size, 1)
@@ -197,7 +251,12 @@ class _Round:
         best_epoch = np.zeros(K, dtype=int)
         stall = np.zeros(K, dtype=int)
         epochs_run = 0
-        for epoch in range(max_epochs):
+        if checkpoint is not None:
+            resumed = checkpoint.load(self)
+            if resumed is not None:
+                best, best_epoch, stall, epochs_run = resumed
+        chunk = max(int(epochs_per_eval), 1)
+        for epoch in range(epochs_run, max_epochs):
             t_ep = time.perf_counter()
             table = self.epoch_rows(train_idx, n_batches, batch_size)
             for s in range(n_batches):
@@ -215,8 +274,14 @@ class _Round:
             best = np.where(improved, v, best)
             best_epoch = np.where(improved, epochs_run, best_epoch)
             stall = np.where(improved, 0, stall + 1)
-            if early_stop_patience > 0 and np.all(stall >= early_stop_patience):
+            stop = early_stop_patience > 0 and np.all(stall >= early_stop_patience)
+            if (checkpoint is not None and not stop and epochs_run < max_epochs
+                    and epochs_run % chunk == 0):
+                checkpoint.save(self, best, best_epoch, stall, epochs_run)
+            if stop:
                 break
+        if checkpoint is not None:
+            checkpoint.clear()
         return {
             "best_val_loss": best,
             "best_epoch": np.maximum(best_epoch, 1),
@@ -225,6 +290,84 @@ class _Round:
             "final_params": self.params32(),
             "final_buffers": self.buffers,
         }
+
+
+def _moments(state):
+    """The two moment lists of an SR-Adam or Adam state."""
+    return (state.m, state.v) if isinstance(state, SRAdamState) else (state.mu, state.nu)
+
+
+def _with_count(state, count: int):
+    if isinstance(state, SRAdamState):
+        return SRAdamState(state.m, state.v, count)
+    return AdamState(count, state.mu, state.nu)
+
+
+class _RoundCheckpoint:
+    """One round's state in ``directory/round.safetensors``
+    (``train/checkpoint.py``), tagged with the round's fingerprint."""
+
+    def __init__(self, directory: str, fingerprint: str, K: int):
+        self.path = os.path.join(os.path.abspath(directory), "round.safetensors")
+        self.fingerprint, self.K = fingerprint, K
+        os.makedirs(os.path.dirname(self.path), exist_ok=True)
+
+    def save(self, trial_round: "_Round", best, best_epoch, stall, epochs_run: int) -> None:
+        from ..train.checkpoint import save_state
+
+        tensors = trial_round.state_tensors()
+        tensors.update(best=torch.from_numpy(np.asarray(best, np.float64)),
+                       best_epoch=torch.from_numpy(np.asarray(best_epoch, np.int64)),
+                       stall=torch.from_numpy(np.asarray(stall, np.int64)))
+        save_state(self.path, tensors, {"epochs_run": int(epochs_run), "k": self.K,
+                                        "fingerprint": self.fingerprint,
+                                        "count": int(trial_round.opt_state.count)})
+
+    def load(self, trial_round: "_Round"):
+        """(best, best_epoch, stall, epochs_run) restored into ``trial_round``,
+        or None (no file, or a foreign or stale one: a warning)."""
+        from ..train.checkpoint import load_state
+
+        if not os.path.exists(self.path):
+            return None
+        try:
+            tensors, meta = load_state(self.path)
+            if int(meta["k"]) != self.K:
+                raise ValueError("trial count changed")
+            if meta["fingerprint"] != self.fingerprint:
+                raise ValueError("different trial round")
+            trial_round.load_state_tensors(tensors, int(meta["count"]))
+        except Exception as e:  # a stale or foreign round: start fresh
+            print(f"[WARN] Trial-round checkpoint not resumable ({e}); starting fresh")
+            return None
+        epochs_run = int(meta["epochs_run"])
+        print(f"[INFO] Resumed trial round from epoch {epochs_run} "
+              f"({os.path.dirname(self.path)})")
+        return (tensors["best"].numpy().copy(), tensors["best_epoch"].numpy().copy(),
+                tensors["stall"].numpy().copy(), epochs_run)
+
+    def clear(self) -> None:
+        if os.path.exists(self.path):
+            os.remove(self.path)
+
+
+def _round_fingerprint(trial_round: "_Round", *, lrs, seeds, train_idx, val_idx,
+                       batch_size: int, max_epochs: int, chunk: int,
+                       early_stop_patience: int) -> str:
+    """The identity of a round (trials.py:514-543 of the JAX package): its
+    class, config and conv type, lrs, seeds, schedule, split rows and the
+    optimizer's state layout (its kind, each moment's shape and type)."""
+    model = trial_round.model
+    config = sorted((k, str(v)) for k, v in (getattr(model, "config", None) or {}).items())
+    layout = [(tuple(t.shape), str(t.dtype)) for moments in _moments(trial_round.opt_state)
+              for t in moments]
+    ident = (type(model).__name__ + repr(config) + str(getattr(model, "gnn_conv_type", ""))
+             + type(trial_round.opt_state).__name__ + repr(layout))
+    return hashlib.sha256(
+        np.asarray(lrs, np.float64).tobytes() + np.asarray(seeds, np.int64).tobytes()
+        + np.asarray([batch_size, max_epochs, chunk, early_stop_patience], np.int64).tobytes()
+        + np.asarray(train_idx).tobytes() + np.asarray(val_idx).tobytes() + ident.encode()
+    ).hexdigest()[:16]
 
 
 def _val_batch(data: dict, val_idx: np.ndarray, device) -> dict:
@@ -238,7 +381,8 @@ def _val_batch(data: dict, val_idx: np.ndarray, device) -> dict:
 def vmapped_grid_fit(model, dataset, *, start_params=None, start_stats=None,
                      lrs, seeds, train_idx, val_idx, masks=None, aux=None,
                      batch_size: int = 32, max_epochs: int = 50,
-                     early_stop_patience: int = -1,
+                     early_stop_patience: int = -1, moment_dtype: str = "bfloat16",
+                     param_dtype: str = "float32",
                      host_work: Optional[Callable[[float], object]] = None) -> dict:
     """Train T trials with per-trial data splits concurrently.
 
@@ -249,8 +393,11 @@ def vmapped_grid_fit(model, dataset, *, start_params=None, start_stats=None,
     ``latent_mask`` and ``latent_dim``, put in every batch as ``_aux``).
     ``start_params`` / ``start_stats``: None for fresh per-seed parameters,
     or the state (parameters and buffers by ``state_dict`` name) of one model
-    broadcast to all trials, or stacked (T, ...) states. Returns
-    {best_val_loss (T,), best_epoch (T,), epochs_run}."""
+    broadcast to all trials, or stacked (T, ...) states. ``param_dtype`` and
+    ``moment_dtype`` take JAX's defaults: float32 parameters with bfloat16
+    Adam moments (the fine-tuner's grid); ``"bfloat16_sr"`` runs SR-bf16
+    Adam (the HPO rounds). Returns {best_val_loss (T,), best_epoch (T,),
+    epochs_run}."""
     T = len(lrs)
     train_idx, val_idx = np.asarray(train_idx), np.asarray(val_idx)
     stacked = stacked_model(model, T)
@@ -267,7 +414,8 @@ def vmapped_grid_fit(model, dataset, *, start_params=None, start_stats=None,
             return {n: (t if already else t.expand(T, *t.shape)).to(model.device).clone()
                     for n, t in tree.items()}
         params, buffers = place(params), place(buffers)
-    trial_round = _Round(model, params, buffers, lrs=lrs, seeds=seeds, masks=masks, aux=aux)
+    trial_round = _Round(model, params, buffers, lrs=lrs, seeds=seeds, masks=masks, aux=aux,
+                         param_dtype=param_dtype, moment_dtype=moment_dtype)
     data = model.make_batch(dataset)
     out = trial_round.fit(data, train_idx, _val_batch(data, val_idx, model.device),
                           batch_size=batch_size, max_epochs=max_epochs,
@@ -287,24 +435,35 @@ class ParallelTrials:
         self._epoch_wall_est: Dict[int, float] = {}
 
     def run(self, lrs, seeds, *, train_idx, val_idx, batch_size: int, max_epochs: int,
-            early_stop_patience: int = -1,
+            early_stop_patience: int = -1, epochs_per_eval: int = 5,
+            checkpoint_dir: Optional[str] = None,
             host_work: Optional[Callable[[float], object]] = None) -> dict:
         """Train len(lrs) fresh trials (trial k initialised from seeds[k]) on
         one train/validation split, as the sequential objective evaluates
-        each trial. Returns per-trial best validation losses and epochs,
-        ``epochs_run``, and the final float32 ``final_params`` and
-        ``final_buffers`` (stacked, by ``state_dict`` name)."""
+        each trial, with SR-bf16 Adam. Returns per-trial best validation
+        losses and epochs, ``epochs_run``, and the final float32
+        ``final_params`` and ``final_buffers`` (stacked, by ``state_dict``
+        name). ``checkpoint_dir`` saves the round every ``epochs_per_eval``
+        epochs and resumes a rerun of the same round from it."""
         K = len(lrs)
         if self._data is None:  # the dataset stays on the device across rounds
             self._data = self.model.make_batch(self.dataset)
-        train_idx = np.tile(np.asarray(train_idx), (K, 1))
-        val_idx = np.tile(np.asarray(val_idx), (K, 1))
+        tiled_train = np.tile(np.asarray(train_idx), (K, 1))
+        tiled_val = np.tile(np.asarray(val_idx), (K, 1))
         params, buffers = _init_stacked(self.model, seeds)
         trial_round = _Round(self.model, params, buffers, lrs=lrs, seeds=seeds)
-        out = trial_round.fit(self._data, train_idx,
-                              _val_batch(self._data, val_idx, self.model.device),
+        checkpoint = None
+        if checkpoint_dir is not None:
+            fp = _round_fingerprint(
+                trial_round, lrs=lrs, seeds=seeds, train_idx=train_idx, val_idx=val_idx,
+                batch_size=batch_size, max_epochs=max_epochs,
+                chunk=max(int(epochs_per_eval), 1), early_stop_patience=early_stop_patience)
+            checkpoint = _RoundCheckpoint(checkpoint_dir, fp, K)
+        out = trial_round.fit(self._data, tiled_train,
+                              _val_batch(self._data, tiled_val, self.model.device),
                               batch_size=batch_size, max_epochs=max_epochs,
                               early_stop_patience=early_stop_patience, host_work=host_work,
-                              wall_est=self._epoch_wall_est.get(K))
+                              wall_est=self._epoch_wall_est.get(K), checkpoint=checkpoint,
+                              epochs_per_eval=epochs_per_eval)
         self._epoch_wall_est[K] = out.pop("epoch_wall_s")
         return out

@@ -46,12 +46,24 @@ trains. A batched round and a CV run keep no model, so the best
 configuration is retrained on the whole training set at the end
 (``objective(full_train=True)``).
 
-Not ported yet, and refused by the CLI: the HPO state checkpoint (ROADMAP A
-item 3).
+``checkpoint_path`` (the CLI's ``--hpo_checkpoint``) makes a long search
+preemption-safe, as in JAX (hpo.py:271-298, :480-530): after every tell the
+GP's ``state_dict()``, the best parameters, loss and epochs, the iteration
+and ``config_name`` go to that JSON file (written to ``<path>.tmp``, then
+``os.replace``-d), and a rerun resumes from it. The file is plain JSON, so a
+state the JAX CLI wrote resumes here and the reverse. Each same-architecture
+group's stacked round also checkpoints mid-round in its own
+``<path>.round-<sha256[:12]>`` directory (``parallel/trials.py``), removed
+when the round ends; that file is the port's own format and is not shared
+with the JAX package.
 """
 
 from __future__ import annotations
 
+import hashlib
+import json
+import os
+import shutil
 import time
 from typing import List, Optional
 
@@ -89,6 +101,7 @@ class HyperparameterTuning:
         output_layers: Optional[List[str]] = None,
         batch_ask: int = 1,
         pipeline_ask: bool = True,
+        checkpoint_path: Optional[str] = None,
     ):
         self.dataset = dataset
         self.model_class = model_class
@@ -112,6 +125,7 @@ class HyperparameterTuning:
         self.n_units = model_class.n_units(dataset, target_variables)
         self.batch_ask = max(int(batch_ask), 1)
         self.pipeline_ask = bool(pipeline_ask)
+        self.checkpoint_path = checkpoint_path
         self._host_work = None
         # templates and trial engines reused across GP rounds (the dataset
         # stays on the device for each engine)
@@ -195,7 +209,7 @@ class HyperparameterTuning:
             seeds=np.arange(self.seed, self.seed + k),
             train_idx=tr, val_idx=va,
             batch_size=int(params["batch_size"]), max_epochs=int(params["epochs"]),
-            early_stop_patience=self.early_stop_patience,
+            early_stop_patience=self.early_stop_patience, param_dtype="bfloat16_sr",
         )
         avg_loss = float(np.mean(out["best_val_loss"]))
         avg_epochs = int(np.mean(out["best_epoch"]))
@@ -256,13 +270,24 @@ class HyperparameterTuning:
         if pt is None:
             pt = self._pts[key] = ParallelTrials(self._get_template(group[0]), self.dataset)
         print(f"[INFO] Training {len(group)} same-architecture trials concurrently (stacked)")
+        # the round checkpoints mid-round beside the JSON state, in a
+        # directory of its own (keyed by its suggestions), so replaying
+        # earlier groups after a restart cannot clobber it
+        ckpt_dir = None
+        if self.checkpoint_path:
+            digest = hashlib.sha256(
+                json.dumps(group, sort_keys=True, default=str).encode()).hexdigest()[:12]
+            ckpt_dir = f"{self.checkpoint_path}.round-{digest}"
         out = pt.run(
             lrs=np.asarray([p["lr"] for p in group], np.float32),
             seeds=np.full(len(group), self.seed, np.int64),
             train_idx=train_idx, val_idx=val_idx,
             batch_size=int(group[0]["batch_size"]), max_epochs=int(group[0]["epochs"]),
-            early_stop_patience=self.early_stop_patience, host_work=self._host_work,
+            early_stop_patience=self.early_stop_patience, checkpoint_dir=ckpt_dir,
+            host_work=self._host_work,
         )
+        if ckpt_dir is not None:
+            shutil.rmtree(ckpt_dir, ignore_errors=True)
         # no model is kept per trial: the best configuration retrains at the
         # end of perform_tuning
         return self._group_results(out, len(group))
@@ -291,7 +316,8 @@ class HyperparameterTuning:
             train_idx=np.tile(train_idx, (K, 1)), val_idx=np.tile(val_idx, (K, 1)),
             masks=trials["masks"], aux=trials.get("aux"),
             batch_size=int(group[0]["batch_size"]), max_epochs=int(group[0]["epochs"]),
-            early_stop_patience=self.early_stop_patience, host_work=self._host_work,
+            early_stop_patience=self.early_stop_patience, param_dtype="bfloat16_sr",
+            host_work=self._host_work,
         )
         return self._group_results(out, K)
 
@@ -328,13 +354,44 @@ class HyperparameterTuning:
             lrs=lrs, seeds=seeds, train_idx=np.tile(tr, (K, 1)), val_idx=np.tile(va, (K, 1)),
             masks=trials.get("masks"), aux=trials.get("aux"),
             batch_size=int(group[0]["batch_size"]), max_epochs=int(group[0]["epochs"]),
-            early_stop_patience=self.early_stop_patience, host_work=self._host_work,
+            early_stop_patience=self.early_stop_patience, param_dtype="bfloat16_sr",
+            host_work=self._host_work,
         )
         loss = np.asarray(out["best_val_loss"]).reshape(K, k).mean(axis=1)
         ep = np.asarray(out["best_epoch"]).reshape(K, k).mean(axis=1)
         return [(float(loss[i]), int(round(ep[i])), None) for i in range(K)]
 
     # -------------------------------------------------------------- tuning
+
+    def _save_checkpoint(self, opt, best_params, best_loss, best_epochs, iteration) -> None:
+        """The HPO state as JSON (hpo.py:271-285), replaced atomically."""
+        if not self.checkpoint_path:
+            return
+        state = {
+            "optimizer": opt.state_dict(),
+            "best_params": best_params,
+            "best_loss": best_loss,
+            "best_epochs": best_epochs,
+            "iteration": iteration,
+            "config_name": self.config_name,
+        }
+        tmp = self.checkpoint_path + ".tmp"
+        with open(tmp, "w") as fh:
+            json.dump(state, fh)
+        os.replace(tmp, self.checkpoint_path)
+
+    def _load_checkpoint(self, opt):
+        """The saved state, loaded into ``opt``, when the file exists and
+        belongs to this config (hpo.py:287-298); else None."""
+        if self.checkpoint_path and os.path.exists(self.checkpoint_path):
+            with open(self.checkpoint_path) as fh:
+                state = json.load(fh)
+            if state.get("config_name") == self.config_name:
+                opt.load_state_dict(state["optimizer"])
+                print(f"[INFO] Resuming HPO from iteration {state['iteration']} "
+                      f"(best loss {state['best_loss']})")
+                return state
+        return None
 
     def perform_tuning(self, hpo_patience: int = 0):
         """GP rounds of ``batch_ask`` suggestions, each group trained and told
@@ -349,8 +406,14 @@ class HyperparameterTuning:
         best_model = None
         no_improvement = 0
         i = 0
+        resume = self._load_checkpoint(opt)
+        if resume is not None:
+            best_loss = resume["best_loss"]
+            best_params = resume["best_params"]
+            best_epochs = resume.get("best_epochs", 0)
+            i = resume["iteration"]
         pipeline = self.pipeline_ask and self.batch_ask > 1
-        suggestions = opt.ask(min(self.batch_ask, self.n_iter)) if self.n_iter > 0 else []
+        suggestions = opt.ask(min(self.batch_ask, self.n_iter - i)) if i < self.n_iter else []
         while suggestions:
             groups = self._bucket_by_architecture(suggestions)
             # the next round's ask runs in this round's gaps, with this
@@ -383,6 +446,7 @@ class HyperparameterTuning:
                     print(f"[INFO] HPO iter {i}/{self.n_iter}: loss={loss:.4f} "
                           f"best={best_loss:.4f} ({time.perf_counter() - t0:.1f}s cum. "
                           f"for group) params={params}")
+                    self._save_checkpoint(opt, best_params, float(best_loss), best_epochs, i)
             self._host_work = None
             if hpo_patience > 0 and no_improvement >= hpo_patience:
                 print(f"[INFO] No improvement for {hpo_patience} HPO iterations — "
@@ -397,6 +461,7 @@ class HyperparameterTuning:
                 suggestions = []
         if best_params is None:
             raise RuntimeError("no HPO trial produced a finite validation loss")
+        best_params = dict(best_params)
         best_params["epochs"] = max(best_epochs, 1)
         if self.use_cv or best_model is None:
             # CV keeps no single model: retrain on the full set

@@ -13,6 +13,22 @@
   (not the uncertainty-weighted total), as in the JAX trainer.
 * The parameters and buffers of the best epoch by validation loss are copied
   and returned.
+* ``trainable_mask`` (the fine-tuner's freeze configurations): a callable
+  over the Flax top-level names (``encoder_gex``, ``head_subtype``, ...; the
+  port's modules carry those names, so it is the first part of a parameter's
+  name). A frozen parameter gets no gradient, no Adam update and no share of
+  the global-norm clip, so it stays bit-identical through a fit; the running
+  statistics of a frozen BatchNorm still update, as JAX's trial engine lets
+  them. JAX's ``Trainer`` passes a frozen leaf's raw gradient through
+  ``optax.masked`` and adds it to the parameter, so its frozen leaves move:
+  a departure, kept on purpose (the reference freezes with
+  ``requires_grad=False``).
+* ``fit(checkpoint_dir=...)`` saves the state every ``checkpoint_every``
+  epochs (``train/checkpoint.py``) and resumes from the latest: parameters,
+  buffers, Adam's moments and count, both generators, the early stopper and
+  the best state so far, so a resumed fit returns what an uninterrupted one
+  returns. (JAX keeps no best state in its checkpoint and restarts the best
+  tracking on resume.)
 
 Losses stay on the device during an epoch; the host reads one number per
 epoch (the validation loss, for early stopping).
@@ -112,10 +128,14 @@ class Trainer:
     statistics, dropout drawn from ``generator``) when ``train`` is True."""
 
     def __init__(self, module: torch.nn.Module, loss_fn: Callable, lr: float,
-                 grad_clip: float = 1.0):
+                 grad_clip: float = 1.0,
+                 trainable_mask: Optional[Callable[[str], bool]] = None):
         self.module = module
         self.loss_fn = loss_fn
-        self.params = [p for p in module.parameters() if p.requires_grad]
+        self.param_names = [n for n, p in module.named_parameters() if p.requires_grad
+                            and (trainable_mask is None or trainable_mask(n.split(".")[0]))]
+        named = dict(module.named_parameters())
+        self.params = [named[n] for n in self.param_names]
         self.optimizer = ClippedAdam(self.params, lr, grad_clip)
 
     def train_step(self, batch: dict, generator: torch.Generator) -> torch.Tensor:
@@ -140,39 +160,90 @@ class Trainer:
     def _snapshot(self) -> Dict[str, torch.Tensor]:
         return {k: v.detach().clone() for k, v in self.module.state_dict().items()}
 
+    def _checkpoint_tensors(self, gens, best) -> Dict[str, torch.Tensor]:
+        out = {f"state/{n}": t for n, t in self.module.state_dict().items()}
+        opt = self.optimizer
+        out.update({f"mu/{n}": t for n, t in zip(self.param_names, opt.mu)})
+        out.update({f"nu/{n}": t for n, t in zip(self.param_names, opt.nu)})
+        out.update({f"gen/{i}": g.get_state() for i, g in enumerate(gens)})
+        if best is not None:
+            out.update({f"best/{n}": t for n, t in best.items()})
+        return out
+
+    def _restore(self, tensors: Dict[str, torch.Tensor], gens):
+        """Load a checkpoint's module state, moments and generator states;
+        returns its best state (or None)."""
+        device = next(self.module.parameters()).device
+        self.module.load_state_dict({n[6:]: t for n, t in tensors.items()
+                                     if n.startswith("state/")})
+        opt = self.optimizer
+        with torch.no_grad():
+            for i, n in enumerate(self.param_names):
+                opt.mu[i].copy_(tensors[f"mu/{n}"])
+                opt.nu[i].copy_(tensors[f"nu/{n}"])
+        for i, g in enumerate(gens):
+            g.set_state(tensors[f"gen/{i}"])
+        best = {n[5:]: t.to(device) for n, t in tensors.items() if n.startswith("best/")}
+        return best or None
+
     def fit(self, train_data: dict, val_data: Optional[dict], *, n_samples: int,
             batch_size: int, max_epochs: int, early_stop_patience: int = -1,
-            seed: int = 0) -> TrainResult:
+            seed: int = 0, checkpoint_dir: Optional[str] = None,
+            checkpoint_every: int = 10) -> TrainResult:
         """Train; returns the best-by-val-loss state when ``val_data`` is given,
         the last state otherwise. The per-epoch permutations come from a CPU
         ``torch.Generator`` seeded with ``seed``, the dropout masks from one on
-        the module's device, so a seed gives the same batches on every device."""
+        the module's device, so a seed gives the same batches on every device.
+        ``checkpoint_dir`` saves the state every ``checkpoint_every`` epochs and
+        resumes from its latest step."""
         device = next(self.module.parameters()).device
         batch_size = min(batch_size, n_samples)
         n_batches = max(n_samples // batch_size, 1)
         perm_gen = torch.Generator().manual_seed(seed)
         dropout_gen = torch.Generator(device=device).manual_seed(seed)
+        gens = (perm_gen, dropout_gen)
 
         stopper = EarlyStopper(early_stop_patience)
         best_val = float("inf")
         best = None
         history = {"train_loss": [], "val_loss": []}
+        start_epoch = 0
+        ckpt = None
+        if checkpoint_dir:
+            from .checkpoint import TrainCheckpointer
+
+            ckpt = TrainCheckpointer(checkpoint_dir, checkpoint_every)
+            restored = ckpt.restore()
+            if restored is not None:
+                tensors, meta = restored
+                best = self._restore(tensors, gens)
+                self.optimizer.count = int(meta["count"])
+                start_epoch = int(meta["epoch"])
+                best_val = float(meta["best_val"])
+                stopper.best, stopper.count = float(meta["stopper_best"]), int(meta["stopper_count"])
+                print(f"[INFO] Resumed training from epoch {start_epoch} "
+                      f"(best val {best_val:.4f})")
         t0 = time.perf_counter()
-        epochs_run = 0
-        for epoch in range(max_epochs):
+        epochs_run = start_epoch
+        for epoch in range(start_epoch, max_epochs):
             perm = torch.randperm(n_samples, generator=perm_gen)
             perm = perm[: n_batches * batch_size].reshape(n_batches, batch_size)
             train_loss = self.train_epoch(perm.to(device), train_data, dropout_gen)
             epochs_run = epoch + 1
             history["train_loss"].append(train_loss)
-            if val_data is None:
-                continue
-            val_loss = float(self.validate(val_data))
-            history["val_loss"].append(val_loss)
-            if val_loss < best_val:
-                best_val = val_loss
-                best = self._snapshot()
-            if stopper.update(val_loss):
+            stop = False
+            if val_data is not None:
+                val_loss = float(self.validate(val_data))
+                history["val_loss"].append(val_loss)
+                if val_loss < best_val:
+                    best_val = val_loss
+                    best = self._snapshot()
+                stop = stopper.update(val_loss)
+            if ckpt is not None:
+                ckpt.maybe_save(epochs_run, self._checkpoint_tensors(gens, best), {
+                    "count": self.optimizer.count, "best_val": best_val,
+                    "stopper_best": stopper.best, "stopper_count": stopper.count})
+            if stop:
                 break
         history["train_loss"] = [float(t) for t in history["train_loss"]]
         if val_data is None:

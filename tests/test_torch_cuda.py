@@ -226,6 +226,48 @@ def test_one_trial_gives_the_bits_of_the_call_without_the_axis(card, B, F, H):
         assert torch.equal(a[0], c)
 
 
+# the fine-tuning slice: the covariate encoder (F = H = 2, 4-byte copies),
+# the early-fusion encoder (gex 2000 + cnv 1000 + age, hidden 900) at the
+# 64-row batch and the 400-row validation, and the 45-trial grid with x per
+# trial (each fold its rows: 32-row steps, 20-row validations)
+SLICE_SHAPES = [(64, 2, 2), (400, 2, 2), (64, 3001, 900), (400, 3001, 900)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,F,H", SLICE_SHAPES)
+def test_slice_shapes_match_plain_versions(card, B, F, H):
+    args = _inputs(B, F, H, card)
+    before = (fused_linear_bn_relu.launches, fused_linear_bn_relu_eval.launches)
+    out = fused_linear_bn_relu_forward(*args[:5])
+    y = fused_linear_bn_relu_eval(*args)
+    torch.cuda.synchronize()
+    assert fused_linear_bn_relu.launches == before[0] + (1 if B <= ROW_TILE else 2)
+    assert fused_linear_bn_relu_eval.launches == before[1] + 1
+    for got, want in zip(out, fused_linear_bn_relu_ref(*args[:5])):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(y, fused_linear_bn_relu_eval_ref(*args), rtol=1e-4, atol=1e-4)
+    assert all(torch.equal(a, c) for a, c in zip(out, fused_linear_bn_relu_forward(*args[:5])))
+    assert torch.equal(y, fused_linear_bn_relu_eval(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,B,F,H", [(45, 32, 2000, 600), (45, 20, 2000, 600),
+                                     (45, 32, 2, 2), (45, 20, 3001, 900)])
+def test_grid_trial_axis_matches_plain_versions(card, K, B, F, H):
+    args = _trial_inputs(K, B, F, H, True, card)
+    before = (fused_linear_bn_relu.launches, fused_linear_bn_relu_eval.launches)
+    out = fused_linear_bn_relu_forward(*args[:5])
+    y = fused_linear_bn_relu_eval(*args)
+    torch.cuda.synchronize()
+    assert fused_linear_bn_relu.launches == before[0] + 1  # one launch for 45 trials
+    assert fused_linear_bn_relu_eval.launches == before[1] + 1
+    for got, want in zip(out, fused_linear_bn_relu_ref(*args[:5])):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(y, fused_linear_bn_relu_eval_ref(*args), rtol=1e-4, atol=1e-4)
+    assert all(torch.equal(a, c) for a, c in zip(out, fused_linear_bn_relu_forward(*args[:5])))
+    assert torch.equal(y, fused_linear_bn_relu_eval(*args))
+
+
 @pytest.mark.cuda
 def test_fused_block_trains_the_same_on_the_card(card):
     cpu = FusedMLP(40, 12, 3, dropout_rate=0.0)

@@ -146,10 +146,6 @@ def test_merge_logs_is_an_outer_merge():
 
 
 def test_not_ported_options_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="A.11"):
-        DataImporter(str(tmp_path), ["gex"], covariates=["age"])
-    with pytest.raises(NotImplementedError, match="A.11"):
-        DataImporter(str(tmp_path), ["gex"], concatenate=True)
     for split in ("train", "test"):
         os.makedirs(tmp_path / split)
         (tmp_path / split / "gex.h5").write_bytes(b"")

@@ -258,9 +258,7 @@ def test_unported_paths_raise(trained, tmp_path):
                        str(tmp_path))
     with pytest.raises(NotImplementedError, match="ROADMAP"):  # training: not ported
         main(["--data_path", "x", "--model_class", "DirectPred", "--data_types", "gex",
-              "--target_variables", "y", "--hpo_checkpoint", "ck.json", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="fine-tuning"):
-        main(args + ["--finetuning_samples", "5"])
+              "--target_variables", "y", "--profile", "--device", "cpu"])
     with pytest.raises(ValueError, match="tpu"):
         main(args[:-1] + ["tpu"])
 

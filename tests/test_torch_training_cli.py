@@ -9,7 +9,10 @@
   engine was ported: ``tests/test_torch_cv.py`` and
   ``tests/test_torch_vae_trials.py`` run them through the CLI; the
   MultiTripletNetwork and GNN classes train since they were ported:
-  ``tests/test_torch_zoo_cli.py`` runs them);
+  ``tests/test_torch_zoo_cli.py`` runs them; ``--covariates``,
+  ``--fusion_type early``, ``--finetuning_samples`` and ``--hpo_checkpoint``
+  run since they were ported: ``tests/test_torch_{covariates,finetune,
+  checkpoint}.py`` run them);
 * a GNN run refuses early fusion and covariates as the JAX CLI does.
 
 Tolerance for the two inference CLIs: rtol=1e-4, atol=1e-5 (f32)."""
@@ -100,14 +103,9 @@ def test_port_trained_model_serves_in_the_jax_cli(folder, trained):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--covariates", "age", "--model_class", "supervised_vae"], "A.11"),
-    (["--hpo_checkpoint", "ck.json"], "item 9"),
-    (["--finetuning_samples", "5"], "A.12"),
     (["--evaluate_baseline_performance"], "item 13"),
     (["--profile"], "item 13"),
     (["--model_class", "RandomForest"], "item 13"),
-    (["--covariates", "age"], "A.11"),
-    (["--fusion_type", "early"], "A.11"),
 ])
 def test_not_ported_options_raise(folder, tmp_path, extra, item):
     args = train_args(folder, tmp_path / "out") + extra
