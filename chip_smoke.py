@@ -155,7 +155,26 @@ Phases (any failure exits nonzero):
    against the CPU, and the grid step's time; a same-architecture round of
    16 suggestions with ``--hpo_checkpoint`` in a subprocess, killed once its
    round checkpoint appears and rerun: the rerun prints the resume line and
-   tells the GP the same 16 losses, bit for bit, as an uninterrupted run.
+   tells the GP the same 16 losses, bit for bit, as an uninterrupted run;
+12. HDF5, ``--profile`` and the classical baselines (after phase 11): phase
+   5's folder converted by ``python -m flexynesis_torch.csv_to_h5``'s
+   converter, each file read back by the port's HDF5 reader bit for bit
+   against the CSV reader (the seconds of each), the h5py-written fixture
+   ``tests/fixtures/h5/gex.h5`` against its CSV twin; phase 5's run on the
+   ``.h5`` folder (the same selected features and B1/B2 launches as the CSV
+   run, test probabilities within rtol/atol 1e-4 of it, the saved model
+   served alike on the card and the CPU), then with ``--profile``
+   (``fit.profile.json`` with JAX's phase names, a Chrome trace naming B1
+   and B2, the profiler's overhead); then on a reduced folder (300 + 100
+   samples, gex 200 and cnv 100 selected; the cuts are printed) a fused
+   DirectPred with and without ``--evaluate_baseline_performance`` (equal
+   B1/B2 launches), ``--model_class SVM``, ``XGBoost`` and
+   ``RandomSurvivalForest`` timed (B1, B2 and B3 never), the SVM grid's
+   tables on the card against the CPU (within 1e-10: both solve a float64
+   kernel matrix) and a GradientBoosting fit (training and held-out rows
+   within 1e-9), and one fit of
+   each estimator at its grid's middle point at the headline width (the
+   1600 training rows of a fold of phase 5's import x 3000 features), timed.
 
 (The port groups supervised_vae suggestions by architecture identity, as
 the JAX tuner does: its class name ``SupervisedVAE`` is not the
@@ -3846,6 +3865,312 @@ def finetune_phase(workdir: Path, importer_cache: "ImportOnce"):
     return {"finetune_training": launches, "finetune_inference": infer_launches}, summary
 
 
+# ---------------------------------------------------------------- phase 12
+
+BASE_TRAIN, BASE_TEST = 300, 100  # the baselines' folder, cut from phase 5's 2000 + 500
+BASE_RAW = {"gex": 400, "cnv": 200}  # selected (top 50 percent) to gex 200, cnv 100
+BASE_EPOCHS = 5
+BASE_FEATURES_MIN = 50  # below the halves of BASE_RAW, so the top 50 percent is kept
+# SVM tables card against CPU: both sides run the host's SMO solver on a float64
+# kernel matrix. tools/measure_port_baselines.py read the probabilities apart by
+# 4.4e-16 so, by 2.2e-8 with a float32 matrix on the card and 2.0e-5 with TF32
+# products (NVIDIA H100 80GB HBM3, 700 W); this limit lies between.
+BASE_TOL = 1e-10
+GB_TOL = 1e-9  # boosted probabilities card against CPU, training and held-out rows
+GB_CPU = {"n_estimators": 50, "max_depth": 6, "learning_rate": 0.1}  # the CPU's comparison fit
+MIDDLE = {"RandomForest": {"n_estimators": 200, "max_depth": 20},
+          "SVM": {"C": 1, "kernel": "rbf"},
+          "XGBoost": {"n_estimators": 200, "max_depth": 6, "learning_rate": 0.1}}
+
+
+def _launch_counts():
+    from flexynesis_torch.kernels.fused_linear import (
+        fused_linear_bn_relu as b1,
+        fused_linear_bn_relu_eval as b2,
+    )
+    from flexynesis_torch.kernels.mmd import gaussian_kernel_mean as b3
+
+    return b1, b2, b3
+
+
+def cli_run(args, what: str):
+    """One training CLI run in this process with B1, B2 and B3 counted from
+    0; returns (model, launches, host-clock seconds)."""
+    import torch
+    from flexynesis_torch.__main__ import parse_args, run_training
+
+    kernels = _launch_counts()
+    for k in kernels:
+        k.launches = 0
+    t = time.perf_counter()
+    model = run_training(*parse_args(args))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    launches = tuple(k.launches for k in kernels)
+    print(f"{what}: CLI {seconds:.3f} s; launches B1 {launches[0]}, B2 {launches[1]}, "
+          f"B3 {launches[2]}", flush=True)
+    return model, launches, seconds
+
+
+def _probabilities(out: Path):
+    """{(sample, class): probability} of a CLI run's predicted labels."""
+    from flexynesis_torch.utils.csvio import read_table
+
+    samples, cols, rows = read_table(str(out / "fit.predicted_labels.csv"))
+    c, p = cols.index("class_label"), cols.index("probability")
+    return {(s, r[c]): float(r[p]) for s, r in zip(samples, rows) if r[-2] == "test"}
+
+
+def h5_phase(workdir: Path, csv_launches) -> tuple:
+    """Phase 12 (a) and (b): phase 5's folder converted by the port's
+    csv_to_h5 and read back against the CSV reader bit for bit; the
+    h5py-written fixture against its CSV twin; the phase 5 run on the .h5
+    folder (selected features, B1/B2 launches and test probabilities equal
+    to the CSV run's, the saved model served alike on the card and the CPU);
+    the same run with --profile (JAX's phase names, a Chrome trace naming
+    B1 and B2, the profiler's overhead). Returns the launches and summary."""
+    import numpy as np
+    from flexynesis_torch.csv_to_h5 import convert_csv_to_h5
+    from flexynesis_torch.data.fastcsv import read_matrix_csv
+    from flexynesis_torch.utils.hdf5 import read_matrix_h5
+
+    data, h5 = workdir / "fit_data", workdir / "h5_data"
+    t = time.perf_counter()
+    for split in ("train", "test"):
+        (h5 / split).mkdir(parents=True, exist_ok=True)
+        shutil.copy(data / split / "clin.csv", h5 / split / "clin.csv")
+        for layer in ("gex", "cnv"):
+            convert_csv_to_h5(data / split / f"{layer}.csv", h5 / split / f"{layer}.h5")
+    convert_s = time.perf_counter() - t
+    seconds = {"csv": 0.0, "h5": 0.0}
+    pairs = [(data / s / f"{x}.csv", h5 / s / f"{x}.h5") for s in ("train", "test")
+             for x in ("gex", "cnv")]
+    pairs.append((REPO / "tests" / "fixtures" / "h5" / "gex.csv",
+                  REPO / "tests" / "fixtures" / "h5" / "gex.h5"))
+    for csv, h5_path in pairs:
+        t = time.perf_counter()
+        a = read_matrix_csv(str(csv))
+        t_csv = time.perf_counter() - t
+        t = time.perf_counter()
+        b = read_matrix_h5(str(h5_path))
+        t_h5 = time.perf_counter() - t
+        if a[:2] != b[:2] or a[2].shape != b[2].shape or a[2].tobytes() != b[2].tobytes():
+            fail(f"h5: {h5_path} does not read as {csv} does, bit for bit")
+        if "fixtures" not in str(csv):
+            seconds["csv"] += t_csv
+            seconds["h5"] += t_h5
+        name = f"{h5_path.parent.name}/{h5_path.name}"
+        print(f"h5: {name} {b[2].shape[0]} x {b[2].shape[1]} equal to its CSV bit for bit; "
+              f"CSV reader {t_csv:.3f} s, HDF5 reader {t_h5:.3f} s", flush=True)
+    print(f"h5: converted phase 5's folder in {convert_s:.3f} s; its four matrices read in "
+          f"{seconds['csv']:.3f} s (CSV) and {seconds['h5']:.3f} s (HDF5)", flush=True)
+
+    config = workdir / "fit_hpo.yaml"  # phase 5's
+    args = train_args(h5, config, workdir / "h5_out", DEVICE)
+    model, launches, cli_s = cli_run(args, "h5: the phase 5 run on the .h5 folder")
+    if launches[:2] != tuple(csv_launches) or launches[2]:
+        fail(f"h5: launches {launches}, the CSV run's were {csv_launches} (B3 0)")
+    csv_art = json.loads((workdir / "fit_out" / "fit.artifacts.json").read_text())
+    h5_art = json.loads((workdir / "h5_out" / "fit.artifacts.json").read_text())
+    if csv_art["feature_lists"] != h5_art["feature_lists"]:
+        fail("h5: the .h5 run selected other features than the CSV run")
+    a, b = _probabilities(workdir / "fit_out"), _probabilities(workdir / "h5_out")
+    if a.keys() != b.keys():
+        fail("h5: the .h5 and CSV runs predicted different rows")
+    keys = sorted(a)
+    pa, pb = np.array([a[k] for k in keys]), np.array([b[k] for k in keys])
+    p_err = float(np.abs(pa - pb).max())
+    if not np.allclose(pa, pb, **TOL):
+        fail(f"h5: test probabilities differ from the CSV run's by {p_err:.3e}")
+    for device in (DEVICE, "cpu"):
+        from flexynesis_torch.__main__ import main as cli
+
+        if cli(["--pretrained_model", str(workdir / "h5_out" / "fit.final_model.safetensors"),
+                "--artifacts", str(workdir / "h5_out" / "fit.artifacts.json"),
+                "--data_path_test", str(data / "test"),
+                "--outdir", str(workdir / f"h5_served_{device}"),
+                "--prefix", "smoke", "--disable_marker_finding", "--device", device]) != 0:
+            fail(f"h5: serving the .h5-trained model on {device} returned nonzero")
+    classes = len(h5_art["label_encoders"]["subtype"]["categories"][0])
+    compare_outputs(workdir / f"h5_served_{DEVICE}", workdir / "h5_served_cpu", FIT_TEST,
+                    classes, "h5: the .h5-trained model served")
+    widths = ", ".join(f"{k} {len(v)}" for k, v in h5_art["feature_lists"].items())
+    print(f"h5: selected features equal the CSV run's ({widths}); "
+          f"test probabilities within {p_err:.3e} of the CSV run's; CLI phases (host clock, s): "
+          + json.dumps({k: round(v, 4) for k, v in model.cli_phases.items()}), flush=True)
+
+    out = workdir / "prof_out"
+    _, prof_launches, prof_s = cli_run(train_args(h5, config, out, DEVICE) + ["--profile"],
+                                       "profile: the .h5 run with --profile")
+    if prof_launches != launches:
+        fail(f"profile: launches {prof_launches}, without --profile {launches}")
+    phases = json.loads((out / "fit.profile.json").read_text())
+    want = ["data_import", "hpo_training", "evaluation_outputs"]
+    if list(phases) != want or any(set(p) != {"seconds", "device_bytes_delta"}
+                                   for p in phases.values()):
+        fail(f"profile: fit.profile.json holds {phases}, expected the phases {want}")
+    trace = (out / "fit.profile" / "trace.json").read_text()
+    named = {n: trace.count(n) for n in (KERNEL_FUNCTIONS[0], KERNEL_FUNCTIONS[2])}
+    if not all(named.values()):
+        fail(f"profile: the trace does not name B1 and B2: {named}")
+    print(f"profile: phases {json.dumps(phases)}; the trace ({len(trace) / 2 ** 20:.1f} MiB) "
+          f"names {json.dumps(named)}; CLI {prof_s:.3f} s against {cli_s:.3f} s without "
+          f"--profile (overhead {prof_s - cli_s:+.3f} s, {100 * (prof_s / cli_s - 1):+.1f}%)",
+          flush=True)
+    summary = {"convert_s": convert_s, "csv_read_s": seconds["csv"], "h5_read_s": seconds["h5"],
+               "h5_cli_s": cli_s, "h5_cli_phases": model.cli_phases, "profile_cli_s": prof_s,
+               "profile_phases": phases, "h5_vs_csv_probability_err": p_err}
+    return {"h5_training": launches, "h5_profile": prof_launches}, summary
+
+
+def _headline_xy(importer_cache: "ImportOnce", workdir: Path, kind: str):
+    """Phase 5's imported training set (2000 x 3000): its first KFold fold's
+    training rows (1600, the rows one grid fit takes) with a label, and the
+    labels (subtype codes, or age)."""
+    import numpy as np
+    from flexynesis_torch.utils.classical import KFold
+
+    for key, (_, (train, _)) in importer_cache.done.items():
+        if key[0] == str(workdir / "fit_data") and key[2] is None and key[4] == "intermediate":
+            X = np.concatenate(list(train.dat.values()), axis=1)
+            rows = next(KFold(5, shuffle=True, random_state=42).split(X))[0]
+            y = np.asarray(train.ann["subtype" if kind == "categorical" else "age"],
+                           dtype=np.float64)[rows]
+            ok = np.isfinite(y) & (y != -1)
+            return X[rows][ok], (y[ok].astype(int) if kind == "categorical" else y[ok])
+    fail("baselines: phase 5's import is not in the cache")
+
+
+def baseline_phase(workdir: Path, importer_cache: "ImportOnce") -> tuple:
+    """Phase 12 (c): on a reduced folder (cuts printed), a fused DirectPred
+    with and without --evaluate_baseline_performance (B1/B2 launches equal),
+    --model_class SVM, XGBoost and RandomSurvivalForest timed, the SVM grid's
+    tables and a GradientBoosting fit on the card against the CPU; then one
+    fit of each estimator at its grid's middle point at the headline width.
+    Returns the launches and the summary."""
+    import numpy as np
+    import torch
+    from flexynesis_torch.data.importer import DataImporter
+    from flexynesis_torch.utils import baselines
+    from flexynesis_torch.utils.csvio import read_table
+    from flexynesis_torch.utils.synthetic import write_synthetic_folder
+
+    data = workdir / "base_data"
+    write_synthetic_folder(str(data), n_train=BASE_TRAIN, n_test=BASE_TEST,
+                           n_features=BASE_RAW, n_classes=N_CLASSES, seed=2)
+    print(f"baselines: reduced folder (cut from phase 5's {FIT_TRAIN} + {FIT_TEST} samples of "
+          f"{RAW_GEX} + {RAW_CNV} features): {BASE_TRAIN} train + {BASE_TEST} test samples, "
+          f"raw gex {BASE_RAW['gex']} and cnv {BASE_RAW['cnv']} selected to "
+          f"{BASE_RAW['gex'] // 2} and {BASE_RAW['cnv'] // 2}; 4-class subtype, age, "
+          "OS_MONTHS/OS_STATUS; the deep model runs 5 epochs", flush=True)
+    config = workdir / "base_hpo.yaml"
+    config.write_text(HPO_CONFIG % ("DirectPred", LATENT, HIDDEN_FACTOR, SUP_HIDDEN,
+                                    BASE_EPOCHS, BATCH))
+    surv = ["--surv_event_var", "OS_STATUS", "--surv_time_var", "OS_MONTHS"]
+    runs, seconds = {}, {}
+
+    def base_args(out: Path, model_class: str = "DirectPred", extra=()):
+        args = train_args(data, config, out, DEVICE, model_class=model_class, extra=extra)
+        args[args.index("--features_min") + 1] = str(BASE_FEATURES_MIN)
+        return args
+
+    for name, extra in (("directpred", surv), ("directpred_baselines",
+                                               surv + ["--evaluate_baseline_performance"])):
+        _, runs[name], seconds[name] = cli_run(base_args(workdir / f"{name}_out", extra=extra),
+                                               f"baselines: {name}")
+    if runs["directpred_baselines"] != runs["directpred"] or not runs["directpred"][0]:
+        fail(f"baselines: launches with the flag {runs['directpred_baselines']}, without "
+             f"{runs['directpred']}")
+    names, _, _ = read_table(str(workdir / "directpred_baselines_out" / "fit.baseline.stats.csv"))
+    want = {"RandomForestClassifier", "SVMClassifier", "XGBoostClassifier", "RandomSurvivalForest"}
+    if set(names) != want:
+        fail(f"baselines: fit.baseline.stats.csv holds {sorted(set(names))}")
+    names, _, rows = read_table(str(workdir / "directpred_baselines_out"
+                                    / "fit.baseline.stats.csv"))
+    for n, r in zip(names, rows):
+        print(f"baselines: baseline stats {n},{','.join(r)}", flush=True)
+
+    for mc in ("SVM", "XGBoost", "RandomSurvivalForest"):
+        extra = surv if mc == "RandomSurvivalForest" else []
+        _, runs[mc], seconds[mc] = cli_run(base_args(workdir / f"{mc}_out", mc, extra),
+                                           f"baselines: --model_class {mc}")
+        if runs[mc] != (0, 0, 0):
+            fail(f"baselines: --model_class {mc} launched the kernels {runs[mc]}")
+        names, _, rows = read_table(str(workdir / f"{mc}_out" / "fit.stats.csv"))
+        for n, r in zip(names, rows):
+            print(f"baselines: {mc} stats {n},{','.join(r)}", flush=True)
+
+    # the card's SVM grid and a boosting fit against the CPU
+    train, test = DataImporter(str(data), ["gex", "cnv"], top_percentile=TOP_PERCENTILE,
+                               min_features=BASE_FEATURES_MIN, variance_threshold=0.0,
+                               device=DEVICE).import_data()
+    widths = {k: v.shape[1] for k, v in train.dat.items()}
+    if widths != {k: v // 2 for k, v in BASE_RAW.items()}:
+        fail(f"baselines: selected widths {widths}")
+    tables = {}
+    for device in (DEVICE, "cpu"):
+        t = time.perf_counter()
+        tables[device] = baselines.evaluate_baseline_performance(
+            train, test, "subtype", ["SVM"], device=device)
+        seconds[f"svm_grid_{device}"] = time.perf_counter() - t
+    (s_gpu, p_gpu), (s_cpu, p_cpu) = tables[DEVICE], tables["cpu"]
+    m_err = max(abs(a["value"] - b["value"]) for a, b in zip(s_gpu, s_cpu)
+                if a["value"] is not None or b["value"] is not None)
+    pr_err = max(abs(a["probability"] - b["probability"]) for a, b in zip(p_gpu, p_cpu))
+    if m_err > BASE_TOL or pr_err > BASE_TOL:
+        fail(f"baselines: the SVM tables differ card against CPU: metrics {m_err:.3e}, "
+             f"probabilities {pr_err:.3e} (tol {BASE_TOL})")
+    X, y, _ = baselines._prepare_xy(train, "subtype")
+    Xt = baselines._prepare_xy(test, "subtype")[0]
+    y = y.astype(int)
+    fits = {}
+    for device in (DEVICE, "cpu"):
+        est, _ = baselines._grids("XGBoost", "categorical", device)
+        t = time.perf_counter()
+        gb = est.clone(**GB_CPU).fit(X, y)
+        fits[device] = (gb.predict_proba(X), gb.predict_proba(Xt))
+        seconds[f"gb_fit_{device}"] = time.perf_counter() - t
+    gb_train = float(np.abs(fits[DEVICE][0] - fits["cpu"][0]).max())
+    gb_test = float(np.abs(fits[DEVICE][1] - fits["cpu"][1]).max())
+    if max(gb_train, gb_test) > GB_TOL:
+        fail(f"baselines: GradientBoosting probabilities differ card against CPU by "
+             f"{gb_train:.3e} (training rows), {gb_test:.3e} (held-out rows) (tol {GB_TOL})")
+    print(f"baselines: card against CPU: SVM grid tables metrics {m_err:.3e}, probabilities "
+          f"{pr_err:.3e} (tol {BASE_TOL}; {seconds[f'svm_grid_{DEVICE}']:.2f} s card, "
+          f"{seconds['svm_grid_cpu']:.2f} s cpu); GradientBoosting {GB_CPU}: "
+          f"training rows {gb_train:.3e}, held-out rows {gb_test:.3e} (tol {GB_TOL}; "
+          f"{seconds[f'gb_fit_{DEVICE}']:.2f} s card, {seconds['gb_fit_cpu']:.2f} s cpu)",
+          flush=True)
+
+    # one fit at each grid's middle point at the headline width
+    headline = {}
+    for kind in ("categorical", "numerical"):
+        X, y = _headline_xy(importer_cache, workdir, kind)
+        for method, params in MIDDLE.items():
+            est, _ = baselines._grids(method, kind, DEVICE)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            est.clone(**params).fit(X, y)
+            torch.cuda.synchronize()
+            headline[f"{method}_{kind}"] = time.perf_counter() - t
+            print(f"baselines: headline width {X.shape[0]} x {X.shape[1]}: {type(est).__name__}"
+                  f"({params}) fit {headline[f'{method}_{kind}']:.3f} s, peak allocated "
+                  f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB", flush=True)
+    rsf = baselines.RandomForestRegressor(n_estimators=100, max_depth=5, min_samples_split=10,
+                                          min_samples_leaf=15, max_features="sqrt",
+                                          random_state=42, device=DEVICE)
+    t = time.perf_counter()
+    rsf.fit(X, y)
+    torch.cuda.synchronize()
+    headline["RandomSurvivalForest"] = time.perf_counter() - t
+    print(f"baselines: headline width: the survival forest fit "
+          f"{headline['RandomSurvivalForest']:.3f} s", flush=True)
+    summary = {"cli_s": seconds, "headline_fit_s": headline, "svm_card_cpu_err": [m_err, pr_err],
+               "gb_card_cpu_err": [gb_train, gb_test]}
+    return {f"baselines_{k}": v for k, v in runs.items()}, summary
+
+
 def build_all(names):
     """Build the kernels' libraries and the CSV reader's, one compiler per
     source (nvcc, or g++ for the reader), started together."""
@@ -4036,6 +4361,9 @@ def main() -> int:
     ft_b1_rows, ft_b2_rows, ft_trial_rows = check_finetune_kernels()
     ft_launches, ft_summary = finetune_phase(workdir, importer_cache)
     trial_rows += ft_trial_rows
+    h5_launches, h5_summary = h5_phase(workdir, (train_b1, train_b2))
+    base_launches, base_summary = baseline_phase(workdir, importer_cache)
+    ft_launches = {**ft_launches, **h5_launches, **base_launches}
 
     trial_b1 = [r for r in trial_rows if r["kernel"] == "B1"]
     trial_b2 = [r for r in trial_rows if r["kernel"] == "B2"]
@@ -4081,6 +4409,8 @@ def main() -> int:
     print("triplet: summary " + json.dumps(triplet_summary), flush=True)
     print("gnn: summary " + json.dumps(gnn_summary), flush=True)
     print("finetune: summary " + json.dumps(ft_summary), flush=True)
+    print("h5: summary " + json.dumps(h5_summary), flush=True)
+    print("baselines: summary " + json.dumps(base_summary), flush=True)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": entries}))
     print(card)

@@ -5,7 +5,9 @@ unless ``--device cpu`` is given.
 
 * Training mode (``--data_path``, ``--model_class`` DirectPred,
   supervised_vae, MultiTripletNetwork, CrossModalPred or GNN,
-  ``--data_types``, targets): imports the CSV folder and selects features
+  ``--data_types``, targets): imports the folder (CSV, or ``{dt}.h5`` files
+  written by ``python -m flexynesis_torch.csv_to_h5``, each layer falling
+  back to its CSV) and selects features
   (a GNN then builds its node tensor over ``--user_graph`` or STRING, the
   test split over the training node set), runs GP hyperparameter search (each
   round's ``--hpo_batch`` suggestions train at once on the K-stacked trial
@@ -38,13 +40,24 @@ mode then saves the fine-tuned weights and config. ``--hpo_checkpoint PATH``
 keeps the HPO state in a JSON file and each stacked round's state beside
 it, so a killed run resumes (``train/hpo.py``).
 
+``--model_class RandomForest|SVM|XGBoost|RandomSurvivalForest`` runs a
+classical baseline in place of a deep model (``utils/baselines.py``, grid
+search over 5 folds) and writes only ``<prefix>.stats.csv`` and
+``<prefix>.predicted_labels.csv``; ``--evaluate_baseline_performance`` adds
+the RandomForest, SVM and XGBoost baselines (and the survival forest) beside
+a deep model as ``<prefix>.baseline.{stats,predicted_labels}.csv``.
+``--profile`` times the phases (``data_import``, ``hpo_training``,
+``finetuning``, ``evaluation_outputs``) into ``<prefix>.profile.json`` and
+traces the HPO with torch.profiler under ``<prefix>.profile/``.
+``--threads`` sets ``OMP_NUM_THREADS`` where it is not set, as in JAX (it
+reaches the processes the run starts: torch has sized its pool at import),
+and on the CPU sets torch's threads for the run; it is the baselines'
+``n_jobs``.
+
 Marker finding on a DirectPred built with ``fused_kernels`` raises
 ``NotImplementedError``, as the JAX package cannot attribute one either; where
 the configuration to train or load fixes ``fused_kernels``, before any work.
-
-What is not ported yet raises ``NotImplementedError`` naming its ROADMAP
-item: HDF5 folders, the classical baselines, ``--evaluate_baseline_performance``
-and ``--profile``.
+A deep model's training needs ``--safetensors`` (JSON artifacts).
 """
 
 from __future__ import annotations
@@ -54,9 +67,10 @@ import os
 import sys
 import time
 
-from .utils.device import DEVICE_CHOICES
+from .utils.device import DEVICE_CHOICES, host_threads
 
 __version__ = "0.1.0"
+DEEP_MODELS = ("DirectPred", "supervised_vae", "MultiTripletNetwork", "CrossModalPred", "GNN")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -235,9 +249,11 @@ def _split(s):
 
 
 def _build_importer(args, device):
+    from .data.h5 import H5DataImporter, folder_has_h5
     from .data.importer import DataImporter
 
-    return DataImporter(
+    h5 = folder_has_h5(args.data_path, _split(args.data_types))
+    return (H5DataImporter if h5 else DataImporter)(
         path=args.data_path,
         data_types=_split(args.data_types),
         covariates=_split(args.covariates),
@@ -281,35 +297,117 @@ def _save_model_files(args, model, data_importer) -> None:
     print(f"[INFO] Model saved to {weights}")
     if data_importer is None:
         return
-    artifacts = build_artifacts(
-        data_importer, _split(args.data_types) or [], _split(args.target_variables) or [],
-        covariates=_split(args.covariates), join_key=args.join_key,
-        string_organism=args.string_organism, string_node_name=args.string_node_name,
+    try:
+        artifacts = build_artifacts(
+            data_importer, _split(args.data_types) or [], _split(args.target_variables) or [],
+            covariates=_split(args.covariates), join_key=args.join_key,
+            string_organism=args.string_organism, string_node_name=args.string_node_name,
+        )
+        path = os.path.join(outdir, f"{prefix}.artifacts.json")
+        write_artifacts(artifacts, path)
+        print(f"[INFO] Wrote inference artifacts to {path}")
+    except Exception as e:  # as in JAX: an artifact failure only warns
+        print(f"[WARN] Could not write inference artifacts: {e}")
+
+
+def run_classical(args, train_dataset, test_dataset, device) -> None:
+    """``--model_class RandomForest|SVM|XGBoost|RandomSurvivalForest``
+    (flexynesis_tpu/__main__.py:453-486): the baseline's metric and
+    prediction tables."""
+    from .utils.baselines import (
+        evaluate_baseline_performance,
+        evaluate_baseline_survival_performance,
     )
-    path = os.path.join(outdir, f"{prefix}.artifacts.json")
-    write_artifacts(artifacts, path)
-    print(f"[INFO] Wrote inference artifacts to {path}")
+    from .utils.csvio import write_rows
+
+    if args.model_class == "RandomSurvivalForest":
+        stats, preds = evaluate_baseline_survival_performance(
+            train_dataset, test_dataset, args.surv_time_var, args.surv_event_var,
+            n_jobs=args.threads, device=device,
+        )
+    else:
+        stats, preds = [], []
+        for var in _split(args.target_variables) or []:
+            s, p = evaluate_baseline_performance(
+                train_dataset, test_dataset, var, [args.model_class],
+                n_jobs=args.threads, device=device,
+            )
+            stats += s
+            preds += p
+    write_rows(os.path.join(args.outdir, f"{args.prefix}.stats.csv"), stats)
+    write_rows(os.path.join(args.outdir, f"{args.prefix}.predicted_labels.csv"), preds)
+    for r in stats:
+        print(f"{r['method']:>24} {r['var']:>12} {r['metric']:>14} {r['value']}")
+
+
+def _run_baseline_comparison(args, train_dataset, test_dataset, device) -> None:
+    """``--evaluate_baseline_performance`` (flexynesis_tpu/__main__.py:573-619):
+    the three baselines per target and the survival forest, each skipped with
+    a warning where its data cannot carry it."""
+    from .utils.baselines import (
+        BASELINE_METHODS,
+        evaluate_baseline_performance,
+        evaluate_baseline_survival_performance,
+    )
+    from .utils.csvio import write_rows
+
+    stats, preds = [], []
+    for var in _split(args.target_variables) or []:
+        try:
+            s, p = evaluate_baseline_performance(
+                train_dataset, test_dataset, var, list(BASELINE_METHODS),
+                n_jobs=args.threads, device=device,
+            )
+        except ValueError as e:  # e.g. an entirely unlabeled cohort
+            print(f"[WARN] Skipping baseline comparison for '{var}': {e}")
+            continue
+        stats += s
+        preds += p
+    if args.surv_event_var and args.surv_time_var:
+        try:
+            s, p = evaluate_baseline_survival_performance(
+                train_dataset, test_dataset, args.surv_time_var, args.surv_event_var,
+                n_jobs=args.threads, device=device,
+            )
+        except (ValueError, ZeroDivisionError) as e:
+            # empty or degenerate survival columns (no admissible pair)
+            print(f"[WARN] Skipping survival baseline comparison: {e}")
+        else:
+            stats += s
+            preds += p
+    if stats:
+        write_rows(os.path.join(args.outdir, f"{args.prefix}.baseline.stats.csv"), stats)
+        write_rows(os.path.join(args.outdir, f"{args.prefix}.baseline.predicted_labels.csv"),
+                   preds)
 
 
 def run_training(args, device):
     """Import, select features, tune, train, evaluate and save
     (flexynesis_tpu/__main__.py:488-570). Returns the trained model, with the
-    phases' host-clock seconds as its ``cli_phases``."""
+    phases' host-clock seconds as its ``cli_phases``; a classical
+    ``--model_class`` writes its tables and returns None."""
     from .interpret.attribution import check_config_attributable
     from .models import MODEL_REGISTRY
     from .train.hpo import HyperparameterTuning
     from .train.space import load_and_convert_config
     from .utils.csvio import write_rows
+    from .utils.profiling import PhaseTimer, trace
 
-    if not args.disable_marker_finding and args.config_path:
+    if args.model_class in DEEP_MODELS and not args.disable_marker_finding and args.config_path:
         check_config_attributable(
             args.model_class, load_and_convert_config(args.config_path).get(args.model_class))
     t0 = time.perf_counter()
     phases = {}
-    data_importer = _build_importer(args, device)
-    train_dataset, test_dataset = data_importer.import_data()
+    timer = PhaseTimer(enabled=args.profile, device=device)
+    trace_dir = os.path.join(args.outdir, f"{args.prefix}.profile") if args.profile else None
+    with timer.phase("data_import"):
+        data_importer = _build_importer(args, device)
+        train_dataset, test_dataset = data_importer.import_data()
     for layer, rows in data_importer.feature_logs.items():
         write_rows(os.path.join(args.outdir, f"{args.prefix}.feature_logs.{layer}.csv"), rows)
+    if args.model_class not in DEEP_MODELS:
+        run_classical(args, train_dataset, test_dataset, device)
+        return None
     if args.model_class == "GNN":
         train_dataset = _load_graph(args, train_dataset)
         # the test split reuses the training node set and interaction graph
@@ -340,32 +438,40 @@ def run_training(args, device):
         pipeline_ask=args.hpo_pipeline == "True",
         checkpoint_path=args.hpo_checkpoint,
     )
-    model, best_params = tuner.perform_tuning(hpo_patience=args.hpo_patience)
+    with timer.phase("hpo_training"), trace(trace_dir, device):
+        model, best_params = tuner.perform_tuning(hpo_patience=args.hpo_patience)
     phases["hpo_fit"] = time.perf_counter() - t
     print(f"[INFO] Best hyperparameters: {best_params}")
     if args.finetuning_samples > 0:
         t = time.perf_counter()
-        _finetune(args, model, test_dataset)
+        with timer.phase("finetuning"):
+            _finetune(args, model, test_dataset)
         phases["finetuning"] = time.perf_counter() - t
 
     t = time.perf_counter()
-    phases["marker_finding"] = _write_eval_outputs(args, model, train_dataset, test_dataset)
+    with timer.phase("evaluation_outputs"):
+        phases["marker_finding"] = _write_eval_outputs(args, model, train_dataset, test_dataset)
     phases["evaluation_outputs"] = time.perf_counter() - t - phases["marker_finding"]
+    if args.evaluate_baseline_performance:
+        t = time.perf_counter()
+        _run_baseline_comparison(args, train_dataset, test_dataset, device)
+        phases["baselines"] = time.perf_counter() - t
     t = time.perf_counter()
     _save_model_files(args, model, data_importer)
     phases["save"] = time.perf_counter() - t
+    timer.report(os.path.join(args.outdir, f"{args.prefix}.profile.json")
+                 if args.profile else None)
     model.cli_phases = phases
     print(f"[INFO] Total wall time: {time.perf_counter() - t0:.1f}s")
     return model
 
 
 def _check_training_args(parser, args) -> None:
-    """The JAX CLI's argument checks, then what the port does not run yet."""
+    """The JAX CLI's argument checks, then the port's JSON-artifact rule."""
     missing = [k for k in ("data_path", "model_class", "data_types") if not getattr(args, k)]
     if missing:
         parser.error("required in training mode: " + ", ".join(f"--{m}" for m in missing))
-    deep = args.model_class in ("DirectPred", "supervised_vae", "MultiTripletNetwork",
-                                "CrossModalPred", "GNN")
+    deep = args.model_class in DEEP_MODELS
     if deep and not args.target_variables and not (args.surv_event_var and args.surv_time_var):
         parser.error("either --target_variables or both survival variables required")
     if (args.surv_event_var is None) != (args.surv_time_var is None):
@@ -374,19 +480,7 @@ def _check_training_args(parser, args) -> None:
         parser.error(f"--fusion_type early is not applicable to {args.model_class}")
     if args.model_class == "GNN" and args.covariates:
         parser.error("--covariates are not supported for GNN models")
-
-    if not deep:
-        raise NotImplementedError(
-            f"--model_class {args.model_class} (classical baselines) is not ported "
-            "to flexynesis_torch yet (ROADMAP item 13)"
-        )
-    if args.evaluate_baseline_performance:
-        raise NotImplementedError(
-            "--evaluate_baseline_performance is not ported yet (ROADMAP item 13)"
-        )
-    if args.profile:
-        raise NotImplementedError("--profile is not ported yet (ROADMAP item 13)")
-    if not args.safetensors:
+    if deep and not args.safetensors:
         raise NotImplementedError(
             "joblib artifacts hold pickled sklearn objects that flexynesis_torch "
             "does not write; pass --safetensors for JSON artifacts"
@@ -411,7 +505,7 @@ def _write_feature_importances(args, model, test_dataset) -> None:
     one table per method, every variable of the model, 25 steps or draws.
     ``--marker_sample_cap`` attributes a seeded subsample; the JAX package's
     sharding of the sample axis over several devices waits for multi-GPU
-    (ROADMAP A item 7)."""
+    (ROADMAP A item 8)."""
     import numpy as np
 
     from .utils.csvio import write_rows
@@ -497,9 +591,11 @@ def parse_args(argv=None):
 
 def main(argv=None) -> int:
     args, device = parse_args(argv)
-    if args.pretrained_model:
-        return run_inference(args, device)
-    run_training(args, device)
+    os.environ.setdefault("OMP_NUM_THREADS", str(args.threads))
+    with host_threads(args.threads, device):
+        if args.pretrained_model:
+            return run_inference(args, device)
+        run_training(args, device)
     return 0
 
 

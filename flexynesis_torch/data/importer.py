@@ -28,9 +28,8 @@ standard deviation use ddof=1 and skip NaN, quantiles interpolate linearly,
 medians skip NaN; the scaler uses ddof=0 and gives zero-variance features a
 scale of 1. One difference: the JAX package orders samples by Python set
 iteration (its ``get_labels``), which changes with the hash seed; here samples
-keep the order of the first layer's file.
-
-Not ported yet: HDF5 folders (``NotImplementedError``, ROADMAP A item 4).
+keep the order of the first layer's file. HDF5 folders take the subclass
+``data/h5.py::H5DataImporter``.
 """
 
 from __future__ import annotations
@@ -167,12 +166,6 @@ class DataImporter:
     # ------------------------------------------------------------------ IO
 
     def validate_data_folders(self, training_path: str, testing_path: str) -> None:
-        for split, p in (("training", training_path), ("testing", testing_path)):
-            if any(os.path.exists(os.path.join(p, f"{dt}.h5")) for dt in self.data_types):
-                raise NotImplementedError(
-                    "HDF5 data folders are not ported to flexynesis_torch yet "
-                    "(ROADMAP A item 4); use CSV files"
-                )
         required = {"clin.csv"} | {f"{dt}.csv" for dt in self.data_types}
         for split, p in (("training", training_path), ("testing", testing_path)):
             missing = required - set(os.listdir(p))
@@ -181,16 +174,18 @@ class DataImporter:
                     f"Missing files in {split} folder: {', '.join(sorted(missing))}"
                 )
 
+    def read_layer(self, folder_path: str, name: str) -> Layer:
+        fp = os.path.join(folder_path, f"{name}.csv")
+        print(f"[INFO] Importing {fp}...")
+        return Layer(*read_matrix_csv(fp))
+
     def read_data(self, folder_path: str) -> dict:
-        data = {}
-        for name in ["clin"] + self.data_types:
-            fp = os.path.join(folder_path, f"{name}.csv")
-            print(f"[INFO] Importing {fp}...")
-            if name == "clin":
-                # mixed-type columns: the Python reader, as JAX keeps pandas here
-                data[name] = Clinical(*read_table(fp))
-            else:
-                data[name] = Layer(*read_matrix_csv(fp))
+        fp = os.path.join(folder_path, "clin.csv")
+        print(f"[INFO] Importing {fp}...")
+        # mixed-type columns: the Python reader, as JAX keeps pandas here
+        data = {"clin": Clinical(*read_table(fp))}
+        for name in self.data_types:
+            data[name] = self.read_layer(folder_path, name)
         return data
 
     def subsample(self, dat: dict, n: int) -> dict:

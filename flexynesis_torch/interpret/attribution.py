@@ -124,7 +124,7 @@ def gradient_shap(forward, x: Tensors, classes: Sequence[int], n_samples: int,
     if stdevs > 0:
         raise NotImplementedError(
             "GradientShap with input noise (stdevs > 0) is not ported to "
-            "flexynesis_torch yet (ROADMAP A item 6); the CLI draws without noise"
+            "flexynesis_torch yet (ROADMAP A item 7); the CLI draws without noise"
         )
     first = next(iter(x.values()))
     n_batch = first.shape[0]

@@ -7,6 +7,9 @@ and ``mps`` are not targets of this package and raise.
 
 from __future__ import annotations
 
+import contextlib
+from typing import Optional
+
 import torch
 
 DEVICE_CHOICES = ("auto", "tpu", "cuda", "mps", "cpu")
@@ -29,3 +32,19 @@ def resolve_device(preference="auto") -> torch.device:
         f"device '{preference}' is not supported by flexynesis_torch "
         "(use cuda or cpu; flexynesis_tpu serves TPUs)"
     )
+
+
+@contextlib.contextmanager
+def host_threads(n: Optional[int], device):
+    """torch's CPU threads set to ``n`` while the block runs, where its work
+    runs on the CPU (the CLI's ``--threads``, the baselines' ``n_jobs``), and
+    restored after; on the card, or for ``n`` None, nothing changes."""
+    if n is None or resolve_device(device).type != "cpu":
+        yield
+        return
+    before = torch.get_num_threads()
+    torch.set_num_threads(int(n))
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)

@@ -146,11 +146,20 @@ def test_merge_logs_is_an_outer_merge():
 
 
 def test_not_ported_options_raise(tmp_path):
+    """HDF5 folders raised here before they were ported: the CSV importer now
+    asks for the CSV files (the CLI routes such folders to
+    ``data/h5.py::H5DataImporter``, ``tests/test_torch_h5.py``), and the
+    HDF5 importer refuses a file that is not HDF5."""
+    from flexynesis_torch.data.h5 import H5DataImporter
+
     for split in ("train", "test"):
         os.makedirs(tmp_path / split)
         (tmp_path / split / "gex.h5").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="HDF5"):
+        (tmp_path / split / "clin.csv").write_text(",x\ns1,1\n")
+    with pytest.raises(ValueError, match="gex.csv"):
         DataImporter(str(tmp_path), ["gex"], device="cpu").import_data()
+    with pytest.raises(ValueError, match="HDF5"):
+        H5DataImporter(str(tmp_path), ["gex"], device="cpu").import_data()
 
 
 @pytest.mark.parametrize("device", ["auto", "cuda"])

@@ -256,7 +256,7 @@ def test_port_saved_model_loads_in_jax(trained, tmp_path):
 def test_unported_paths_raise(trained, tmp_path):
     args = _infer_args(trained["weights"], trained["artifacts"], trained["test"],
                        str(tmp_path))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):  # training: not ported
+    with pytest.raises(NotImplementedError, match="safetensors"):  # joblib artifacts
         main(["--data_path", "x", "--model_class", "DirectPred", "--data_types", "gex",
               "--target_variables", "y", "--profile", "--device", "cpu"])
     with pytest.raises(ValueError, match="tpu"):

@@ -1,6 +1,8 @@
 """flexynesis_torch and chip_smoke.py stand alone: they import no JAX, no
 part of the JAX package, and nothing the card's machine lacks (pandas,
-sklearn, safetensors, joblib) at module level; and the CLI's default device
+sklearn, safetensors, joblib, h5py) at module level; the walk covers every
+module of the package, the HDF5 reader, the converter, the profiler and the
+classical estimators included; and the CLI's default device
 is the card, with no fallback to the CPU."""
 
 import ast
@@ -15,7 +17,7 @@ from flexynesis_torch.__main__ import main
 
 REPO = Path(__file__).resolve().parent.parent
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "flexynesis_tpu", "pandas",
-             "sklearn", "safetensors", "joblib"}
+             "sklearn", "safetensors", "joblib", "h5py"}
 SOURCES = sorted((REPO / "flexynesis_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
 
 
@@ -46,7 +48,10 @@ def test_cli_module_loads_without_forbidden_modules():
         "import flexynesis_torch.models, flexynesis_torch.kernels.mmd\n"
         "import flexynesis_torch.models.supervised_vae, flexynesis_torch.models.crossmodal_pred\n"
         "import flexynesis_torch.interpret.attribution, flexynesis_torch.utils.prng\n"
-        "import flexynesis_torch.data.fastcsv\n"
+        "import flexynesis_torch.data.fastcsv, flexynesis_torch.data.h5\n"
+        "import flexynesis_torch.csv_to_h5, flexynesis_torch.utils.hdf5\n"
+        "import flexynesis_torch.utils.profiling, flexynesis_torch.utils.baselines\n"
+        "import flexynesis_torch.utils.classical\n"
         "new = {m.split('.')[0] for m in set(sys.modules) - before}\n"
         f"bad = sorted(set({sorted(FORBIDDEN)!r}) & new)\n"
         "assert not bad, bad\n"
@@ -77,3 +82,15 @@ def test_training_mode_raises_without_cuda(device, tmp_path, monkeypatch):
               "--safetensors", "--disable_marker_finding", "--outdir",
               str(tmp_path / "out"), "--device", device])
     assert not any(tmp_path.iterdir())
+
+
+def test_walk_covers_this_slices_modules():
+    names = {p.relative_to(REPO).as_posix() for p in SOURCES}
+    assert {"flexynesis_torch/utils/hdf5.py", "flexynesis_torch/data/h5.py",
+            "flexynesis_torch/csv_to_h5.py", "flexynesis_torch/utils/profiling.py",
+            "flexynesis_torch/utils/baselines.py",
+            "flexynesis_torch/utils/classical/tree.py",
+            "flexynesis_torch/utils/classical/ensemble.py",
+            "flexynesis_torch/utils/classical/svm.py",
+            "flexynesis_torch/utils/classical/model_selection.py",
+            "flexynesis_torch/utils/classical/pca.py"} <= names

@@ -4,8 +4,11 @@
 * a model it trained (fused blocks, kernel B1 in training) loads in the JAX
   package's inference CLI, whose outputs match the port's inference CLI on the
   same test folder;
-* the options that are not ported yet raise ``NotImplementedError``
-  (``--use_cv`` and the VAE classes' ``--hpo_batch 4`` run since their trial
+* the options that raised ``NotImplementedError`` before they were ported
+  now pass the argument checks (``--evaluate_baseline_performance``,
+  ``--profile`` and the classical ``--model_class`` run in
+  ``tests/test_torch_{baselines,profiling}.py``; ``--use_cv`` and the VAE
+  classes' ``--hpo_batch 4`` run since their trial
   engine was ported: ``tests/test_torch_cv.py`` and
   ``tests/test_torch_vae_trials.py`` run them through the CLI; the
   MultiTripletNetwork and GNN classes train since they were ported:
@@ -13,7 +16,12 @@
   ``--fusion_type early``, ``--finetuning_samples`` and ``--hpo_checkpoint``
   run since they were ported: ``tests/test_torch_{covariates,finetune,
   checkpoint}.py`` run them);
-* a GNN run refuses early fusion and covariates as the JAX CLI does.
+* a GNN run refuses early fusion and covariates as the JAX CLI does;
+* an artifact failure only warns, as in JAX: the run exits 0 and still
+  writes the weights and config;
+* ``--threads`` sets ``OMP_NUM_THREADS`` where it is absent, leaves it
+  where it is set, sets torch's threads for a CPU run (restored after it)
+  and reaches the baselines as ``n_jobs``.
 
 Tolerance for the two inference CLIs: rtol=1e-4, atol=1e-5 (f32)."""
 
@@ -21,8 +29,10 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from flexynesis_tpu.__main__ import main as jax_main
+from flexynesis_torch import __main__ as cli
 from flexynesis_torch.__main__ import main
 from flexynesis_torch.utils.csvio import read_matrix, read_table
 from flexynesis_torch.utils.synthetic import write_synthetic_folder
@@ -107,10 +117,20 @@ def test_port_trained_model_serves_in_the_jax_cli(folder, trained):
     (["--profile"], "item 13"),
     (["--model_class", "RandomForest"], "item 13"),
 ])
-def test_not_ported_options_raise(folder, tmp_path, extra, item):
-    args = train_args(folder, tmp_path / "out") + extra
-    with pytest.raises(NotImplementedError, match=item):
-        main(args)
+def test_not_ported_options_raise(folder, tmp_path, monkeypatch, extra, item):
+    """These options raised before any work, citing ROADMAP ``item``; since
+    they were ported a run with them passes every check and reaches the data
+    import (the whole runs are in ``tests/test_torch_{baselines,profiling}.py``)."""
+
+    class Reached(Exception):
+        pass
+
+    def importer(args, device):
+        raise Reached
+
+    monkeypatch.setattr(cli, "_build_importer", importer)
+    with pytest.raises(Reached):
+        main(train_args(folder, tmp_path / "out") + extra)
 
 
 @pytest.mark.parametrize("extra,message", [
@@ -131,3 +151,65 @@ def test_joblib_artifacts_and_marker_finding_raise(folder, tmp_path, drop):
     args = [a for a in train_args(folder, tmp_path / "out") if a != drop]
     with pytest.raises(NotImplementedError):
         main(args)
+
+
+def test_artifact_failure_only_warns(folder, tmp_path, monkeypatch, capsys):
+    from flexynesis_torch import inference
+
+    def broken(*a, **k):
+        raise RuntimeError("no artifacts today")
+
+    monkeypatch.setattr(inference, "build_artifacts", broken)
+    out = tmp_path / "out"
+    assert main(train_args(folder, out)) == 0
+    assert "[WARN] Could not write inference artifacts: no artifacts today" in \
+        capsys.readouterr().out
+    assert (out / "job.final_model.safetensors").exists()
+    assert (out / "job.final_model_config.json").exists()
+    assert not (out / "job.artifacts.json").exists()
+
+
+@pytest.mark.parametrize("preset", [None, "3"])
+def test_threads_set_omp_num_threads(folder, tmp_path, monkeypatch, preset):
+    if preset is None:
+        monkeypatch.delenv("OMP_NUM_THREADS", raising=False)
+    else:
+        monkeypatch.setenv("OMP_NUM_THREADS", preset)
+    seen = {}
+
+    def classical(args, train, test, device):
+        seen["n_jobs"] = args.threads
+        seen["torch_threads"] = torch.get_num_threads()
+
+    monkeypatch.setattr(cli, "run_classical", classical)
+    before = torch.get_num_threads()
+    assert main(["--data_path", str(folder / "data"), "--model_class", "SVM",
+                 "--data_types", "gex", "--target_variables", "subtype",
+                 "--features_min", "10", "--threads", "7", "--device", "cpu",
+                 "--outdir", str(tmp_path / "out")]) == 0
+    assert os.environ["OMP_NUM_THREADS"] == (preset or "7")
+    assert seen == {"n_jobs": 7, "torch_threads": 7}
+    assert torch.get_num_threads() == before
+
+
+def test_threads_reach_the_baselines_as_n_jobs(tmp_path, monkeypatch):
+    import argparse
+
+    from flexynesis_torch.utils import baselines
+
+    calls = []
+
+    def record(*a, n_jobs=None, **k):
+        calls.append(n_jobs)
+        return [], []
+
+    monkeypatch.setattr(baselines, "evaluate_baseline_performance", record)
+    monkeypatch.setattr(baselines, "evaluate_baseline_survival_performance", record)
+    args = argparse.Namespace(target_variables="subtype", surv_event_var="E",
+                              surv_time_var="T", threads=5, outdir=str(tmp_path),
+                              prefix="job", model_class="SVM")
+    cli._run_baseline_comparison(args, None, None, "cpu")  # the three, then survival
+    cli.run_classical(args, None, None, "cpu")
+    args.model_class = "RandomSurvivalForest"
+    cli.run_classical(args, None, None, "cpu")
+    assert calls == [5, 5, 5, 5]
