@@ -174,7 +174,36 @@ Phases (any failure exits nonzero):
    kernel matrix) and a GradientBoosting fit (training and held-out rows
    within 1e-9), and one fit of
    each estimator at its grid's middle point at the headline width (the
-   1600 training rows of a fold of phase 5's import x 3000 features), timed.
+   1600 training rows of a fold of phase 5's import x 3000 features), timed;
+13. the analysis surface (after phase 12; no kernel of the port lies on it,
+   B1, B2 and B3 launch no time): (a) ``python -m
+   flexynesis_torch.coexpression``'s entry point, Spearman then Pearson
+   (threshold 0.5, top-k 5), over 20,000 genes x 1,000 samples with 400
+   planted modules of 25 genes (the 10,000 others independent): every
+   planted pair found, the seconds of reading, ranking, the Gram products
+   with edge selection, the gather and the write, peak allocated memory and
+   the edge count beside the Gram's FLOP bound; the same Pearson run with
+   ``--max_genes 12000``: its genes the most variable, its edges the full
+   network's among them, its seconds by part; then the sweep over 4,000
+   genes of Poisson counts (ties) on the card against the CPU, both
+   methods: the same edges away from the threshold, scores within 1e-5;
+   (b) the GNN tutorial's flow on phase 10's GNN folder: a Pearson network
+   (0.3, top-k 5) of its train/gex.csv (none from the raw file, whose every
+   gene holds NaN cells, as in JAX; so from the file with each gene's NaN
+   cells set to its median), then a GNN through the training CLI with
+   ``--user_graph`` on it (one trial, 2 epochs): its node and edge counts and
+   its output files; (c) an unfused DirectPred with a survival head
+   (OS_STATUS / OS_MONTHS) on phase 5's folder with marker finding, then the
+   survival tutorial's steps on its test risk on the card and on the CPU
+   (the optimal cut-off and its log-rank test, Kaplan-Meier, ``build_cox_model``
+   on the top 5 markers with the AUC at the median time): the same cut-off
+   and fold C-indices, Cox coefficients and standard errors within 1e-8
+   relative; (d) on that run's test embeddings, silhouette-optimal KMeans
+   over k = 2..10, Louvain on the 15-NN graph and AMI/ARI against the
+   subtypes, card against CPU (the same labels and k, silhouettes within
+   1e-8), and the Sinkhorn transport cost between the cohort's halves with
+   a shift planted in one, and their optimal transport alignment, card
+   against CPU (1e-5 relative, 1e-4), the alignment lowering the cost.
 
 (The port groups supervised_vae suggestions by architecture identity, as
 the JAX tuner does: its class name ``SupervisedVAE`` is not the
@@ -4171,6 +4200,464 @@ def baseline_phase(workdir: Path, importer_cache: "ImportOnce") -> tuple:
     return {f"baselines_{k}": v for k, v in runs.items()}, summary
 
 
+# ------------------------------------------- phase 13: the analysis surface
+
+# co-expression at a cohort's width: planted modules of genes driven by one
+# shared factor each (|r| about 0.6-0.9 within a module), the other genes
+# independent
+COEXP_GENES, COEXP_SAMPLES, COEXP_MODULES, COEXP_MODULE_SIZE = 20000, 1000, 400, 25
+COEXP_THRESHOLD, COEXP_TOP_K = 0.5, 5
+COEXP_CHECK_GENES = 4000  # Poisson counts (ties), card against CPU
+COEXP_MAX_GENES = 12000  # the CLI's --max_genes on the cohort's file
+COEXP_TOL = 1e-5  # scores: float32 Gram products in two summation orders
+EDGE_BAND = 1e-6  # pairs this close to the threshold may part between devices
+GNN_COEXP_THRESHOLD, GNN_COEXP_EPOCHS = 0.3, 2  # the GNN tutorial's network, 2 epochs
+SURV_EPOCHS = 5  # the survival DirectPred, cut to 5 epochs
+SURV_MARKERS = 5  # the Cox model's covariates: the top markers of the survival target
+COX_RTOL = 1e-8  # float64 Newton on both devices
+CLUSTER_TOL = 1e-8  # float64 silhouettes
+SINKHORN_RTOL, ALIGN_TOL = 1e-5, 1e-4  # float32 Sinkhorn; the barycentric projection
+
+
+def write_fixed_csv(path: Path, rows, columns, X, decimals: int = 3) -> None:
+    """A rows x columns CSV of X rounded to ``decimals``, each cell of fixed
+    width (sign or 0, two integer digits, the decimals), formatted by numpy:
+    seconds for 20 million cells where a Python loop takes minutes. |X| < 100."""
+    import numpy as np
+
+    q = np.rint(np.abs(X) * 10 ** decimals).astype(np.int64)
+    width = 4 + decimals  # sign, two digits, the point, the decimals, the comma
+    cells = np.empty(q.shape + (width,), dtype=np.uint8)
+    cells[..., 0] = np.where(X < 0, ord("-"), ord("0"))
+    cells[..., 1] = 48 + q // 10 ** (decimals + 1) % 10
+    cells[..., 2] = 48 + q // 10 ** decimals % 10
+    cells[..., 3] = ord(".")
+    for d in range(decimals):
+        cells[..., 4 + d] = 48 + q // 10 ** (decimals - 1 - d) % 10
+    cells[..., -1] = ord(",")
+    cells[:, -1, -1] = ord("\n")
+    with open(path, "wb") as fh:
+        fh.write(("," + ",".join(columns) + "\n").encode())
+        for name, row in zip(rows, cells.reshape(len(rows), -1)):
+            fh.write(name.encode() + b",")
+            fh.write(row.tobytes())
+
+
+def planted_expression(seed: int, genes: int, samples: int, modules: int, size: int):
+    """log2-expression-like values (8 + 1.5 x), x = a shared factor times a
+    loading of 0.8-1.6 and random sign plus noise of sd 0.5 for the genes of
+    each module (the first modules x size genes), standard normal for the
+    rest; to three decimals."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(genes, samples))
+    n_mod = modules * size
+    factors = rng.normal(size=(modules, samples))
+    load = rng.uniform(0.8, 1.6, n_mod) * rng.choice([-1.0, 1.0], n_mod)
+    X[:n_mod] = load[:, None] * np.repeat(factors, size, axis=0) + 0.5 * X[:n_mod]
+    return np.round(np.clip(8 + 1.5 * X, 0, 99.999), 3)
+
+
+def read_edges(path: Path):
+    """(GeneA positions, GeneB positions, scores) of a network file whose
+    genes are named g0, g1, ..."""
+    import numpy as np
+
+    with open(path) as fh:
+        header = fh.readline().strip()
+        if header != "GeneA,GeneB,Score":
+            fail(f"{path}: header {header!r}")
+        rows = [line.rstrip("\n").split(",") for line in fh]
+    return (np.array([int(r[0][1:]) for r in rows], dtype=np.int64),
+            np.array([int(r[1][1:]) for r in rows], dtype=np.int64),
+            np.array([float(r[2]) for r in rows]))
+
+
+def coexpression_cohort(workdir: Path) -> dict:
+    """Phase 13 (a): the co-expression CLI over COEXP_GENES x COEXP_SAMPLES
+    with planted modules, Spearman then Pearson: every planted pair found
+    (the seconds of each part, peak allocated memory, edge count); then the
+    sweep at COEXP_CHECK_GENES genes of Poisson counts on the card against
+    the CPU for both methods."""
+    import numpy as np
+    import torch
+    from flexynesis_torch import coexpression
+
+    t = time.perf_counter()
+    X = planted_expression(13, COEXP_GENES, COEXP_SAMPLES, COEXP_MODULES, COEXP_MODULE_SIZE)
+    genes = [f"g{i}" for i in range(COEXP_GENES)]
+    path = workdir / "coexp_input.csv"
+    write_fixed_csv(path, genes, [f"S{j:04d}" for j in range(COEXP_SAMPLES)], X)
+    print(f"analysis: wrote {COEXP_GENES} genes x {COEXP_SAMPLES} samples "
+          f"({path.stat().st_size / 2 ** 20:.1f} MiB; {COEXP_MODULES} modules of "
+          f"{COEXP_MODULE_SIZE}) in {time.perf_counter() - t:.2f} s", flush=True)
+    n_mod = COEXP_MODULES * COEXP_MODULE_SIZE
+    planted = {(a, b) for m in range(COEXP_MODULES) for a in range(m * COEXP_MODULE_SIZE,
+                                                                   (m + 1) * COEXP_MODULE_SIZE)
+               for b in range(a + 1, (m + 1) * COEXP_MODULE_SIZE)}
+    flops = 2.0 * COEXP_GENES ** 2 * COEXP_SAMPLES
+    summary = {"genes": COEXP_GENES, "samples": COEXP_SAMPLES, "planted_edges": len(planted),
+               "gram_flops": flops, "gram_bound_ms": f32_ms(flops)}
+    for method in ("spearman", "pearson"):
+        out = workdir / f"coexp_{method}.csv"
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        timings = coexpression.main(["--input", str(path), "--output", str(out), "--method",
+                                     method, "--correlation_threshold", str(COEXP_THRESHOLD),
+                                     "--top_k", str(COEXP_TOP_K), "--device", DEVICE])
+        cli_s = time.perf_counter() - t
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        a, b, score = read_edges(out)
+        found = set(zip(a.tolist(), b.tolist()))
+        missing = planted - found
+        if missing:
+            fail(f"analysis: {method} network misses {len(missing)} of {len(planted)} planted "
+                 f"edges, e.g. {sorted(missing)[:3]}")
+        if not (np.abs(score) >= COEXP_THRESHOLD).all() or not (a < b).all():
+            fail(f"analysis: {method} network holds a pair below the threshold or unordered")
+        within = np.abs(score[(a < n_mod) & (b < n_mod) & (a // COEXP_MODULE_SIZE
+                                                          == b // COEXP_MODULE_SIZE)])
+        full = dict(zip(zip(a.tolist(), b.tolist()), score.tolist()))
+        summary[method] = {"cli_s": cli_s, "seconds": timings, "edges": len(score),
+                           "extra_edges": len(found - planted), "peak_gib": peak,
+                           "within_module_abs_r": [float(within.min()), float(within.max())]}
+        print(f"analysis: coexpression CLI ({method}) on {DEVICE} {cli_s:.3f} s: "
+              + ", ".join(f"{k} {v:.3f} s" for k, v in timings.items())
+              + f"; {len(score)} edges, every planted edge found, {len(found - planted)} "
+              f"others; |r| within modules [{within.min():.3f}, {within.max():.3f}]; peak "
+              f"allocated {peak:.3f} GiB; Gram bound {f32_ms(flops):.2f} ms (f32, "
+              f"{flops:.3g} FLOP)", flush=True)
+    summary["max_genes"] = coexpression_max_genes(workdir, path, X, full)
+
+    rng = np.random.default_rng(14)
+    Z = planted_expression(15, COEXP_CHECK_GENES, COEXP_SAMPLES, COEXP_CHECK_GENES // 50,
+                           COEXP_MODULE_SIZE)
+    counts = rng.poisson(np.exp((Z - 8) / 3 + 1.0)).astype(np.float64)
+    small = [f"g{i}" for i in range(COEXP_CHECK_GENES)]
+    for method in ("spearman", "pearson"):
+        nets = {}
+        for device in (DEVICE, "cpu"):
+            t = time.perf_counter()
+            nets[device], _ = coexpression.build_network(
+                small, counts, method=method, correlation_threshold=COEXP_THRESHOLD,
+                top_k=COEXP_TOP_K, device=device)
+            print(f"analysis: {COEXP_CHECK_GENES}-gene {method} sweep of Poisson counts on "
+                  f"{device} {time.perf_counter() - t:.3f} s", flush=True)
+        g = dict(zip(zip(nets[DEVICE]["GeneA"], nets[DEVICE]["GeneB"]), nets[DEVICE]["Score"]))
+        c = dict(zip(zip(nets["cpu"]["GeneA"], nets["cpu"]["GeneB"]), nets["cpu"]["Score"]))
+        differ = set(g) ^ set(c)
+        band = [k for k in differ if abs(abs(g.get(k, c.get(k))) - COEXP_THRESHOLD) < EDGE_BAND]
+        if len(band) != len(differ):
+            fail(f"analysis: {method} edge sets differ card against cpu away from the "
+                 f"threshold: {sorted(set(differ) - set(band))[:3]}")
+        common = sorted(set(g) & set(c))
+        err = max(abs(g[k] - c[k]) for k in common) if common else 0.0
+        if not common or err > COEXP_TOL:
+            fail(f"analysis: {method} scores card against cpu: {len(common)} common edges, "
+                 f"max abs diff {err:.3e} (tol {COEXP_TOL})")
+        summary[f"check_{method}"] = {"edges": len(common), "max_abs_err": err,
+                                      "near_threshold_differ": len(band)}
+        print(f"analysis: {method} card against cpu: {len(common)} edges equal, "
+              f"{len(band)} within {EDGE_BAND} of the threshold differ; scores max abs diff "
+              f"{err:.3e} (tol {COEXP_TOL})", flush=True)
+    return summary
+
+
+def coexpression_max_genes(workdir: Path, path: Path, X, full: dict) -> dict:
+    """The co-expression CLI with ``--max_genes COEXP_MAX_GENES`` (Pearson)
+    on the cohort's file: its genes are the most variable ones (float64
+    sample variance of the written values; genes within 1e-6 relative of the
+    cut may fall either way, as the reader parses float32), and its edges are
+    the full Pearson network's among them (``full``: (a, b) -> score)."""
+    import numpy as np
+    import torch
+    from flexynesis_torch import coexpression
+
+    out = workdir / "coexp_max_genes.csv"
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    timings = coexpression.main(["--input", str(path), "--output", str(out), "--method",
+                                 "pearson", "--correlation_threshold", str(COEXP_THRESHOLD),
+                                 "--top_k", str(COEXP_TOP_K), "--max_genes",
+                                 str(COEXP_MAX_GENES), "--device", DEVICE])
+    cli_s = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    var = X.var(axis=1, ddof=1)
+    cut = np.sort(var)[-COEXP_MAX_GENES]
+    near = np.abs(var - cut) <= 1e-6 * cut
+    top, sure = var >= cut, (var >= cut) & ~near
+    a, b, score = read_edges(out)  # in the kept genes' order: each pair as (low, high)
+    got = dict(zip(zip(np.minimum(a, b).tolist(), np.maximum(a, b).tolist()), score.tolist()))
+    outside = [k for k in got if not (top | near)[list(k)].all()]
+    if outside:
+        fail(f"analysis: --max_genes {COEXP_MAX_GENES} network holds {len(outside)} edges of "
+             f"genes below the variance cut, e.g. {outside[:3]}")
+    want = {k for k in full if sure[list(k)].all()}
+    missing = [k for k in want - set(got) if abs(abs(full[k]) - COEXP_THRESHOLD) >= EDGE_BAND]
+    err = max(abs(got[k] - full[k]) for k in want & set(got))
+    if missing or err > COEXP_TOL:
+        fail(f"analysis: --max_genes {COEXP_MAX_GENES} network misses {len(missing)} edges of "
+             f"the full network among its genes (e.g. {missing[:3]}), or its scores differ "
+             f"by {err:.3e} (tol {COEXP_TOL})")
+    print(f"analysis: coexpression CLI (pearson, --max_genes {COEXP_MAX_GENES}) on {DEVICE} "
+          f"{cli_s:.3f} s: " + ", ".join(f"{k} {v:.3f} s" for k, v in timings.items())
+          + f"; {len(got)} edges, the full network's among the kept genes ({int(near.sum())} "
+          f"genes at the cut); scores max abs diff {err:.3e}; peak allocated {peak:.3f} GiB",
+          flush=True)
+    return {"cli_s": cli_s, "seconds": timings, "edges": len(got), "peak_gib": peak,
+            "genes_at_cut": int(near.sum()), "max_abs_err": err}
+
+
+def gnn_on_coexpression(workdir: Path):
+    """Phase 13 (b): the GNN tutorial's flow on phase 10's GNN folder: a
+    Pearson network (GNN_COEXP_THRESHOLD, top-k 5) of its train/gex.csv by
+    the co-expression CLI, then a GNN through the training CLI with
+    ``--user_graph`` on it (one trial, GNN_COEXP_EPOCHS epochs). Every gene
+    of that folder holds NaN cells (1 percent of cells), and a NaN
+    correlation is below any threshold, as in JAX: the raw file gives no
+    edge, so the network is built from the file with each gene's NaN cells
+    set to its median (the GNN's own node fill)."""
+    import numpy as np
+    from flexynesis_torch import coexpression
+    from flexynesis_torch.data.fastcsv import read_matrix_csv
+
+    data = workdir / "gnn_data"
+    raw = data / "train" / "gex.csv"
+    args = ["--method", "pearson", "--correlation_threshold", str(GNN_COEXP_THRESHOLD),
+            "--top_k", "5", "--device", DEVICE]
+    coexpression.main(["--input", str(raw), "--output", str(workdir / "gnn_coexp_raw.csv"), *args])
+    ra, rb, _ = read_edges(workdir / "gnn_coexp_raw.csv")
+    raw_edges = len(ra)
+    genes, samples, X = read_matrix_csv(str(raw))
+    has_nan = np.isnan(X).any(axis=1)
+    nan_genes = int(has_nan.sum())
+    if has_nan[ra].any() or has_nan[rb].any():
+        fail("analysis: the raw GNN matrix's network holds an edge of a gene with NaN cells")
+    filled = np.where(np.isnan(X), np.nanmedian(X, axis=1, keepdims=True), X)
+    inp = workdir / "gnn_coexp_input.csv"
+    write_fixed_csv(inp, genes, samples, filled, decimals=4)
+    net = workdir / "gnn_coexp_net.csv"
+    timings = coexpression.main(["--input", str(inp), "--output", str(net), *args])
+    n_edges = sum(1 for _ in open(net)) - 1
+    config = workdir / "gnn_coexp_hpo.yaml"
+    config.write_text(GNN_CONFIG % (LATENT, GNN_EMBED, GNN_CONVS, LR_FIXED, SUP_HIDDEN,
+                                    GNN_COEXP_EPOCHS, BATCH))
+    out = workdir / "gnn_coexp_out"
+    model, launches, cli_s = cli_run(train_args(data, config, out, DEVICE, "GNN",
+                                                ("--user_graph", str(net))), "analysis: GNN")
+    zoo_launches("analysis: GNN on the co-expression network", launches)
+    missing = [f for f in ("fit.stats.csv", "fit.predicted_labels.csv", "fit.embeddings_test.csv",
+                           "fit.final_model.safetensors", "fit.final_model_config.json")
+               if not (out / f).exists()]
+    if missing:
+        fail(f"analysis: the GNN on the co-expression network did not write {missing}")
+    node_edges = int(model.nw_dataset.edge_index.shape[1])
+    if model.n_nodes < 2 or node_edges == 0:
+        fail(f"analysis: GNN over {model.n_nodes} nodes and {node_edges} edges")
+    print(f"analysis: raw gex.csv {raw_edges} edges ({nan_genes} of {len(genes)} genes hold NaN); "
+          f"median-filled {n_edges} edges (" + ", ".join(f"{k} {v:.3f} s" for k, v in
+                                                       timings.items())
+          + f"); GNN through the training CLI {cli_s:.3f} s over {model.n_nodes} nodes and "
+          f"{node_edges} edges in the node set; launches (B1, B2, B3) {launches}", flush=True)
+    return launches, {"network_edges": n_edges, "seconds": timings, "gnn_cli_s": cli_s,
+                      "nodes": model.n_nodes, "node_set_edges": node_edges}
+
+
+def survival_steps(risk, time_, event, cox, device: str) -> dict:
+    """The survival tutorial's steps after training: the optimal cut-off of
+    the risk and its log-rank test, Kaplan-Meier per group, the Cox model on
+    the top markers with its 5-fold CV C-index and the AUC at the median
+    time; the Cox fits on ``device``."""
+    import numpy as np
+    from flexynesis_torch.utils.survival import (
+        KaplanMeier,
+        build_cox_model,
+        find_optimal_cutoff,
+        logrank_test,
+    )
+
+    cutoff, cutoff_p = find_optimal_cutoff(risk, time_, event)
+    if cutoff is None:
+        cutoff, cutoff_p = float(np.median(risk)), float("nan")
+    hi = risk > cutoff
+    lr = logrank_test(time_[hi], time_[~hi], event[hi], event[~hi])
+    km = {g: KaplanMeier().fit(time_[m], event[m]) for g, m in (("high", hi), ("low", ~hi))}
+    t = time.perf_counter()
+    model, metrics = build_cox_model(cox, "OS_MONTHS", "OS_STATUS",
+                                     eval_time=float(np.median(time_)), device=device)
+    return {"cutoff": cutoff, "cutoff_p": cutoff_p, "logrank": lr.test_statistic,
+            "logrank_p": lr.p_value, "km_median": {g: float(k.timeline[np.argmax(k.survival <= 0.5)])
+                                                   if (k.survival <= 0.5).any() else None
+                                                   for g, k in km.items()},
+            "cv_cindex": metrics["cv_cindex"], "cv_cindex_mean": metrics["cv_cindex_mean"],
+            "cv_auc_mean": metrics["cv_auc_mean"], "coef": model.params_,
+            "se": model.standard_errors_, "features": model.features_,
+            "cox_s": time.perf_counter() - t}
+
+
+def survival_analysis(workdir: Path):
+    """Phase 13 (c): an unfused DirectPred with a survival head on phase 5's
+    folder (OS_STATUS / OS_MONTHS) at the headline width with marker finding,
+    then the tutorial's steps on its test risk on the card and on the CPU:
+    the same cut-off, log-rank and Kaplan-Meier, the same fold C-indices,
+    Cox coefficients and standard errors within COX_RTOL."""
+    import numpy as np
+    from flexynesis_torch.data.inference_importer import DataImporterInference
+    from flexynesis_torch.utils.csvio import Table
+    from flexynesis_torch.utils.survival import build_cox_model
+
+    data = workdir / "fit_data"
+    config = workdir / "surv_hpo.yaml"
+    config.write_text((HPO_CONFIG % ("DirectPred", LATENT, HIDDEN_FACTOR, SUP_HIDDEN,
+                                     SURV_EPOCHS, BATCH)).replace("[true]", "[false]"))
+    out = workdir / "surv_out"
+    model, launches, cli_s = cli_run(
+        train_args(data, config, out, DEVICE, extra=("--surv_event_var", "OS_STATUS",
+                                                     "--surv_time_var", "OS_MONTHS"),
+                   markers=True), "analysis: survival DirectPred")
+    zoo_launches("analysis: the unfused survival DirectPred", launches)
+    cohort = DataImporterInference(str(data / "test"), str(out / "fit.artifacts.json"),
+                                   verbose=False).import_data()
+    risk = np.asarray(model.predict(cohort)["OS_STATUS"], dtype=float).ravel()
+    time_ = np.asarray(cohort.ann["OS_MONTHS"], dtype=float)
+    event = np.asarray(cohort.ann["OS_STATUS"], dtype=float)
+    keep = np.isfinite(time_) & np.isfinite(event) & np.isfinite(risk)
+    keys, imp = read_importances(out, "fit")["IntegratedGradients"]
+    rows = sorted((k for k in zip(keys, imp) if k[0][0] == "OS_STATUS"), key=lambda r: -r[1])
+    top = [(k[3], k[4]) for k, _ in rows[:SURV_MARKERS]]
+    cols = [np.asarray(cohort.dat[layer])[:, cohort.features[layer].index(name)]
+            for layer, name in top]
+    values = np.column_stack([*cols, time_, event])[keep]
+    cox = Table([s for s, k in zip(cohort.samples, keep) if k],
+                [f"{layer}:{name}" for layer, name in top] + ["OS_MONTHS", "OS_STATUS"], values)
+    steps = {d: survival_steps(risk[keep], time_[keep], event[keep], cox, d)
+             for d in (DEVICE, "cpu")}
+    card, cpu = steps[DEVICE], steps["cpu"]
+    for key in ("cutoff", "cutoff_p", "logrank", "logrank_p", "km_median", "features"):
+        if card[key] != cpu[key]:
+            fail(f"analysis: survival {key} differs card {card[key]} against cpu {cpu[key]}")
+    if card["cv_cindex"] != cpu["cv_cindex"]:
+        diff = np.max(np.abs(np.subtract(card["cv_cindex"], cpu["cv_cindex"])))
+        fail(f"analysis: fold C-indices differ card against cpu by {diff:.3e}")
+    errs = {}
+    for key in ("coef", "se"):
+        a, b = card[key], cpu[key]
+        errs[key] = float(np.max(np.abs(a - b) / np.abs(b)))
+        if not (np.isfinite(a).all() and errs[key] <= COX_RTOL):
+            fail(f"analysis: Cox {key} card against cpu rel diff {errs[key]:.3e} "
+                 f"(tol {COX_RTOL}): {a} vs {b}")
+    if not 0 < card["cv_cindex_mean"] < 1:
+        fail(f"analysis: CV C-index {card['cv_cindex_mean']}")
+    t = time.perf_counter()  # again, past the first call's one-time library loads
+    build_cox_model(cox, "OS_MONTHS", "OS_STATUS", eval_time=float(np.median(time_[keep])),
+                    device=DEVICE)
+    warm_s = time.perf_counter() - t
+    print(f"analysis: survival DirectPred through the training CLI {cli_s:.3f} s, launches "
+          f"{launches}; test risk of {int(keep.sum())} samples: cut-off {card['cutoff']:.5g} "
+          f"(p {card['cutoff_p']:.3g}), log-rank {card['logrank']:.3f} (p {card['logrank_p']:.3g}), "
+          f"KM medians {card['km_median']}; Cox on {card['features']}: coef "
+          f"{np.round(card['coef'], 5).tolist()}, fold C-indices "
+          f"{np.round(card['cv_cindex'], 5).tolist()} (mean {card['cv_cindex_mean']:.5f}), "
+          f"AUC at the median time {card['cv_auc_mean']}; card against cpu: cut-off, C-indices "
+          f"equal, coef rel {errs['coef']:.2e}, se rel {errs['se']:.2e} (tol {COX_RTOL}); "
+          f"build_cox_model {card['cox_s']:.3f} s on {DEVICE} (again {warm_s:.3f} s), "
+          f"{cpu['cox_s']:.3f} s on cpu", flush=True)
+    return launches, out, {"cli_s": cli_s, "cutoff": card["cutoff"],
+                           "cv_cindex_mean": card["cv_cindex_mean"],
+                           "cv_auc_mean": card["cv_auc_mean"], "cox_rel_err": errs,
+                           "build_cox_model_s": {DEVICE: card["cox_s"], "again": warm_s,
+                                                 "cpu": cpu["cox_s"]}}
+
+
+def clustering_and_batches(workdir: Path, out: Path) -> dict:
+    """Phase 13 (d): the survival run's test embeddings: silhouette-optimal
+    KMeans over k = 2..10, Louvain on the 15-NN graph and AMI/ARI against
+    the subtype labels, card against CPU (the same labels and k,
+    silhouettes within CLUSTER_TOL); the Sinkhorn transport cost between
+    the cohort's halves with a shift planted in the second, and the optimal
+    transport alignment, card against CPU (SINKHORN_RTOL, ALIGN_TOL); the
+    alignment must lower the cost."""
+    import numpy as np
+    from flexynesis_torch.utils.batch_correction import (
+        compute_transport_cost,
+        optimal_transport_align,
+    )
+    from flexynesis_torch.utils.clustering import (
+        compute_ami_ari,
+        get_optimal_clusters,
+        louvain_clustering,
+    )
+    from flexynesis_torch.utils.csvio import Table, read_matrix, read_table
+
+    samples, cols, E = read_matrix(str(out / "fit.embeddings_test.csv"))
+    names, clin_cols, clin = read_table(str(workdir / "fit_data" / "test" / "clin.csv"))
+    by_name = dict(zip(names, clin))
+    subtype = [by_name[s][clin_cols.index("subtype")] or np.nan for s in samples]
+    res, secs = {}, {}
+    for device in (DEVICE, "cpu"):
+        t = time.perf_counter()
+        labels, k, table = get_optimal_clusters(E, 2, 10, device=device)
+        louvain, _, _ = louvain_clustering(E, k=15, device=device)
+        secs[device] = time.perf_counter() - t
+        res[device] = (labels, k, table.column("silhouette_score"), louvain)
+    (lc, kc, sc, vc), (lp, kp, sp, vp) = res[DEVICE], res["cpu"]
+    sil_err = float(np.max(np.abs(sc - sp)))
+    if kc != kp or not (lc == lp).all() or sil_err > CLUSTER_TOL:
+        fail(f"analysis: KMeans card against cpu: k {kc} vs {kp}, labels equal "
+             f"{bool((lc == lp).all())}, silhouettes max diff {sil_err:.3e}")
+    if not np.array_equal(vc, vp):
+        fail("analysis: Louvain partitions differ card against cpu")
+    scores = {"kmeans": compute_ami_ari(lc, subtype), "louvain": compute_ami_ari(vc, subtype)}
+
+    half = len(E) // 2
+    batch = np.r_[np.zeros(half), np.ones(len(E) - half)].astype(int)
+    shifted = E.copy()
+    shifted[half:] = 1.5 * shifted[half:] + 2.0
+    cost, aligned, align_s = {}, {}, {}
+    for device in (DEVICE, "cpu"):
+        t = time.perf_counter()
+        cost[device] = compute_transport_cost(shifted, batch, device=device)
+        aligned[device] = optimal_transport_align(Table(samples, cols, shifted), batch,
+                                                  device=device)[0].values
+        align_s[device] = time.perf_counter() - t
+    cost_err = abs(cost[DEVICE] - cost["cpu"]) / abs(cost["cpu"])
+    align_err = float(np.max(np.abs(aligned[DEVICE] - aligned["cpu"])))
+    if cost_err > SINKHORN_RTOL or not np.allclose(aligned[DEVICE], aligned["cpu"],
+                                                   rtol=ALIGN_TOL, atol=ALIGN_TOL):
+        fail(f"analysis: transport card against cpu: cost rel {cost_err:.3e} (tol "
+             f"{SINKHORN_RTOL}), alignment max abs {align_err:.3e} (tol {ALIGN_TOL})")
+    after = compute_transport_cost(aligned[DEVICE], batch, device=DEVICE)
+    if not after < cost[DEVICE]:
+        fail(f"analysis: the alignment did not lower the transport cost: {cost[DEVICE]} -> {after}")
+    print(f"analysis: {len(E)} test embeddings x {E.shape[1]}: KMeans k = {kc} (silhouettes "
+          f"{np.round(sc, 4).tolist()}), Louvain {len(set(vc.tolist()))} communities; against "
+          f"subtype {json.dumps(scores)}; card against cpu equal, silhouettes max diff "
+          f"{sil_err:.2e}; {secs[DEVICE]:.3f} s on {DEVICE}, {secs['cpu']:.3f} s on cpu; "
+          f"transport cost {cost[DEVICE]:.5f} (rel diff {cost_err:.2e}), aligned "
+          f"{after:.5f} (max abs diff {align_err:.2e}); {align_s[DEVICE]:.3f} s on {DEVICE}, "
+          f"{align_s['cpu']:.3f} s on cpu", flush=True)
+    return {"k": kc, "ami_ari": scores, "silhouette_err": sil_err, "seconds": secs,
+            "transport_cost": cost[DEVICE], "aligned_cost": after, "cost_rel_err": cost_err,
+            "align_err": align_err, "transport_seconds": align_s}
+
+
+def analysis_phase(workdir: Path) -> tuple:
+    """Phase 13: co-expression at a cohort's width, the GNN on a
+    co-expression network, survival analysis after a survival DirectPred,
+    clustering and batch correction on its embeddings. No kernel of the port
+    lies on these paths: B1, B2 and B3 launch no time."""
+    t = time.perf_counter()
+    summary = {"coexpression": coexpression_cohort(workdir)}
+    gnn_launches, summary["gnn_coexpression"] = gnn_on_coexpression(workdir)
+    surv_launches, out, summary["survival"] = survival_analysis(workdir)
+    summary["clustering"] = clustering_and_batches(workdir, out)
+    summary["seconds"] = time.perf_counter() - t
+    print(f"analysis: phase 13 in {summary['seconds']:.1f} s", flush=True)
+    return {"analysis_gnn_coexpression": gnn_launches,
+            "analysis_survival_directpred": surv_launches}, summary
+
+
 def build_all(names):
     """Build the kernels' libraries and the CSV reader's, one compiler per
     source (nvcc, or g++ for the reader), started together."""
@@ -4363,7 +4850,8 @@ def main() -> int:
     trial_rows += ft_trial_rows
     h5_launches, h5_summary = h5_phase(workdir, (train_b1, train_b2))
     base_launches, base_summary = baseline_phase(workdir, importer_cache)
-    ft_launches = {**ft_launches, **h5_launches, **base_launches}
+    analysis_launches, analysis_summary = analysis_phase(workdir)
+    ft_launches = {**ft_launches, **h5_launches, **base_launches, **analysis_launches}
 
     trial_b1 = [r for r in trial_rows if r["kernel"] == "B1"]
     trial_b2 = [r for r in trial_rows if r["kernel"] == "B2"]
@@ -4411,6 +4899,7 @@ def main() -> int:
     print("finetune: summary " + json.dumps(ft_summary), flush=True)
     print("h5: summary " + json.dumps(h5_summary), flush=True)
     print("baselines: summary " + json.dumps(base_summary), flush=True)
+    print("analysis: summary " + json.dumps(analysis_summary, default=float), flush=True)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": entries}))
     print(card)

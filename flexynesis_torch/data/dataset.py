@@ -192,12 +192,12 @@ class MultiOmicDatasetNW:
         tensor[nan_mask] = np.broadcast_to(med, tensor.shape)[nan_mask]
         self.node_features = tensor
 
-        edges = [(node_pos[a], node_pos[b])
-                 for a, b in zip(interaction_df["protein1"], interaction_df["protein2"])
-                 if a in node_pos and b in node_pos]
-        if not edges:
+        ends = [np.fromiter((node_pos.get(g, -1) for g in interaction_df[col]), dtype=np.int64,
+                            count=len(interaction_df[col])) for col in ("protein1", "protein2")]
+        inside = (ends[0] >= 0) & (ends[1] >= 0)
+        if not inside.any():
             raise ValueError("Interaction network has no edges within the node set.")
-        self.edge_index = np.asarray(edges, dtype=np.int32).T  # (2, E)
+        self.edge_index = np.stack([e[inside] for e in ends]).astype(np.int32)  # (2, E)
 
         self.ann = dataset.ann
         self.variable_types = dataset.variable_types

@@ -201,30 +201,35 @@ def _to_float(cell: str) -> float:
     return np.nan if cell.strip() in _NA_VALUES else float(cell)
 
 
-def _numeric(cells: List[str]) -> bool:
-    """Whether pandas would give the column a numeric dtype: every cell a
-    number or one of its NA strings."""
+def _floats(cells: List[str]) -> Optional[np.ndarray]:
+    """The float64 values of a column pandas would give a numeric dtype
+    (every cell a number or one of its NA strings, read as NaN), else None.
+    Plain numbers convert in one numpy call; a column holding NA strings
+    takes the cell-by-cell path."""
     try:
-        for c in cells:
-            _to_float(c)
+        return np.asarray(cells, dtype=np.float64)
     except ValueError:
-        return False
-    return True
+        pass
+    try:
+        return np.array([_to_float(c) for c in cells], dtype=np.float64)
+    except ValueError:
+        return None
 
 
-def _as_str(cells: List[str]) -> List[str]:
+def _as_str(cells: List[str], floats: Optional[np.ndarray] = None) -> List[str]:
     """``astype(str)`` of the column as pandas would read it: numbers in
-    their dtype's repr, NA cells as 'nan'."""
-    if not _numeric(cells):
+    their dtype's repr, NA cells as 'nan'; ``floats`` the column's values
+    where it is numeric."""
+    if floats is None:
         return ["nan" if c in _NA_VALUES else c for c in cells]
-    values = [_to_float(c) for c in cells]
+    values = floats.tolist()
     if all(np.isfinite(v) and "." not in c and "e" not in c.lower()
            for v, c in zip(values, cells)):
         return [str(int(c)) for c in cells]
     return [str(v) for v in values]
 
 
-def _score_column(name: str, cells: List[str], role: str, position: int) -> float:
+def _score_column(name: str, is_numeric: bool, role: str, position: int) -> float:
     """Heuristic score for how well a column fits a role (geneA/geneB/score)."""
     name = str(name).lower()
     targets = {
@@ -242,7 +247,6 @@ def _score_column(name: str, cells: List[str], role: str, position: int) -> floa
     expected_pos = {"genea": 0, "geneb": 1, "score": 2}[role]
     if position == expected_pos:
         s += 15
-    is_numeric = _numeric(cells)
     if role == "score":
         s += 20 if is_numeric else -30
     else:
@@ -266,15 +270,19 @@ def read_user_graph(path: str, sep: Optional[str] = None, gene_a: Optional[str] 
             f"User graph file needs >=2 columns (GeneA, GeneB[, Score]); "
             f"got {len(header)} with separator '{sep}'"
         )
-    columns = {name: [r[j] if j < len(r) else "" for r in body]
-               for j, name in enumerate(header)}
+    width = len(header)
+    if any(len(r) < width for r in body):  # short rows end in empty cells
+        body = [r + [""] * (width - len(r)) for r in body]
+    columns = dict(zip(header, (list(c) for c in zip(*body)))) if body else \
+        {name: [] for name in header}
     cols = list(header)
+    floats = {c: _floats(columns[c]) for c in cols}  # each column parsed once
     picked: Dict[str, str] = {}
     for role, override in (("genea", gene_a), ("geneb", gene_b), ("score", score_col)):
         if override is not None:
             picked[role] = override
             continue
-        scores = {c: _score_column(c, columns[c], role, cols.index(c))
+        scores = {c: _score_column(c, floats[c] is not None, role, cols.index(c))
                   for c in cols if c not in picked.values()}
         if not scores:
             continue  # e.g. 2-column files have no score candidate left
@@ -284,21 +292,24 @@ def read_user_graph(path: str, sep: Optional[str] = None, gene_a: Optional[str] 
 
     if "genea" not in picked or "geneb" not in picked:
         raise ValueError("Could not identify GeneA/GeneB columns in user graph.")
-    a = _as_str(columns[picked["genea"]])
-    b = _as_str(columns[picked["geneb"]])
+    a = _as_str(columns[picked["genea"]], floats[picked["genea"]])
+    b = _as_str(columns[picked["geneb"]], floats[picked["geneb"]])
     if "score" in picked:
-        w = []
-        for c in columns[picked["score"]]:
-            try:
-                w.append(_to_float(c))
-            except ValueError:
-                w.append(np.nan)
-        weight = np.asarray(w, dtype=np.float64)
+        weight = floats[picked["score"]]
+        if weight is None:
+            w = []
+            for c in columns[picked["score"]]:
+                try:
+                    w.append(_to_float(c))
+                except ValueError:
+                    w.append(np.nan)
+            weight = np.asarray(w, dtype=np.float64)
     else:
         weight = np.ones(len(a), dtype=np.float64)
     keep = np.flatnonzero(~np.isnan(weight))
-    out = {"protein1": [a[i] for i in keep], "protein2": [b[i] for i in keep],
-           "weight": weight[keep]}
+    if len(keep) < len(weight):
+        a, b = [a[i] for i in keep], [b[i] for i in keep]
+    out = {"protein1": a, "protein2": b, "weight": weight[keep]}
     print(
         f"[INFO] User graph: {len(keep)} edges "
         f"(columns: {picked.get('genea')}, {picked.get('geneb')}, "

@@ -239,10 +239,14 @@ class _Round:
             max_epochs: int, early_stop_patience: int,
             host_work: Optional[Callable[[float], object]] = None,
             wall_est: Optional[float] = None, checkpoint=None,
-            epochs_per_eval: int = 5) -> dict:
+            epochs_per_eval: int = 5,
+            on_epoch_end: Optional[Callable[[int, np.ndarray, np.ndarray], None]] = None,
+            ) -> dict:
         """Train until every trial has stalled or ``max_epochs``; with a
         ``_RoundCheckpoint``, resume from it and save every
-        ``epochs_per_eval`` epochs, never after the last."""
+        ``epochs_per_eval`` epochs, never after the last. ``on_epoch_end(epoch,
+        train_losses, val_losses)`` gets each trial's mean training loss of
+        the epoch and its validation loss, (K,) arrays."""
         n_tr = train_idx.shape[1]
         batch_size = min(batch_size, n_tr)
         n_batches = max(n_tr // batch_size, 1)
@@ -259,8 +263,7 @@ class _Round:
         for epoch in range(epochs_run, max_epochs):
             t_ep = time.perf_counter()
             table = self.epoch_rows(train_idx, n_batches, batch_size)
-            for s in range(n_batches):
-                self.step(_gather(data, table[s]))
+            tlosses = [self.step(_gather(data, table[s])) for s in range(n_batches)]
             vloss = self.validate(val_batch)
             if host_work is not None:
                 # the card finishes the epoch while the host runs a slice of
@@ -270,6 +273,8 @@ class _Round:
             v = vloss.cpu().numpy()
             wall_est = time.perf_counter() - t_ep
             epochs_run = epoch + 1
+            if on_epoch_end is not None:
+                on_epoch_end(epoch, (sum(tlosses) / n_batches).cpu().numpy(), v)
             improved = v < best
             best = np.where(improved, v, best)
             best_epoch = np.where(improved, epochs_run, best_epoch)
@@ -383,7 +388,8 @@ def vmapped_grid_fit(model, dataset, *, start_params=None, start_stats=None,
                      batch_size: int = 32, max_epochs: int = 50,
                      early_stop_patience: int = -1, moment_dtype: str = "bfloat16",
                      param_dtype: str = "float32",
-                     host_work: Optional[Callable[[float], object]] = None) -> dict:
+                     host_work: Optional[Callable[[float], object]] = None,
+                     on_epoch_end: Optional[Callable] = None) -> dict:
     """Train T trials with per-trial data splits concurrently.
 
     Every trial sees its own train/val rows of the dataset (``train_idx``
@@ -396,8 +402,8 @@ def vmapped_grid_fit(model, dataset, *, start_params=None, start_stats=None,
     broadcast to all trials, or stacked (T, ...) states. ``param_dtype`` and
     ``moment_dtype`` take JAX's defaults: float32 parameters with bfloat16
     Adam moments (the fine-tuner's grid); ``"bfloat16_sr"`` runs SR-bf16
-    Adam (the HPO rounds). Returns {best_val_loss (T,), best_epoch (T,),
-    epochs_run}."""
+    Adam (the HPO rounds). ``on_epoch_end`` goes to ``_Round.fit``. Returns
+    {best_val_loss (T,), best_epoch (T,), epochs_run}."""
     T = len(lrs)
     train_idx, val_idx = np.asarray(train_idx), np.asarray(val_idx)
     stacked = stacked_model(model, T)
@@ -419,7 +425,8 @@ def vmapped_grid_fit(model, dataset, *, start_params=None, start_stats=None,
     data = model.make_batch(dataset)
     out = trial_round.fit(data, train_idx, _val_batch(data, val_idx, model.device),
                           batch_size=batch_size, max_epochs=max_epochs,
-                          early_stop_patience=early_stop_patience, host_work=host_work)
+                          early_stop_patience=early_stop_patience, host_work=host_work,
+                          on_epoch_end=on_epoch_end)
     return {k: out[k] for k in ("best_val_loss", "best_epoch", "epochs_run")}
 
 
@@ -437,14 +444,16 @@ class ParallelTrials:
     def run(self, lrs, seeds, *, train_idx, val_idx, batch_size: int, max_epochs: int,
             early_stop_patience: int = -1, epochs_per_eval: int = 5,
             checkpoint_dir: Optional[str] = None,
-            host_work: Optional[Callable[[float], object]] = None) -> dict:
+            host_work: Optional[Callable[[float], object]] = None,
+            on_epoch_end: Optional[Callable] = None) -> dict:
         """Train len(lrs) fresh trials (trial k initialised from seeds[k]) on
         one train/validation split, as the sequential objective evaluates
         each trial, with SR-bf16 Adam. Returns per-trial best validation
         losses and epochs, ``epochs_run``, and the final float32
         ``final_params`` and ``final_buffers`` (stacked, by ``state_dict``
         name). ``checkpoint_dir`` saves the round every ``epochs_per_eval``
-        epochs and resumes a rerun of the same round from it."""
+        epochs and resumes a rerun of the same round from it; ``on_epoch_end``
+        goes to ``_Round.fit``."""
         K = len(lrs)
         if self._data is None:  # the dataset stays on the device across rounds
             self._data = self.model.make_batch(self.dataset)
@@ -464,6 +473,6 @@ class ParallelTrials:
                               batch_size=batch_size, max_epochs=max_epochs,
                               early_stop_patience=early_stop_patience, host_work=host_work,
                               wall_est=self._epoch_wall_est.get(K), checkpoint=checkpoint,
-                              epochs_per_eval=epochs_per_eval)
+                              epochs_per_eval=epochs_per_eval, on_epoch_end=on_epoch_end)
         self._epoch_wall_est[K] = out.pop("epoch_wall_s")
         return out

@@ -56,6 +56,11 @@ group's stacked round also checkpoints mid-round in its own
 ``<path>.round-<sha256[:12]>`` directory (``parallel/trials.py``), removed
 when the round ends; that file is the port's own format and is not shared
 with the JAX package.
+
+``plot_losses`` (notebooks) draws a ``LiveLossPlot`` (``train/live_plot.py``)
+per trial after each epoch: for a sequential trial, and for each trial and
+CV fold of a stacked round from the round's per-trial losses. JAX draws one
+only on its sequential paths (hpo.py:209-216); its stacked rounds draw none.
 """
 
 from __future__ import annotations
@@ -89,6 +94,7 @@ class HyperparameterTuning:
         surv_time_var: Optional[str] = None,
         n_iter: int = 10,
         config_path: Optional[str] = None,
+        plot_losses: bool = False,
         val_size: float = 0.2,
         use_cv: bool = False,
         use_loss_weighting: bool = True,
@@ -111,6 +117,7 @@ class HyperparameterTuning:
         self.surv_event_var = surv_event_var
         self.surv_time_var = surv_time_var
         self.n_iter = n_iter
+        self.plot_losses = plot_losses
         self.val_size = val_size
         self.use_cv = use_cv
         self.use_loss_weighting = use_loss_weighting
@@ -187,10 +194,16 @@ class HyperparameterTuning:
             return self._objective_cv_parallel(params, n)
         train_idx, val_idx = train_val_split(n, self.val_size, seed=self.seed)
         model = self.model_class(**self._model_args(params))
+        on_epoch_end = None
+        if self.plot_losses:  # a live loss plot per trial (notebooks)
+            from .live_plot import LiveLossPlot
+
+            on_epoch_end = LiveLossPlot(hyperparams=params).update
         res = model.fit(
             self.dataset, train_idx, val_idx, lr=params["lr"],
             batch_size=int(params["batch_size"]), max_epochs=int(params["epochs"]),
             early_stop_patience=self.early_stop_patience, seed=self.seed,
+            on_epoch_end=on_epoch_end,
         )
         return float(res.val_loss), int(res.epochs_run), model
 
@@ -210,11 +223,27 @@ class HyperparameterTuning:
             train_idx=tr, val_idx=va,
             batch_size=int(params["batch_size"]), max_epochs=int(params["epochs"]),
             early_stop_patience=self.early_stop_patience, param_dtype="bfloat16_sr",
+            on_epoch_end=self._stacked_plots([params] * k),
         )
         avg_loss = float(np.mean(out["best_val_loss"]))
         avg_epochs = int(np.mean(out["best_epoch"]))
         print(f"[INFO] {k}-fold CV (stacked, concurrent): avg val loss {avg_loss:.4f}")
         return avg_loss, avg_epochs, None
+
+    def _stacked_plots(self, trial_params: List[dict]):
+        """With ``plot_losses``, a live loss plot per trial of a stacked round
+        (each CV fold its own, as JAX plots each fold), fed by the round's
+        ``on_epoch_end``; else None."""
+        if not self.plot_losses:
+            return None
+        from .live_plot import LiveLossPlot
+
+        plots = [LiveLossPlot(hyperparams=p) for p in trial_params]
+
+        def on_epoch_end(epoch, train_losses, val_losses):
+            for plot, t, v in zip(plots, train_losses, val_losses):
+                plot.update(epoch, float(t), float(v))
+        return on_epoch_end
 
     # ------------------------------------------------------- batched rounds
 
@@ -284,7 +313,7 @@ class HyperparameterTuning:
             train_idx=train_idx, val_idx=val_idx,
             batch_size=int(group[0]["batch_size"]), max_epochs=int(group[0]["epochs"]),
             early_stop_patience=self.early_stop_patience, checkpoint_dir=ckpt_dir,
-            host_work=self._host_work,
+            host_work=self._host_work, on_epoch_end=self._stacked_plots(group),
         )
         if ckpt_dir is not None:
             shutil.rmtree(ckpt_dir, ignore_errors=True)
@@ -317,7 +346,7 @@ class HyperparameterTuning:
             masks=trials["masks"], aux=trials.get("aux"),
             batch_size=int(group[0]["batch_size"]), max_epochs=int(group[0]["epochs"]),
             early_stop_patience=self.early_stop_patience, param_dtype="bfloat16_sr",
-            host_work=self._host_work,
+            host_work=self._host_work, on_epoch_end=self._stacked_plots(group),
         )
         return self._group_results(out, K)
 
@@ -356,6 +385,7 @@ class HyperparameterTuning:
             batch_size=int(group[0]["batch_size"]), max_epochs=int(group[0]["epochs"]),
             early_stop_patience=self.early_stop_patience, param_dtype="bfloat16_sr",
             host_work=self._host_work,
+            on_epoch_end=self._stacked_plots([p for p in group for _ in range(k)]),
         )
         loss = np.asarray(out["best_val_loss"]).reshape(K, k).mean(axis=1)
         ep = np.asarray(out["best_epoch"]).reshape(K, k).mean(axis=1)

@@ -189,13 +189,14 @@ class Trainer:
     def fit(self, train_data: dict, val_data: Optional[dict], *, n_samples: int,
             batch_size: int, max_epochs: int, early_stop_patience: int = -1,
             seed: int = 0, checkpoint_dir: Optional[str] = None,
-            checkpoint_every: int = 10) -> TrainResult:
+            checkpoint_every: int = 10, on_epoch_end=None) -> TrainResult:
         """Train; returns the best-by-val-loss state when ``val_data`` is given,
         the last state otherwise. The per-epoch permutations come from a CPU
         ``torch.Generator`` seeded with ``seed``, the dropout masks from one on
         the module's device, so a seed gives the same batches on every device.
         ``checkpoint_dir`` saves the state every ``checkpoint_every`` epochs and
-        resumes from its latest step."""
+        resumes from its latest step. ``on_epoch_end(epoch, train_loss,
+        val_loss)`` is called after each validated epoch (a live loss plot)."""
         device = next(self.module.parameters()).device
         batch_size = min(batch_size, n_samples)
         n_batches = max(n_samples // batch_size, 1)
@@ -238,6 +239,8 @@ class Trainer:
                 if val_loss < best_val:
                     best_val = val_loss
                     best = self._snapshot()
+                if on_epoch_end is not None:
+                    on_epoch_end(epoch, float(train_loss), val_loss)
                 stop = stopper.update(val_loss)
             if ckpt is not None:
                 ckpt.maybe_save(epochs_run, self._checkpoint_tensors(gens, best), {

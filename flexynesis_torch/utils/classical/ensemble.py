@@ -31,7 +31,7 @@ import torch
 
 from ..device import resolve_device
 from .model_selection import Estimator, accuracy, r2
-from .tree import grow, predict, presort
+from .tree import feature_importances, grow, predict, presort
 
 
 def _max_features(value, F: int) -> int:
@@ -108,9 +108,21 @@ class _Forest(_Torch):
 
     def fit(self, X, y):
         target, n_classes = self._codes(y)
+        self.n_features_in_ = np.shape(X)[1]
         self.levels_ = self._grow(X, target, n_classes, [np.arange(len(target))],
                                   self.params["n_estimators"], self.params["max_depth"])
         return self
+
+    @property
+    def feature_importances_(self) -> np.ndarray:
+        """sklearn's: the mean over the trees with a split of each tree's
+        normalised impurity decreases, normalised to sum 1."""
+        per_tree = feature_importances(self.levels_, self.n_features_in_).cpu().numpy()
+        grown = per_tree[(self.levels_[0].feature >= 0).cpu().numpy()[:, 0]]
+        if not len(grown):
+            return np.zeros(self.n_features_in_)
+        mean = np.mean(grown, axis=0, dtype=np.float64)
+        return mean / np.sum(mean)
 
     def _mean(self, X) -> np.ndarray:
         """(m, V) node values of X averaged over the trees (on the host, so

@@ -53,12 +53,16 @@ class Level:
     """The nodes of one depth of T trees: ``feature`` (T, N) (-1 at a leaf or
     an unused slot), ``threshold`` (T, N) float64, ``value`` (T, N, V) float64
     and ``child`` (T, N), the left child's index in the next level (the right
-    one's is ``child + 1``)."""
+    one's is ``child + 1``); ``weight`` (T, N) the node's summed sample
+    weight and ``impurity`` (T, N) its gini or squared error, float64 (the
+    feature importances' terms)."""
 
     feature: torch.Tensor
     threshold: torch.Tensor
     value: torch.Tensor
     child: torch.Tensor
+    weight: torch.Tensor
+    impurity: torch.Tensor
 
 
 def _hash32(x: torch.Tensor) -> torch.Tensor:
@@ -157,7 +161,7 @@ def grow(X: torch.Tensor, order: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
         is_split = feat >= 0
         rank = torch.cumsum(is_split.long(), 1) - 1
         child = torch.where(is_split, 2 * rank, -1)
-        levels.append(Level(feat, thr, value, child))
+        levels.append(Level(feat, thr, value, child, W, impurity))
         # route the samples
         alive = node >= 0
         nd = node.clamp(min=0)
@@ -319,6 +323,26 @@ def predict(levels: List[Level], X: torch.Tensor, max_depth: Optional[int] = Non
         go = lv.child.gather(1, node) + (x > lv.threshold.gather(1, node)).long()
         node = torch.where(done, 0, go)
     return out
+
+
+def feature_importances(levels: List[Level], n_features: int) -> torch.Tensor:
+    """(T, F) impurity-based importances of each tree, as sklearn's
+    ``tree_.compute_feature_importances()``: each split's weighted impurity
+    decrease ``w·i - w_l·i_l - w_r·i_r`` summed per feature, normalised to
+    sum 1 (all 0 for a tree without a split)."""
+    T = levels[0].feature.shape[0]
+    out = torch.zeros((T, n_features + 1), dtype=torch.float64, device=levels[0].feature.device)
+    for lv, nxt in zip(levels[:-1], levels[1:]):
+        split = lv.feature >= 0
+        left = lv.child.clamp(min=0)
+        dec = lv.weight * lv.impurity \
+            - (nxt.weight * nxt.impurity).gather(1, left) \
+            - (nxt.weight * nxt.impurity).gather(1, left + 1)
+        out.scatter_add_(1, torch.where(split, lv.feature, n_features),
+                         torch.where(split, dec, 0.0))
+    out = out[:, :n_features]
+    total = out.sum(1, keepdim=True)
+    return torch.where(total > 0, out / torch.where(total > 0, total, 1.0), 0.0)
 
 
 def presort(X: torch.Tensor) -> torch.Tensor:

@@ -97,10 +97,23 @@ class Table:
     index: List[str]
     columns: List[str]
     values: np.ndarray
+    index_name: str = ""
+
+    def column(self, name: str) -> np.ndarray:
+        """The values of one column (``df[name].values``)."""
+        return self.values[:, self.columns.index(name)]
+
+    def take(self, rows) -> "Table":
+        """The rows at positions ``rows`` (or where a boolean mask is true), in
+        that order (``df.iloc[rows]``)."""
+        rows = np.asarray(rows)
+        rows = np.flatnonzero(rows) if rows.dtype == bool else rows.astype(np.int64)
+        return Table([self.index[i] for i in rows], list(self.columns), self.values[rows],
+                     self.index_name)
 
     def to_csv(self, path: str) -> None:
         with open(path, "w", newline="") as fh:
             writer = csv.writer(fh, lineterminator="\n")
-            writer.writerow(["", *self.columns])
+            writer.writerow([self.index_name, *self.columns])
             for name, row in zip(self.index, self.values):
                 writer.writerow([name, *(format_cell(v) for v in row)])

@@ -10,6 +10,7 @@ from __future__ import annotations
 import contextlib
 from typing import Optional
 
+import numpy as np
 import torch
 
 DEVICE_CHOICES = ("auto", "tpu", "cuda", "mps", "cpu")
@@ -48,3 +49,48 @@ def host_threads(n: Optional[int], device):
         yield
     finally:
         torch.set_num_threads(before)
+
+
+@contextlib.contextmanager
+def full_f32():
+    """Float32 products in full precision while the block runs (TF32 off on
+    the card, as the JAX package's products run on the CPU), restored after."""
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+
+
+def get_optimal_device(device_preference: Optional[str] = None):
+    """(torch.device, its type) for a preference: ``resolve_device``'s rule,
+    the card for None or "auto" (raising without one), never a silent CPU."""
+    dev = resolve_device(device_preference or "auto")
+    print(f"[INFO] Using device: {dev}")
+    return dev, dev.type
+
+
+def create_device_from_string(device_str: Optional[str]) -> torch.device:
+    return get_optimal_device(device_str)[0]
+
+
+def to_device_safe(array, device) -> torch.Tensor:
+    """A tensor on ``device``; float64 arrays become float32."""
+    arr = np.asarray(array)
+    if arr.dtype == np.float64:
+        arr = arr.astype(np.float32)
+    return torch.as_tensor(arr, device=resolve_device(device))
+
+
+def get_device_memory_info(device=None) -> dict:
+    """Bytes in use / limit for a device, where the backend reports them."""
+    dev = resolve_device(device or "auto")
+    stats = {}
+    if dev.type == "cuda":
+        free, total = torch.cuda.mem_get_info(dev)
+        stats = {"bytes_in_use": torch.cuda.memory_allocated(dev), "bytes_limit": total,
+                 "peak_bytes_in_use": torch.cuda.max_memory_allocated(dev)}
+    return {"device": str(dev), "platform": dev.type,
+            "bytes_in_use": stats.get("bytes_in_use"), "bytes_limit": stats.get("bytes_limit"),
+            "peak_bytes_in_use": stats.get("peak_bytes_in_use")}

@@ -133,6 +133,42 @@ def _binary_average_precision(y, score) -> float:
     return float(max(0.0, np.sum(np.diff(np.r_[0.0, recall]) * precision)))
 
 
+def _thresholds(y, score):
+    """(fps, tps, thresholds) at each distinct score, descending, as
+    sklearn's ``confusion_matrix_at_thresholds`` (positive label 1)."""
+    y = (np.asarray(y) == 1).astype(np.float64)
+    score = np.asarray(score, dtype=np.float64)
+    order = np.argsort(score, kind="mergesort")[::-1]
+    score, y = score[order], y[order]
+    idx = np.r_[np.where(np.diff(score))[0], y.size - 1]
+    tps = np.cumsum(y)[idx]
+    return 1 + idx - tps, tps, score[idx]
+
+
+def roc_curve(y_true, y_score):
+    """(fpr, tpr, thresholds) of binary labels, as sklearn's ``roc_curve``
+    (collinear points dropped, a first point at (0, 0), threshold inf)."""
+    fps, tps, thr = _thresholds(y_true, y_score)
+    if fps.shape[0] > 2:
+        keep = np.where(np.r_[True, np.logical_or(np.diff(fps, 2), np.diff(tps, 2)), True])[0]
+        fps, tps, thr = fps[keep], tps[keep], thr[keep]
+    tps, fps = np.r_[0.0, tps], np.r_[0.0, fps]
+    thr = np.r_[np.inf, thr]
+    fpr = fps / fps[-1] if fps[-1] > 0 else np.full(fps.shape, np.nan)
+    tpr = tps / tps[-1] if tps[-1] > 0 else np.full(tps.shape, np.nan)
+    return fpr, tpr, thr
+
+
+def precision_recall_curve(y_true, y_score):
+    """(precision, recall, thresholds) of binary labels, as sklearn's
+    ``precision_recall_curve``: recall decreasing, ending at (1, 0)."""
+    fps, tps, thr = _thresholds(y_true, y_score)
+    ps = tps + fps
+    precision = np.divide(tps, ps, out=np.zeros_like(tps), where=ps != 0)
+    recall = np.ones_like(tps) if tps[-1] == 0 else tps / tps[-1]
+    return np.r_[precision[::-1], 1.0], np.r_[recall[::-1], 0.0], thr[::-1]
+
+
 def _weighted_ovr(metric, y_true, y_probs, classes) -> float:
     onehot = (y_true[:, None] == classes[None, :]).astype(np.float64)
     weights = onehot.sum(axis=0)
@@ -192,6 +228,22 @@ def evaluate_regressor(y_true, y_pred) -> Dict[str, float]:
     mse = float(np.mean((y_true - y_pred) ** 2))
     lr = linregress(y_true, y_pred)
     return {"mse": mse, "r2": lr.rvalue**2, "pearson_corr": lr.rvalue}
+
+
+def generate_bootstrap_indices(n: int, n_bootstraps: int = 1000, seed: int = 42):
+    rng = np.random.default_rng(seed)
+    return [rng.choice(n, size=n, replace=True) for _ in range(n_bootstraps)]
+
+
+def bootstrap_metric(y_true, y_pred, indices_list, metric_fn, ci=95, **kwargs):
+    """The metric over each bootstrap draw, and (mean, lower, upper) of its
+    ``ci`` percent interval."""
+    y_true = np.asarray(y_true)
+    y_pred = np.asarray(y_pred)
+    scores = [metric_fn(y_true[idx], y_pred[idx], **kwargs) for idx in indices_list]
+    lower = np.percentile(scores, (100 - ci) / 2)
+    upper = np.percentile(scores, 100 - (100 - ci) / 2)
+    return scores, (float(np.mean(scores)), float(lower), float(upper))
 
 
 def evaluate_wrapper(method: str, y_pred_dict: Dict[str, np.ndarray], dataset,

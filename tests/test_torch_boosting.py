@@ -21,13 +21,15 @@ sklearn's, on the same arrays:
   components; without it the grid takes 40 s on this CPU), within the
   margins of ``test_torch_baselines.py``'s other baselines."""
 
+from dataclasses import replace
+
 import numpy as np
 import pytest
 import torch
 
 from flexynesis_tpu.utils import baselines as jax_baselines
 from flexynesis_torch.utils import baselines
-from flexynesis_torch.utils.classical.tree import Level, predict
+from flexynesis_torch.utils.classical.tree import predict
 from test_torch_baselines import _data, check_metrics_near_jax, split  # noqa: F401
 
 STAGES = 100
@@ -36,9 +38,9 @@ STAGES = 100
 def _leaf_ids(levels, X):
     """(trees, rows) the node each training row ends in: the levels with each
     node's value replaced by a number of its own."""
-    marked = [Level(lv.feature, lv.threshold,
-                    (depth * 1e6 + torch.arange(lv.feature.shape[1], dtype=torch.float64))
-                    .expand(lv.feature.shape).unsqueeze(-1), lv.child)
+    marked = [replace(lv, value=(depth * 1e6 + torch.arange(lv.feature.shape[1],
+                                                            dtype=torch.float64))
+                      .expand(lv.feature.shape).unsqueeze(-1))
               for depth, lv in enumerate(levels)]
     return predict(marked, torch.as_tensor(X))[..., 0].numpy()
 

@@ -433,3 +433,82 @@ def test_b3_trial_axis_rejects_bad_operands(card):
         gaussian_kernel_mean(x, y)  # one mean takes no trial axis
     with pytest.raises(ValueError):
         mmd_term_forward(x, y[:0])
+
+
+# the analysis surface on the card against the CPU: CoxPH in float64 (the
+# same Newton path; coefficients and standard errors within 1e-8 relative),
+# the co-expression sweep (float32 Gram products in two summation orders:
+# the same edges away from the threshold, scores within 1e-5) and KMeans
+# (float64 Lloyd: the same labels, inertia within 1e-8 relative)
+def _cox_table(seed=0, n=300, p=5):
+    import numpy as np
+
+    from flexynesis_torch.utils.csvio import Table
+
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, p))
+    t = np.ceil(4 * rng.exponential(np.exp(-(X[:, 0] - 0.5 * X[:, 1])))) / 4
+    e = (rng.random(n) < 0.7).astype(float)
+    return Table([f"s{i}" for i in range(n)], [f"x{i}" for i in range(p)] + ["t", "e"],
+                 np.column_stack([X, t, e]))
+
+
+@pytest.mark.cuda
+def test_coxph_on_the_card_matches_the_cpu(card):
+    from flexynesis_torch.utils.survival import CoxPH, build_cox_model
+
+    table = _cox_table()
+    got = CoxPH(penalizer=0.05, device="cuda").fit(table, "t", "e")
+    want = CoxPH(penalizer=0.05, device="cpu").fit(table, "t", "e")
+    torch.testing.assert_close(torch.as_tensor(got.params_), torch.as_tensor(want.params_),
+                               rtol=1e-8, atol=0)
+    torch.testing.assert_close(torch.as_tensor(got.standard_errors_),
+                               torch.as_tensor(want.standard_errors_), rtol=1e-8, atol=0)
+    _, m_card = build_cox_model(table, "t", "e", device="cuda")
+    _, m_cpu = build_cox_model(table, "t", "e", device="cpu")
+    torch.testing.assert_close(torch.as_tensor(m_card["cv_cindex"]),
+                               torch.as_tensor(m_cpu["cv_cindex"]), rtol=1e-8, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["spearman", "pearson"])
+def test_coexpression_sweep_on_the_card_matches_the_cpu(card, method):
+    import numpy as np
+
+    from flexynesis_torch.coexpression import build_network
+
+    rng = np.random.default_rng(1)
+    G, n = 3000, 120
+    factors = rng.normal(size=(G // 10, n))
+    X = np.repeat(factors, 10, axis=0) + 0.5 * rng.normal(size=(G, n))
+    if method == "spearman":  # counts: ties in the ranks
+        X = rng.poisson(np.exp(1.5 + 0.5 * X)).astype(np.float64)
+    genes = [f"g{i}" for i in range(G)]
+    kw = dict(method=method, correlation_threshold=0.5, top_k=5, block_size=1024)
+    got, _ = build_network(genes, X, device="cuda", **kw)
+    want, _ = build_network(genes, X, device="cpu", **kw)
+    g = dict(zip(zip(got["GeneA"], got["GeneB"]), got["Score"]))
+    w = dict(zip(zip(want["GeneA"], want["GeneB"]), want["Score"]))
+    differ = set(g) ^ set(w)
+    assert all(abs(abs(g.get(k, w.get(k))) - 0.5) < 1e-6 for k in differ), len(differ)
+    common = sorted(set(g) & set(w))
+    assert len(common) > 1000
+    torch.testing.assert_close(torch.tensor([g[k] for k in common]),
+                               torch.tensor([w[k] for k in common]), rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_kmeans_on_the_card_matches_the_cpu(card):
+    import numpy as np
+
+    from flexynesis_torch.utils.clustering import k_means_clustering, silhouette_score
+
+    rng = np.random.default_rng(2)
+    X = rng.normal(scale=4, size=(6, 16))[rng.integers(0, 6, 2000)] + rng.normal(size=(2000, 16))
+    for k in (2, 6, 9):
+        lc, kc = k_means_clustering(X, k, device="cuda")
+        lp, kp = k_means_clustering(X, k, device="cpu")
+        assert (lc == lp).all()
+        assert abs(kc.inertia_ - kp.inertia_) <= 1e-8 * kp.inertia_
+        assert abs(silhouette_score(X, lc, device="cuda")
+                   - silhouette_score(X, lp, device="cpu")) <= 1e-8
