@@ -204,6 +204,24 @@ Phases (any failure exits nonzero):
    1e-8), and the Sinkhorn transport cost between the cohort's halves with
    a shift planted in one, and their optimal transport alignment, card
    against CPU (1e-5 relative, 1e-4), the alignment lowering the cost.
+14. the mesh, the 8-bit trial moments and GradientShap's input noise (after
+   phase 13, on phase 5's test cohort): (a) SR-Adam with int8 moments at
+   the full-width DirectPred leaves, K = 16, card against CPU, alone on the
+   same gradients and over three stacked steps (``check_int8_steps``), then
+   16-trial ``ParallelTrials`` rounds with int8 and bf16 moments side by
+   side, their step times and peak memory; (b) GradientShap with stdev 0.1
+   card against CPU; (c) B1, B2 and B3 giving a shard's trials the round's
+   bits (``check_shard_launches``), then rounds of 16 (a fused DirectPred
+   whose shards' trials stall apart, a fused supervised_vae) and the
+   45-trial fine-tuning grid split over shards of the one card against the
+   unsharded rounds, each shard launching as the round does for its
+   trials; (d) both attribution methods over 10,250 samples split over two
+   shards against the unsharded run; (e) a data-parallel fit over a
+   one-rank NCCL group (``distributed.initialize``) against the plain fit,
+   bit for bit, and ``partition_trials`` over it.
+
+Each phase prints its seconds as it ends, and all of them on one line
+before the kernels line (``phase seconds: {...}``).
 
 (The port groups supervised_vae suggestions by architecture identity, as
 the JAX tuner does: its class name ``SupervisedVAE`` is not the
@@ -217,7 +235,7 @@ device time per call from a torch.profiler trace (``device_ms``), the plain
 version's time and the bound; the profiled serving and training runs name
 each port kernel's CUDA function with its device time. Each kernel's launch count is set to 0 just
 before the phase that drives its path (serving for B2, training for B1,
-phases 6 and 7 for all three) and read just after. The output ends
+the later phases for all three) and read just after. The output ends
 with a ``{"kernels": [...]}`` line, the nvidia-smi line and
 ``{"ok": true, "device": {...}}``. Working files go to build/chip_smoke/.
 """
@@ -257,6 +275,7 @@ EVAL_FORWARDS = 4  # transform and predict, of train and of test
 PROFILED_STEPS = 7
 CM_EPOCHS = 3  # the CrossModalPred run, cut to 3 epochs
 TRIALS = 16  # suggestions per GP round: --hpo_batch 0 on the card, hpo_iter 16
+SEQ_TRIALS = 4  # the one-at-a-time rounds' suggestions (--hpo_batch 1), cut from 16
 DEVICE = "cuda"  # the training phase's device (a CPU rehearsal sets "cpu")
 # the CUDA functions of the port's kernels, as the profiles name them: B1
 # (and its merge launch above 64 rows), B2 and B3
@@ -2291,7 +2310,7 @@ def train_trials(workdir: Path, importer_cache: ImportOnce, cohort):
     with importer_cache:
         model, phases, launches, log, out = hpo_run(workdir, "hpo_batched", same)
         seq_model, seq_phases, seq_launches, _, _ = hpo_run(
-            workdir, "hpo_sequential", same, ("--hpo_batch", "1"))
+            workdir, "hpo_sequential", same, ("--hpo_batch", "1"), n_iter=SEQ_TRIALS)
         mixed, mixed_phases, mixed_launches, mixed_log, _ = hpo_run(
             workdir, "hpo_mixed", MIXED_CONFIG % (MIXED_EPOCHS, BATCH))
 
@@ -2310,13 +2329,13 @@ def train_trials(workdir: Path, importer_cache: ImportOnce, cohort):
              f"{B1_PER_STEP} per stacked step x ({round_steps} round steps + {retrain_steps} "
              f"retrain steps), {B2_PER_FORWARD} per eval forward x ({FIT_EPOCHS} stacked "
              f"validations + {EVAL_FORWARDS} evaluation forwards)")
-    seq_want = (B1_PER_STEP * TRIALS * round_steps,
-                B2_PER_FORWARD * (TRIALS * FIT_EPOCHS + EVAL_FORWARDS), 0)
+    seq_want = (B1_PER_STEP * SEQ_TRIALS * round_steps,
+                B2_PER_FORWARD * (SEQ_TRIALS * FIT_EPOCHS + EVAL_FORWARDS), 0)
     if seq_launches != seq_want:
         fail(f"trials: sequential launches (B1, B2) = {seq_launches}, expected {seq_want}")
     print(f"trials: {TRIALS} trials batched: B1 {launches[0]} launches = {B1_PER_STEP} x "
           f"({round_steps} stacked steps + {retrain_steps} retrain steps), B2 {launches[1]}; "
-          f"one at a time: B1 {seq_launches[0]} = {B1_PER_STEP} x {TRIALS} x {round_steps}, "
+          f"one at a time: B1 {seq_launches[0]} = {B1_PER_STEP} x {SEQ_TRIALS} x {round_steps}, "
           f"B2 {seq_launches[1]}", flush=True)
 
     # the retrained best model serves alike on the card and on the CPU
@@ -2339,9 +2358,9 @@ def train_trials(workdir: Path, importer_cache: ImportOnce, cohort):
         fail("trials: the mixed round did not retrain its best configuration")
     if mixed_launches != (0, 0, 0):
         fail(f"trials: the unfused mixed round launched B1/B2/B3 {mixed_launches} times")
-    rate = {k: TRIALS / p["hpo_fit"] * 3600
-            for k, p in (("batched", phases), ("sequential", seq_phases),
-                         ("mixed", mixed_phases))}
+    rate = {k: n / p["hpo_fit"] * 3600
+            for k, p, n in (("batched", phases, TRIALS), ("sequential", seq_phases, SEQ_TRIALS),
+                            ("mixed", mixed_phases, TRIALS))}
     print(f"trials: hpo_fit trials/h: batched {rate['batched']:.0f}, one at a time "
           f"{rate['sequential']:.0f} ({rate['batched'] / rate['sequential']:.2f}x), mixed "
           f"architectures ({MIXED_EPOCHS} epochs, unfused) {rate['mixed']:.0f}; best "
@@ -2500,7 +2519,8 @@ def vae_trials(workdir: Path, importer_cache: ImportOnce, cohort):
         model, phases, launches, log, _ = hpo_run(workdir, "vae_batched", vae_same,
                                                   model_class="supervised_vae")
         _, seq_phases, seq_launches, _, _ = hpo_run(
-            workdir, "vae_sequential", vae_same, ("--hpo_batch", "1"), "supervised_vae")
+            workdir, "vae_sequential", vae_same, ("--hpo_batch", "1"), "supervised_vae",
+            SEQ_TRIALS)
         cm_model, cm_phases, cm_launches, cm_log, _ = hpo_run(
             workdir, "cm_mixed", CM_MIXED_CONFIG % (CM_EPOCHS, BATCH), cm, "CrossModalPred")
         cv_same = TRIAL_CONFIG % (LATENT, HIDDEN_FACTOR, SUP_HIDDEN, CV_EPOCHS, BATCH)
@@ -2521,7 +2541,7 @@ def vae_trials(workdir: Path, importer_cache: ImportOnce, cohort):
         fail(f"vae trials: batched round launches (B1, B2, B3) = {launches}, expected {want}: "
              f"{n_dec} decoded layers x ({round_steps} stacked steps + {VAE_TRIAL_EPOCHS} "
              f"stacked validations + {retrain_steps} retrain steps)")
-    seq_want = (0, 0, n_dec * TRIALS * (round_steps + VAE_TRIAL_EPOCHS))
+    seq_want = (0, 0, n_dec * SEQ_TRIALS * (round_steps + VAE_TRIAL_EPOCHS))
     if seq_launches != seq_want:
         fail(f"vae trials: one-at-a-time launches (B1, B2, B3) = {seq_launches}, "
              f"expected {seq_want}")
@@ -2557,9 +2577,9 @@ def vae_trials(workdir: Path, importer_cache: ImportOnce, cohort):
                  f"forward {per_val}, {cv_steps} stacked steps, {CV_EPOCHS} stacked "
                  f"validations, {retrain} retrain steps, {evals} evaluation forwards")
 
-    rate = {k: TRIALS / p["hpo_fit"] * 3600
-            for k, p in (("batched", phases), ("sequential", seq_phases),
-                         ("crossmodal_mixed", cm_phases))}
+    rate = {k: n / p["hpo_fit"] * 3600
+            for k, p, n in (("batched", phases, TRIALS), ("sequential", seq_phases, SEQ_TRIALS),
+                            ("crossmodal_mixed", cm_phases, TRIALS))}
     print(f"vae trials: supervised_vae hpo_fit trials/h ({VAE_TRIAL_EPOCHS} epochs): batched "
           f"{rate['batched']:.0f}, one at a time {rate['sequential']:.0f} "
           f"({rate['batched'] / rate['sequential']:.2f}x); CrossModalPred mixed round "
@@ -3147,7 +3167,7 @@ def triplet(workdir: Path, importer_cache: ImportOnce, cohort) -> tuple:
     with importer_cache:
         for kind, text, extra, n_iter in (
                 ("batched", same, (), TRIALS),
-                ("sequential", same, ("--hpo_batch", "1"), TRIALS),
+                ("sequential", same, ("--hpo_batch", "1"), SEQ_TRIALS),
                 ("mixed", mixed_cfg % (MIXED_EPOCHS, BATCH), (), TRIALS),
                 ("cv", cv_cfg, ("--use_cv",), CV_SUGGESTIONS)):
             _, phases, got, logs[kind], _ = hpo_run(workdir, f"triplet_{kind}", text, extra,
@@ -3502,13 +3522,14 @@ def gnn(workdir: Path, importer_cache: ImportOnce) -> tuple:
                          BATCH)
     runs, logs, launches_by = {}, {}, {"gnn_training": launches}
     with importer_cache:
-        for kind, text, more in (("batched", same, ()),
-                                 ("sequential", same, ("--hpo_batch", "1")),
-                                 ("mixed", GNN_MIXED_CONFIG % (GNN_MIXED_EPOCHS, BATCH), ())):
+        for kind, text, more, n_iter in (
+                ("batched", same, (), TRIALS),
+                ("sequential", same, ("--hpo_batch", "1"), SEQ_TRIALS),
+                ("mixed", GNN_MIXED_CONFIG % (GNN_MIXED_EPOCHS, BATCH), (), TRIALS)):
             _, phases, got, logs[kind], _ = hpo_run(workdir, f"gnn_{kind}", text,
-                                                    (*extra, *more), "GNN", TRIALS, data)
+                                                    (*extra, *more), "GNN", n_iter, data)
             zoo_launches(f"gnn {kind} round", got)
-            runs[kind] = (phases, TRIALS)
+            runs[kind] = (phases, n_iter)
             launches_by[f"gnn_{kind}"] = got
     check_round_logs("gnn", logs)
     groups = [line for line in logs["mixed"].splitlines()
@@ -3907,9 +3928,11 @@ BASE_FEATURES_MIN = 50  # below the halves of BASE_RAW, so the top 50 percent is
 BASE_TOL = 1e-10
 GB_TOL = 1e-9  # boosted probabilities card against CPU, training and held-out rows
 GB_CPU = {"n_estimators": 50, "max_depth": 6, "learning_rate": 0.1}  # the CPU's comparison fit
-MIDDLE = {"RandomForest": {"n_estimators": 200, "max_depth": 20},
+# one fit per estimator at the headline width, at the grids' middle depth and
+# rate; the forests and the boosting cut from 200 trees to 50
+MIDDLE = {"RandomForest": {"n_estimators": 50, "max_depth": 20},
           "SVM": {"C": 1, "kernel": "rbf"},
-          "XGBoost": {"n_estimators": 200, "max_depth": 6, "learning_rate": 0.1}}
+          "XGBoost": {"n_estimators": 50, "max_depth": 6, "learning_rate": 0.1}}
 
 
 def _launch_counts():
@@ -4658,6 +4681,588 @@ def analysis_phase(workdir: Path) -> tuple:
             "analysis_survival_directpred": surv_launches}, summary
 
 
+
+# phase 14: the device mesh, the 8-bit trial moments, GradientShap's noise
+MESH_K = 16  # a round of TRIALS trials over two shards of one card
+MESH_EPOCHS = 5
+MESH_SHARDS = 2
+STALL_EPOCHS, STALL_PATIENCE = 12, 2  # the round whose shards stall apart
+GRID_SHARDS = 5  # the fine-tuning grid's 45 trials, 9 a shard
+Q8_SHARE = 0.01  # of the 8-bit codes, the most that may part (by one) card against CPU
+SHAP_STDEV, SHAP_DRAWS = 0.1, 5
+ATTR_SAMPLES, ATTR_STEPS, ATTR_BATCH = 10_250, 5, 2048  # JAX's sharded-attribution test
+ATTR_TOL = dict(rtol=1e-4, atol=1e-7)  # JAX's tolerance for it
+MESH_DEVICES = ("cuda:0", "cuda:0")
+
+
+def _launches():
+    from flexynesis_torch.kernels.fused_linear import (
+        fused_linear_bn_relu as b1,
+        fused_linear_bn_relu_eval as b2,
+    )
+    from flexynesis_torch.kernels.mmd import gaussian_kernel_mean as b3
+
+    return b1, b2, b3
+
+
+def _count(fn):
+    """(fn's result, its (B1, B2, B3) launches)."""
+    kernels = _launches()
+    for k in kernels:
+        k.launches = 0
+    out = fn()
+    return out, tuple(k.launches for k in kernels)
+
+
+def _q8_gap(a, b) -> dict:
+    """How two Q8 moments (card, cpu) part: the share of codes that differ,
+    the largest difference, the share that differ by more than one, the
+    share of rows whose scale parts by more than 1e-3 (relative) and the
+    largest scale gap."""
+    import torch
+
+    diff = (a.q.cpu().long() - b.q.long()).abs()
+    s_gap = ((a.s.cpu() - b.s) / b.s).abs()
+    return {"share": float((diff > 0).float().mean()), "max": int(diff.max()),
+            "share_beyond_one": float((diff > 1).float().mean()),
+            "noisy_rows": float((s_gap > 1e-3).float().mean()), "scale_gap": float(s_gap.max())}
+
+
+def _q8_report(card_state, cpu_state) -> dict:
+    """The worst of ``_q8_gap`` over the Q8 first moments and over the second
+    moments of two SR-Adam states: {"m": ..., "v": ...}."""
+    from flexynesis_torch.ops.sr_adam import Q8
+
+    out = {}
+    for kind, mine, theirs in (("m", card_state.m, cpu_state.m), ("v", card_state.v, cpu_state.v)):
+        worst = {"share": 0.0, "max": 0, "share_beyond_one": 0.0, "noisy_rows": 0.0,
+                 "scale_gap": 0.0}
+        for a, b in zip(mine, theirs):
+            if isinstance(a, Q8):
+                worst = {k: max(v, _q8_gap(a, b)[k]) for k, v in worst.items()}
+        out[kind] = worst
+    return out
+
+
+def _bf16_report(card_params, cpu_params, lrs, what: str):
+    """(entries parting, entries, entries beyond 3 ulps) of the bfloat16
+    leaves; fails where an entry beyond 3 bfloat16 ulps of max(|a|, |b|) +
+    3 x lr also parts by more than 6 x lr."""
+    import torch
+
+    n_diff = n_all = n_noise = 0
+    for a, b in zip(card_params, cpu_params):
+        if a.dtype != torch.bfloat16:
+            continue
+        lr = lrs.cpu().reshape((-1,) + (1,) * (a.dim() - 1))
+        ulps = _bf16_ulps(a, b, 3 * lr)
+        gap = (a.detach().float().cpu() - b.float()).abs()
+        noise = ulps > 3
+        n_diff, n_all, n_noise = (n_diff + int((ulps > 0).sum()), n_all + ulps.numel(),
+                                  n_noise + int(noise.sum()))
+        if bool((gap > 6 * lr)[noise].any()):
+            fail(f"mesh: {what}: a bfloat16 entry parts beyond 3 ulps and 6 x lr")
+    return n_diff, n_all, n_noise
+
+
+def check_int8_steps(config, cohort):
+    """SR-Adam with 8-bit moments at the full-width DirectPred leaves, K =
+    MESH_K, card against CPU. (1) ``sr_adam_step`` on the same leaves,
+    1e-5 x N(0, 1) gradients (the clip scale exactly 1) and fixed seeds,
+    three steps: the codes equal but for at most Q8_SHARE of them, by one
+    (a square root, log or exp may part in the last place), the scales
+    within rtol 1e-5; at most 1e-4 of the bfloat16 parameters part, each
+    within 3 bfloat16 ulps of max(|card|, |cpu|) + 3 x lr (a decoded v one
+    ulp apart moves an update across a stochastic-rounding threshold). (2) Three SR stacked steps of a fused round
+    (forward, backward and update on each device, the same initial
+    parameters, batches and SR seeds, dropout 0): losses rtol 1e-4; the codes
+    equal but for at most Q8_SHARE of them, and for at most a tenth of that
+    by more than one (an element whose moment is a rounding-noise-sized
+    share of its row's scale: the first chip runs parted 4.7e-4 of the
+    codes, by up to 11); at most 1% of the rows with a scale more than 1e-3
+    apart; bfloat16
+    parameters: at most 1% of the entries part, each within 3 bfloat16 ulps
+    of max(|card|, |cpu|) + 3 x lr, but for 1e-4 of them within 6 x lr."""
+    import numpy as np
+    import torch
+    from flexynesis_torch.models.direct_pred import DirectPred
+    from flexynesis_torch.ops.sr_adam import Q8, sr_adam_init, sr_adam_step
+    from flexynesis_torch.parallel.trials import _gather, _init_stacked, _Round
+
+    lrs = np.geomspace(1e-4, 1e-2, MESH_K)
+    rounds = {}
+    for device in (DEVICE, "cpu"):
+        m = _no_dropout(DirectPred(config, cohort, target_variables=["subtype"], device=device))
+        params, buffers = _init_stacked(m, [3] * MESH_K)
+        rounds[device] = _Round(m, params, buffers, lrs=lrs, seeds=[3] * MESH_K,
+                                moment_dtype="int8")
+    n_q8 = sum(isinstance(x, Q8) for x in rounds["cpu"].opt_state.m)
+    if n_q8 == 0:
+        fail("mesh: the int8 round holds no 8-bit moment")
+
+    # (1) the optimizer alone on the same inputs
+    gen = torch.Generator().manual_seed(11)
+    grads = [[torch.randn(v.shape, generator=gen) * 1e-5 for v in rounds["cpu"].views]
+             for _ in range(3)]
+    seeds = [torch.arange(MESH_K) * 7919 + 2 ** 32 - 1 - 97 * s for s in range(3)]
+    runs = {}
+    for device, r in rounds.items():
+        leaves = [v.detach().clone() for v in r.views]
+        state = sr_adam_init(leaves, "int8")
+        for g, seed in zip(grads, seeds):
+            leaves, state = sr_adam_step(leaves, state, [x.to(r.device) for x in g], r.lrs,
+                                         seed.to(r.device), trial_axis=True)
+        runs[device] = (leaves, state)
+    opt = _q8_report(runs[DEVICE][1], runs["cpu"][1])
+    n_diff, n_all, _ = _bf16_report(runs[DEVICE][0], runs["cpu"][0],
+                                    rounds["cpu"].lrs, "int8 sr_adam_step")
+    lr_pad = rounds["cpu"].lrs.reshape(-1, 1, 1)
+    ulp = max((float(_bf16_ulps(a, b, 3 * lr_pad).max())
+               for a, b in zip(runs[DEVICE][0], runs["cpu"][0]) if a.dtype == torch.bfloat16),
+              default=0.0)
+    print(f"mesh: int8 sr_adam_step x3 (K={MESH_K}, {n_q8} 8-bit first moments) card against "
+          f"CPU on the same gradients: {json.dumps(opt)}; {n_diff} of {n_all} bfloat16 "
+          f"entries part, by at most {ulp:.2f} ulps", flush=True)
+    if (any(opt[k]["share"] > Q8_SHARE or opt[k]["max"] > 1 or opt[k]["scale_gap"] > 1e-5
+            for k in opt) or n_diff > 1e-4 * n_all or ulp > 3):
+        fail("mesh: int8 sr_adam_step parts card against CPU beyond the stated tolerance")
+
+    # (2) three stacked steps
+    perm = torch.randperm(len(cohort), generator=torch.Generator().manual_seed(6))
+    perm = perm[: 3 * BATCH].reshape(3, BATCH)
+    step_seeds = [torch.tensor([2 ** 32 - 1 - 97 * s]) for s in range(3)]
+    losses = {}
+    for device, r in rounds.items():
+        data = r.model.make_batch(cohort)
+        (losses[device], _), launches = _count(lambda: (torch.stack([
+            r.step(_gather(data, p.to(r.device)), s.to(r.device)).cpu()
+            for p, s in zip(perm, step_seeds)]), None))
+        if device == DEVICE and launches != (3 * B1_PER_STEP, 0, 0):
+            fail(f"mesh: three int8 stacked steps launched (B1, B2, B3) {launches}, expected "
+                 f"({3 * B1_PER_STEP}, 0, 0)")
+    card, cpu = rounds[DEVICE], rounds["cpu"]
+    steps = _q8_report(card.opt_state, cpu.opt_state)
+    n_diff, n_all, n_noise = _bf16_report([card.params[n] for n in card.stacked.leaf_names],
+                                          [cpu.params[n] for n in cpu.stacked.leaf_names],
+                                          card.lrs, "int8 stacked steps")
+    rel = float(((losses[DEVICE] - losses["cpu"]) / losses["cpu"]).abs().max())
+    print(f"mesh: 3 int8-moment SR stacked steps (K={MESH_K}) card against CPU: losses max "
+          f"rel diff {rel:.3e}; codes {json.dumps(steps)}; {n_diff} of {n_all} bfloat16 "
+          f"entries part ({n_noise} beyond 3 ulps)", flush=True)
+    if rel > 1e-4:
+        fail(f"mesh: int8 steps: card losses {losses[DEVICE].tolist()} against the CPU's "
+             f"{losses['cpu'].tolist()} (rtol 1e-4)")
+    if any(steps[k]["share"] > Q8_SHARE or steps[k]["share_beyond_one"] > Q8_SHARE / 10
+           or steps[k]["noisy_rows"] > 0.01 for k in steps):
+        fail("mesh: int8 stacked steps: the codes part card against CPU beyond the stated "
+             "tolerance")
+    if n_diff > 0.01 * n_all or n_noise > 1e-4 * n_all:
+        fail(f"mesh: int8 steps: {n_diff} of {n_all} bfloat16 entries part (1%), {n_noise} "
+             "beyond 3 ulps (1e-4)")
+
+
+def _step_ms(r, batches) -> float:
+    """Median host-clock ms of one synchronised stacked step over 20."""
+    import torch
+
+    for b in batches[:3]:
+        r.step(b)
+    times = []
+    for i in range(20):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r.step(batches[i % len(batches)])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    return statistics.median(times) * 1e3
+
+
+def int8_rounds(config, cohort) -> dict:
+    """A MESH_K-trial ParallelTrials round of MESH_EPOCHS epochs with int8
+    and with bfloat16 moments on the cohort's 400/100 split: per-trial best
+    validation losses side by side, B1/B2 launches (3 per stacked step and
+    per validation), the stacked step's time and the card's peak allocated
+    memory for each moment type."""
+    import numpy as np
+    import torch
+    from flexynesis_torch.models.direct_pred import DirectPred
+    from flexynesis_torch.parallel.trials import (ParallelTrials, _gather, _init_stacked,
+                                                  _Round)
+    from flexynesis_torch.train.trainer import train_val_split
+
+    tr, va = train_val_split(len(cohort), VAL_SIZE)
+    lrs = np.geomspace(1e-4, 1e-2, MESH_K)
+    steps = MESH_EPOCHS * (len(tr) // BATCH)
+    out = {}
+    for moments in ("int8", "bfloat16"):
+        m = DirectPred(config, cohort, target_variables=["subtype"], device=DEVICE)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        res, launches = _count(lambda: ParallelTrials(m, cohort, moment_dtype=moments).run(
+            lrs, np.full(MESH_K, 3), train_idx=tr, val_idx=va, batch_size=BATCH,
+            max_epochs=MESH_EPOCHS))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        want = (B1_PER_STEP * steps, B2_PER_FORWARD * MESH_EPOCHS, 0)
+        if launches != want:
+            fail(f"mesh: the {moments} round launched (B1, B2, B3) {launches}, expected {want}")
+        if not np.all(np.isfinite(res["best_val_loss"])):
+            fail(f"mesh: the {moments} round gave non-finite losses")
+        params, buffers = _init_stacked(m, [3] * MESH_K)
+        r = _Round(m, params, buffers, lrs=lrs, seeds=[3] * MESH_K, moment_dtype=moments)
+        data = m.make_batch(cohort)
+        batches = [_gather(data, torch.from_numpy(tr[i:i + BATCH]).to(DEVICE))
+                   for i in range(0, len(tr) - BATCH + 1, BATCH)]
+        out[moments] = {"best_val_loss": res["best_val_loss"].tolist(),
+                        "launches": launches, "step_ms": _step_ms(r, batches),
+                        "peak_gib": peak}
+    gap = np.abs(np.asarray(out["int8"]["best_val_loss"]) - out["bfloat16"]["best_val_loss"])
+    print(f"mesh: ParallelTrials rounds of {MESH_K} ({MESH_EPOCHS} epochs), best validation "
+          f"losses int8 {np.round(out['int8']['best_val_loss'], 4).tolist()}, bfloat16 "
+          f"{np.round(out['bfloat16']['best_val_loss'], 4).tolist()}: median gap "
+          f"{float(np.median(gap)):.4f}, max {float(gap.max()):.4f}; stacked step "
+          f"{out['int8']['step_ms']:.3f} ms int8, {out['bfloat16']['step_ms']:.3f} ms bfloat16 "
+          f"(host clock, synchronised); peak allocated {out['int8']['peak_gib']:.3f} GiB int8, "
+          f"{out['bfloat16']['peak_gib']:.3f} GiB bfloat16; launches (B1, B2, B3) "
+          f"{out['int8']['launches']}", flush=True)
+    return out
+
+
+def noisy_shap(cohort) -> dict:
+    """GradientShap with input noise (stdev SHAP_STDEV, SHAP_DRAWS draws, all
+    four classes) of an unfused DirectPred at the headline width on the
+    500-sample test cohort: the card against the CPU within MARKER_TOL, and
+    its seconds on the card."""
+    import numpy as np
+    import torch
+    from flexynesis_torch.interpret.attribution import gradient_shap
+    from flexynesis_torch.models.direct_pred import DirectPred
+    from flexynesis_torch.utils import prng
+
+    cfg = {"latent_dim": LATENT, "hidden_dim_factor": HIDDEN_FACTOR,
+           "supervisor_hidden_dim": SUP_HIDDEN, "lr": 1e-3, "epochs": 1, "batch_size": BATCH}
+    got, seconds = {}, None
+    for device in (DEVICE, "cpu"):
+        m = DirectPred(cfg, cohort, target_variables=["subtype"], device=device)
+        m.init_params(5)
+        x = m.make_eval_x(cohort)
+        n_class = m.output_dims["subtype"]
+
+        def run():
+            return gradient_shap(lambda xs: m._attribution_forward(xs, "subtype"), x,
+                                 range(n_class), SHAP_DRAWS, False, prng.key(42),
+                                 stdevs=SHAP_STDEV)
+
+        if device == DEVICE:
+            run()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+        got[device] = [{k: v.detach().cpu().numpy() for k, v in a.items()} for a in run()]
+        if device == DEVICE:
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t
+    err = 0.0
+    for a, b in zip(got[DEVICE], got["cpu"]):
+        for k in a:
+            if not np.allclose(a[k], b[k], **MARKER_TOL):
+                fail(f"mesh: noisy GradientShap ({k}) parts card against CPU beyond "
+                     f"rtol {MARKER_TOL['rtol']} / atol {MARKER_TOL['atol']}")
+            err = max(err, float(np.abs(a[k] - b[k]).max()))
+    print(f"mesh: GradientShap with input noise (stdev {SHAP_STDEV}, {SHAP_DRAWS} draws, "
+          f"{len(cohort)} samples, 4 classes): {seconds:.3f} s on the card; card against CPU "
+          f"max abs {err:.3e}", flush=True)
+    return {"seconds": seconds, "max_abs_err": err}
+
+
+ROUND_RTOL = 1e-2  # sharded against unsharded rounds on the card (see _same_rounds)
+
+
+def _same_rounds(a, b, hist_a, hist_b, what: str) -> float:
+    """Holds a sharded round ``a`` against the unsharded ``b`` (their
+    per-epoch validation losses ``hist_*``): bit for bit where cuBLAS takes
+    the same kernels for a shard's batched products as for the round's; it
+    may not (its choice depends on the batch count), and Adam turns the
+    last-bit gaps of shift-only biases' rounding-noise gradients into steps
+    of about lr (``tests/test_torch_trials.py``), so: every trial's best loss
+    within ROUND_RTOL, its best epoch equal or a near tie (the unsharded
+    loss at the sharded best epoch within ROUND_RTOL of its best), and the
+    same epochs run. Returns the largest relative gap."""
+    import numpy as np
+
+    la, lb = np.asarray(a["best_val_loss"]), np.asarray(b["best_val_loss"])
+    if not np.array_equal(np.isfinite(la), np.isfinite(lb)):
+        fail(f"mesh: {what}: the sharded and unsharded rounds diverge in other trials")
+    fin = np.isfinite(lb)
+    rel = float((np.abs(la - lb)[fin] / np.abs(lb[fin])).max()) if fin.any() else 0.0
+    ea, eb = np.asarray(a["best_epoch"]), np.asarray(b["best_epoch"])
+    hb = np.asarray(hist_b)
+    ties = [k for k in range(len(ea)) if ea[k] != eb[k]]
+    near = all(abs(hb[ea[k] - 1, k] - lb[k]) <= ROUND_RTOL * abs(lb[k]) for k in ties)
+    exact = rel == 0 and not ties
+    print(f"mesh: {what}: sharded against unsharded: "
+          + ("bit for bit" if exact else
+             f"best losses up to {rel:.3e} apart (relative), best epochs "
+             f"{ea.tolist()} against {eb.tolist()}")
+          + f", epochs run {a['epochs_run']} against {b['epochs_run']}", flush=True)
+    if rel > ROUND_RTOL or not near or a["epochs_run"] != b["epochs_run"]:
+        fail(f"mesh: {what}: the sharded round parts from the unsharded one beyond "
+             f"rtol {ROUND_RTOL} (best losses {la.tolist()} against {lb.tolist()})")
+    return rel
+
+
+def check_shard_launches():
+    """B1 and B2 at the DirectPred round's three blocks, K = MESH_K and a
+    shard's MESH_K / MESH_SHARDS trials planned for the whole round
+    (``planned_for``), and B3's MMD term with the same trial counts: each
+    trial bit for bit between the two launches."""
+    import torch
+    from flexynesis_torch.kernels.fused_linear import (fused_linear_bn_relu,
+                                                       fused_linear_bn_relu_eval, planned_for)
+    from flexynesis_torch.kernels.mmd import mmd_term_forward
+
+    g = torch.Generator().manual_seed(21)
+    K, k = MESH_K, MESH_K // MESH_SHARDS
+    shapes = [(BATCH, GEX, int(GEX * HIDDEN_FACTOR)), (BATCH, CNV, int(CNV * HIDDEN_FACTOR)),
+              (BATCH, 2 * LATENT, SUP_HIDDEN)]
+    for B, F, H in shapes:
+        x = torch.randn(B, F, generator=g).to(DEVICE)
+        w = (torch.randn(K, F, H, generator=g) / F ** 0.5).to(DEVICE)
+        v = [torch.randn(K, H, generator=g).to(DEVICE) for _ in range(3)]
+        rv = (torch.rand(K, H, generator=g) + 0.5).to(DEVICE)
+        outs = []
+        for n in (K, k):
+            with planned_for(K):
+                args = (x, w[:n].contiguous(), *(t[:n].contiguous() for t in v))
+                outs.append((fused_linear_bn_relu(*args)[0],
+                             fused_linear_bn_relu_eval(*args, v[0][:n].contiguous(),
+                                                       rv[:n].contiguous())))
+        if not (torch.equal(outs[0][0][:k], outs[1][0]) and torch.equal(outs[0][1][:k], outs[1][1])):
+            fail(f"mesh: B1/B2 at ({B}, {F}, {H}) give a shard's trials other bits than the "
+                 "round's")
+    z = torch.randn(K, BATCH, LATENT, generator=g).to(DEVICE)
+    prior = torch.randn(200, LATENT, generator=g).to(DEVICE)
+    if not torch.equal(mmd_term_forward(prior, z)[:k], mmd_term_forward(prior, z[:k].contiguous())):
+        fail("mesh: B3's MMD term gives a shard's trials other bits than the round's")
+    print(f"mesh: B1 and B2 at the round's three blocks and B3's MMD term: a shard's {k} "
+          f"trials (planned for {K}) bit for bit with the round's launch", flush=True)
+
+
+def sharded_rounds(config, cohort) -> dict:
+    """Trial rounds split over MESH_SHARDS shards of one card
+    ([cuda:0, cuda:0]) against the unsharded rounds (``_same_rounds``), after
+    ``check_shard_launches``: a fused DirectPred round of MESH_K whose shards'
+    trials stall at different epochs (lr 0.02 trials in the first shard,
+    1e-4 in the second, patience STALL_PATIENCE; a first-shard trial must
+    stall while the round runs on), a fused supervised_vae
+    round of MESH_K and the fine-tuning grid (45 trials) over GRID_SHARDS
+    shards (the same best cell, its loss within ROUND_RTOL). A shard
+    launches each kernel as the unsharded round does for its trials, so
+    every sharded count is the shards times the unsharded one."""
+    import numpy as np
+    import torch
+    from flexynesis_torch.models.direct_pred import DirectPred
+    from flexynesis_torch.models.supervised_vae import SupervisedVAE
+    from flexynesis_torch.parallel.mesh import auto_trial_mesh, get_mesh
+    from flexynesis_torch.parallel.trials import ParallelTrials
+    from flexynesis_torch.train.finetune import FineTuner
+    from flexynesis_torch.train.trainer import train_val_split
+
+    auto = auto_trial_mesh(MESH_K)
+    print(f"mesh: auto_trial_mesh({MESH_K}) on this {torch.cuda.device_count()}-card host: "
+          f"{auto}", flush=True)
+    if torch.cuda.device_count() == 1 and auto is not None:
+        fail("mesh: auto_trial_mesh split a round over one card")
+    mesh = get_mesh((("trial", MESH_SHARDS),), devices=MESH_DEVICES)
+    tr, va = train_val_split(len(cohort), VAL_SIZE)
+    check_shard_launches()
+    launches, summary = {}, {}
+    runs = (("directpred", DirectPred, np.r_[np.full(MESH_K // 2, 0.02),
+                                             np.full(MESH_K // 2, 1e-4)],
+             STALL_EPOCHS, STALL_PATIENCE),
+            ("supervised_vae", SupervisedVAE, np.geomspace(1e-4, 3e-3, MESH_K), MESH_EPOCHS, -1))
+    for name, cls, lrs, epochs, patience in runs:
+        outs, hist = {}, {}
+        for tag, mm in (("unsharded", None), ("sharded", mesh)):
+            m = cls(config, cohort, target_variables=["subtype"], device=DEVICE)
+            hist[tag] = []
+            t = time.perf_counter()
+            outs[tag], launches[f"mesh_{name}_{tag}"] = _count(lambda: ParallelTrials(
+                m, cohort, mesh=mm).run(lrs, np.arange(MESH_K), train_idx=tr, val_idx=va,
+                                        batch_size=BATCH, max_epochs=epochs,
+                                        early_stop_patience=patience,
+                                        on_epoch_end=lambda e, tl, vl: hist[tag].append(vl)))
+            torch.cuda.synchronize()
+            summary[f"{name}_{tag}_s"] = time.perf_counter() - t
+        gap = _same_rounds(outs["sharded"], outs["unsharded"], hist["sharded"],
+                           hist["unsharded"], f"the {name} round")
+        one, both = launches[f"mesh_{name}_unsharded"], launches[f"mesh_{name}_sharded"]
+        if both != tuple(MESH_SHARDS * x for x in one) or sum(one) == 0:
+            fail(f"mesh: the sharded {name} round launched {both}, the unsharded {one}: "
+                 f"expected {MESH_SHARDS} x the unsharded per kernel")
+        out = outs["sharded"]
+        stalled = np.asarray(out["best_epoch"]) + patience
+        note = ""
+        if patience > 0:
+            # a first-shard trial stalled while the round ran on: no shard
+            # stops the round alone
+            if not stalled[: MESH_K // 2].min() < out["epochs_run"]:
+                fail(f"mesh: no trial of the {name} round's first shard stalled before the "
+                     f"round stopped (stall epochs {stalled.tolist()}, {out['epochs_run']} run)")
+            note = (f"; stall epochs (best + {patience}) {stalled.tolist()}, the round ran "
+                    f"{out['epochs_run']} of {epochs}")
+        print(f"mesh: {name} round of {MESH_K} over {MESH_SHARDS} shards of cuda:0 against "
+              f"the unsharded round: best losses {gap:.2e} apart (relative){note}; launches "
+              f"(B1, B2, B3) per shard {one}, sharded total {both}; wall "
+              f"{summary[f'{name}_sharded_s']:.2f} s sharded, "
+              f"{summary[f'{name}_unsharded_s']:.2f} s unsharded", flush=True)
+
+    # the fine-tuning grid: 9 (lr x freeze) cells x 5 folds on 100 samples
+    grid_mesh = get_mesh((("trial", GRID_SHARDS),), devices=[MESH_DEVICES[0]] * GRID_SHARDS)
+    ft = cohort.subset(np.arange(FT_SAMPLES))
+    best = {}
+    m = DirectPred(config, cohort, target_variables=["subtype"], device=DEVICE)
+    m.init_params(8)
+    start = {n: t.clone() for n, t in m.module.state_dict().items()}
+    for tag, mm in (("unsharded", None), ("sharded", grid_mesh)):
+        m.module.load_state_dict(start)
+        best[tag], launches[f"mesh_finetune_grid_{tag}"] = _count(
+            lambda: FineTuner(m, ft, max_epochs=3, mesh=mm)._grid_parallel(FT_SAMPLES, FT_FOLDS))
+    (loss_s, lr_s, freeze_s, ep_s), (loss_u, lr_u, freeze_u, ep_u) = best["sharded"], \
+        best["unsharded"]
+    if (lr_s, freeze_s) != (lr_u, freeze_u) or abs(loss_s - loss_u) > ROUND_RTOL * abs(loss_u):
+        fail(f"mesh: the sharded fine-tuning grid chose {best['sharded']}, the unsharded "
+             f"{best['unsharded']}")
+    one, both = launches["mesh_finetune_grid_unsharded"], launches["mesh_finetune_grid_sharded"]
+    if both != tuple(GRID_SHARDS * x for x in one):
+        fail(f"mesh: the sharded grid launched {both}, the unsharded {one}")
+    print(f"mesh: fine-tuning grid of {FT_K} trials over {GRID_SHARDS} shards: best cell "
+          f"{best['sharded']}, unsharded {best['unsharded']}; launches per shard {one}, total "
+          f"{both}", flush=True)
+    return launches, summary
+
+
+def sharded_attribution() -> dict:
+    """Both methods over ATTR_SAMPLES samples at the headline width (an
+    unfused DirectPred, random weights from a seed), the sample axis split
+    over [cuda:0, cuda:0] against the unsharded run within ATTR_TOL; the
+    seconds of each."""
+    import numpy as np
+    import torch
+    from flexynesis_torch.data.dataset import MultiOmicDataset
+    from flexynesis_torch.interpret.attribution import METHODS
+    from flexynesis_torch.models.direct_pred import DirectPred
+    from flexynesis_torch.parallel.mesh import get_mesh
+
+    rng = np.random.default_rng(12)
+    cls = rng.integers(0, N_CLASSES, ATTR_SAMPLES).astype(np.float32)
+    ds = MultiOmicDataset(
+        dat={"gex": (rng.normal(size=(ATTR_SAMPLES, GEX)) + cls[:, None]).astype(np.float32),
+             "cnv": rng.normal(size=(ATTR_SAMPLES, CNV)).astype(np.float32)},
+        ann={"subtype": cls}, variable_types={"subtype": "categorical"},
+        features={"gex": [f"g{i}" for i in range(GEX)], "cnv": [f"c{i}" for i in range(CNV)]},
+        samples=[f"S{i}" for i in range(ATTR_SAMPLES)],
+        label_mappings={"subtype": {i: f"grp{i}" for i in range(N_CLASSES)}})
+    cfg = {"latent_dim": LATENT, "hidden_dim_factor": HIDDEN_FACTOR,
+           "supervisor_hidden_dim": SUP_HIDDEN, "lr": 1e-3, "epochs": 1, "batch_size": BATCH}
+    model = DirectPred(cfg, ds, target_variables=["subtype"], device=DEVICE)
+    model.init_params(11)
+    mesh = get_mesh((("data", len(MESH_DEVICES)),), devices=MESH_DEVICES)
+    out = {}
+    for method in METHODS:
+        rows, secs = {}, {}
+        for tag, mm in (("unsharded", None), ("sharded", mesh)):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            rows[tag], got = _count(lambda: model.compute_feature_importance(
+                ds, "subtype", method=method, steps_or_samples=ATTR_STEPS,
+                batch_size=ATTR_BATCH, mesh=mm))
+            torch.cuda.synchronize()
+            secs[tag] = time.perf_counter() - t
+            if got != (0, 0, 0):
+                fail(f"mesh: attribution launched (B1, B2, B3) {got}")
+        a = np.asarray([r["importance"] for r in rows["sharded"]], np.float64)
+        b = np.asarray([r["importance"] for r in rows["unsharded"]], np.float64)
+        if not np.allclose(a, b, **ATTR_TOL):
+            fail(f"mesh: sharded {method} parts from the unsharded run beyond {ATTR_TOL}")
+        rel = float((np.abs(a - b) / np.maximum(np.abs(b), 1e-30)).max())
+        out[method] = {**secs, "max_rel_diff": rel}
+        print(f"mesh: {method} over {ATTR_SAMPLES} samples x {GEX + CNV} features "
+              f"({ATTR_STEPS} steps, batches of {ATTR_BATCH}): sharded over "
+              f"{len(MESH_DEVICES)} shards {secs['sharded']:.3f} s, unsharded "
+              f"{secs['unsharded']:.3f} s; max rel diff {rel:.2e}", flush=True)
+    return out
+
+
+def data_parallel(config, cohort) -> tuple:
+    """``distributed.initialize`` with a one-rank NCCL group (loopback TCP):
+    a fused DirectPred's data-parallel fit (``fit(mesh=...)``, every
+    collective run) equals the fit without a group bit for bit, with the
+    same B1/B2 launches; ``partition_trials`` over the live topology returns
+    the whole batch."""
+    import socket
+
+    import numpy as np
+    import torch
+    from flexynesis_torch.models.direct_pred import DirectPred
+    from flexynesis_torch.parallel import distributed
+    from flexynesis_torch.parallel.mesh import get_mesh
+    from flexynesis_torch.train.trainer import train_val_split
+
+    tr, va = train_val_split(len(cohort), VAL_SIZE)
+
+    def fit(mesh):
+        m = DirectPred(config, cohort, target_variables=["subtype"], device=DEVICE)
+        return m.fit(cohort, tr, va, lr=1e-3, batch_size=BATCH, max_epochs=3, seed=4, mesh=mesh)
+
+    plain, plain_launches = _count(lambda: fit(None))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    summary = distributed.initialize(f"tcp://127.0.0.1:{port}", 1, 0)
+    try:
+        if torch.distributed.get_backend() != "nccl":
+            fail("mesh: the one-rank group is not NCCL")
+        sugg = [{"i": i} for i in range(MESH_K)]
+        if distributed.partition_trials(sugg) != sugg:
+            fail("mesh: partition_trials over one rank did not return the whole batch")
+        grouped, dp_launches = _count(lambda: fit(get_mesh((("data", 1),))))
+    finally:
+        distributed.shutdown()
+    same = grouped.history == plain.history and all(
+        torch.equal(grouped.state[n], t) for n, t in plain.state.items())
+    if not same or dp_launches != plain_launches:
+        fail(f"mesh: the one-rank data-parallel fit parts from the plain fit (histories "
+             f"{grouped.history['val_loss']} / {plain.history['val_loss']}, launches "
+             f"{dp_launches} / {plain_launches})")
+    print(f"mesh: distributed.initialize -> {summary}; the data-parallel fit over a one-rank "
+          f"NCCL group = the plain fit bit for bit ({len(plain.history['val_loss'])} epochs, "
+          f"val {plain.history['val_loss'][-1]:.6f}); launches (B1, B2, B3) {dp_launches}; "
+          "partition_trials returned the whole batch; two ranks need two cards (not run)",
+          flush=True)
+    return {"data_parallel_fit": dp_launches}, {"summary": summary}
+
+
+def mesh_phase(cohort) -> tuple:
+    """Phase 14: the 8-bit trial moments (card against CPU, rounds side by
+    side), GradientShap with input noise, trial rounds and the fine-tuning
+    grid split over shards of one card, attribution split over two shards,
+    and the data-parallel fit over a one-rank NCCL group."""
+    config = {"latent_dim": LATENT, "hidden_dim_factor": HIDDEN_FACTOR,
+              "supervisor_hidden_dim": SUP_HIDDEN, "lr": 1e-3, "epochs": MESH_EPOCHS,
+              "batch_size": BATCH, "fused_kernels": True}
+    t = time.perf_counter()
+    check_int8_steps(config, cohort)
+    summary = {"int8_rounds": int8_rounds(config, cohort), "noisy_shap": noisy_shap(cohort)}
+    launches, summary["sharded_rounds"] = sharded_rounds(config, cohort)
+    summary["sharded_attribution"] = sharded_attribution()
+    dp_launches, summary["data_parallel"] = data_parallel(config, cohort)
+    launches.update(dp_launches)
+    for moments in ("int8", "bfloat16"):
+        launches[f"mesh_{moments}_round"] = summary["int8_rounds"][moments]["launches"]
+    summary["seconds"] = time.perf_counter() - t
+    print(f"mesh: phase 14 in {summary['seconds']:.1f} s", flush=True)
+    return launches, summary
+
+
 def build_all(names):
     """Build the kernels' libraries and the CSV reader's, one compiler per
     source (nvcc, or g++ for the reader), started together."""
@@ -4822,36 +5427,51 @@ def main() -> int:
     card = card_line()
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
     t_start = time.perf_counter()
-    train_shapes, rows, passes, b1_rows, b3_rows, term_rows, trial_rows = check_kernels()
+    seconds = {}
+
+    def timed(name, fn, *args):
+        """``fn(*args)``, its host-clock seconds printed and kept in ``seconds``."""
+        t = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = round(time.perf_counter() - t, 1)
+        print(f"phase {name}: {seconds[name]} s", flush=True)
+        return out
+
+    train_shapes, rows, passes, b1_rows, b3_rows, term_rows, trial_rows = timed(
+        "kernels", check_kernels)
 
     workdir = REPO / "build" / "chip_smoke"
     shutil.rmtree(workdir, ignore_errors=True)
     workdir.mkdir(parents=True)
-    serve_b2 = serve(workdir)
+    serve_b2 = timed("serving", serve, workdir)
     importer_cache = ImportOnce()
     with importer_cache:  # phase 5 imports its folder once for the trial phase too
-        (train_b1, train_b2), b2_train_rows, cohort = train(workdir)
+        (train_b1, train_b2), b2_train_rows, cohort = timed("training", train, workdir)
     # B2 at the shapes the training phase gave it that serving did not
     checked = {(r["B"], r["F"], r["H"]) for r in rows}
-    rows += check_kernel([(f"{n}_n{B}", (B, F, H)) for B in b2_train_rows
-                          for n, (F, H) in b2_blocks() if (B, F, H) not in checked])
-    hpo_launches, hpo_summary = train_trials(workdir, importer_cache, cohort)
-    vae_launches, vae_summary = vae_trials(workdir, importer_cache, cohort)
-    vae_b3 = train_vae(workdir, "supervised_vae", FIT_EPOCHS)
-    cm_b3 = train_vae(workdir, "CrossModalPred", CM_EPOCHS,
-                      ("--input_layers", "gex", "--output_layers", "cnv"), timed=False)
-    marker_summary = markers(workdir)
+    rows += timed("b2_training_shapes", check_kernel,
+                  [(f"{n}_n{B}", (B, F, H)) for B in b2_train_rows
+                   for n, (F, H) in b2_blocks() if (B, F, H) not in checked])
+    hpo_launches, hpo_summary = timed("trials", train_trials, workdir, importer_cache, cohort)
+    vae_launches, vae_summary = timed("vae_trials", vae_trials, workdir, importer_cache, cohort)
+    vae_b3 = timed("supervised_vae", train_vae, workdir, "supervised_vae", FIT_EPOCHS)
+    cm_b3 = timed("crossmodal", train_vae, workdir, "CrossModalPred", CM_EPOCHS,
+                  ("--input_layers", "gex", "--output_layers", "cnv"), False)
+    marker_summary = timed("markers", markers, workdir)
     marker_b1, marker_b2, marker_b3 = marker_summary.pop("launches")
-    triplet_launches, triplet_summary = triplet(workdir, importer_cache, cohort)
-    gnn_launches, gnn_summary = gnn(workdir, importer_cache)
+    triplet_launches, triplet_summary = timed("triplet", triplet, workdir, importer_cache,
+                                              cohort)
+    gnn_launches, gnn_summary = timed("gnn", gnn, workdir, importer_cache)
     zoo = {**triplet_launches, **gnn_launches}
-    ft_b1_rows, ft_b2_rows, ft_trial_rows = check_finetune_kernels()
-    ft_launches, ft_summary = finetune_phase(workdir, importer_cache)
+    ft_b1_rows, ft_b2_rows, ft_trial_rows = timed("finetune_kernels", check_finetune_kernels)
+    ft_launches, ft_summary = timed("finetune", finetune_phase, workdir, importer_cache)
     trial_rows += ft_trial_rows
-    h5_launches, h5_summary = h5_phase(workdir, (train_b1, train_b2))
-    base_launches, base_summary = baseline_phase(workdir, importer_cache)
-    analysis_launches, analysis_summary = analysis_phase(workdir)
-    ft_launches = {**ft_launches, **h5_launches, **base_launches, **analysis_launches}
+    h5_launches, h5_summary = timed("h5", h5_phase, workdir, (train_b1, train_b2))
+    base_launches, base_summary = timed("baselines", baseline_phase, workdir, importer_cache)
+    analysis_launches, analysis_summary = timed("analysis", analysis_phase, workdir)
+    mesh_launches, mesh_summary = timed("mesh", mesh_phase, cohort)
+    ft_launches = {**ft_launches, **h5_launches, **base_launches, **analysis_launches,
+                   **mesh_launches}
 
     trial_b1 = [r for r in trial_rows if r["kernel"] == "B1"]
     trial_b2 = [r for r in trial_rows if r["kernel"] == "B2"]
@@ -4900,7 +5520,9 @@ def main() -> int:
     print("h5: summary " + json.dumps(h5_summary), flush=True)
     print("baselines: summary " + json.dumps(base_summary), flush=True)
     print("analysis: summary " + json.dumps(analysis_summary, default=float), flush=True)
+    print("mesh: summary " + json.dumps(mesh_summary, default=float), flush=True)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s", flush=True)
+    print("phase seconds: " + json.dumps(seconds), flush=True)
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

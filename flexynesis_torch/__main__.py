@@ -503,9 +503,9 @@ def resolve_hpo_batch(args, device) -> int:
 def _write_feature_importances(args, model, test_dataset) -> None:
     """Marker finding over the test cohort (flexynesis_tpu/__main__.py:345-381):
     one table per method, every variable of the model, 25 steps or draws.
-    ``--marker_sample_cap`` attributes a seeded subsample; the JAX package's
-    sharding of the sample axis over several devices waits for multi-GPU
-    (ROADMAP A item 8)."""
+    ``--marker_sample_cap`` attributes a seeded subsample; a cohort above
+    2,048 samples splits its sample axis over every local card when there is
+    more than one, as JAX shards it over its devices."""
     import numpy as np
 
     from .utils.csvio import write_rows
@@ -520,12 +520,20 @@ def _write_feature_importances(args, model, test_dataset) -> None:
         idx = np.random.default_rng(42).choice(len(test_dataset), size=cap, replace=False)
         attr_dataset = test_dataset.subset(idx)
         print(f"[INFO] Capping marker discovery at {cap} subsampled samples")
+    attr_mesh = None
+    if len(attr_dataset) > 2048 and model.device.type == "cuda":
+        from .parallel.mesh import get_mesh, local_devices
+
+        n_dev = len(local_devices())
+        if n_dev > 1:
+            attr_mesh = get_mesh((("data", n_dev),))
+            print(f"[INFO] Sharding attribution sample axis over {n_dev} devices")
     for method in methods:
         rows = []
         for var in model.variables:
             print(f"[INFO] Computing feature importance ({method}) for {var}")
             rows += model.compute_feature_importance(attr_dataset, var, method=method,
-                                                     steps_or_samples=25)
+                                                     steps_or_samples=25, mesh=attr_mesh)
         write_rows(os.path.join(args.outdir, f"{args.prefix}.feature_importance.{method}.csv"),
                    rows)
 

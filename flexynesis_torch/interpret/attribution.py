@@ -15,7 +15,9 @@ require gradients meanwhile, so no weight gradient is formed. IG uses
 Gauss-Legendre nodes and weights (Captum's default); GradientShap draws one
 uniform scale per sample and draw, shared across layers, with JAX's key
 schedule through ``utils/prng.py``, so its draws equal the JAX package's bit
-for bit. Products run in f32 (PyTorch's default keeps TF32 off), as on the
+for bit; with input noise (``stdevs`` > 0) the noise is drawn on the
+input's device by the same generator (XLA's ErfInv, within a few ulp). A
+``mesh`` splits each batch's rows over devices (``abs_attribution_sums``). Products run in f32 (PyTorch's default keeps TF32 off), as on the
 eval path. Each attribution function takes a list of classes and returns one
 ``{layer: (B, F)}`` attribution per class.
 
@@ -30,7 +32,7 @@ blocks are kernel B2, which has no backward, in the JAX package as here.
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -41,9 +43,9 @@ from ..train.space import Categorical
 from ..utils import prng
 
 METHODS = ("IntegratedGradients", "GradientShap")
-# Rows per attribution batch and GradientShap's key seed. Both fix results:
-# the tail batch's zero padding and GradientShap's (BATCH, 1) draw shape, as
-# the JAX package has them.
+# The default rows per attribution batch and GradientShap's key seed. Both
+# fix results: the tail batch's zero padding and GradientShap's (BATCH, 1)
+# draw shape, as the JAX package has them.
 BATCH = 512
 SEED = 42
 FUSED_REFUSAL = (
@@ -116,22 +118,38 @@ def integrated_gradients(forward, x: Tensors, classes: Sequence[int], n_steps: i
 
 
 def gradient_shap(forward, x: Tensors, classes: Sequence[int], n_samples: int,
-                  single_output: bool, rng: np.ndarray, stdevs: float = 0.0) -> List[Tensors]:
+                  single_output: bool, rng: np.ndarray, stdevs: float = 0.0,
+                  rows: Optional[Tuple[int, int]] = None) -> List[Tensors]:
     """GradientShap, zero baselines, for each class of ``classes``:
-    attr = mean over draws of x * grad f(u * x), with one uniform u per
-    (sample, draw) shared across layers. ``rng`` is a ``utils/prng`` key;
-    draw s uses ``split(split(rng, n_samples)[s])[0]``, as JAX does."""
-    if stdevs > 0:
-        raise NotImplementedError(
-            "GradientShap with input noise (stdevs > 0) is not ported to "
-            "flexynesis_torch yet (ROADMAP A item 7); the CLI draws without noise"
-        )
+    attr = mean over draws of x * grad f(u * (x + noise)), with one uniform u
+    per (sample, draw) shared across layers and, for ``stdevs`` > 0, N(0,
+    stdevs) noise per input value, added before the scale (Captum's
+    ``u * (x + noise - baseline)``). ``rng`` is a ``utils/prng`` key; draw s
+    splits ``split(rng, n_samples)[s]`` into (ku, kn): u from ku, layer i's
+    noise (i in sorted layer order) from ``fold_in(kn, i)``, as JAX does.
+    ``rows`` (start, total): ``x`` holds rows ``start`` on of a batch of
+    ``total`` rows (a shard's slice), and takes that slice of the batch's
+    draws."""
     first = next(iter(x.values()))
     n_batch = first.shape[0]
-    u = np.stack([prng.uniform(prng.split(k)[0], (n_batch, 1))
-                  for k in prng.split(rng, n_samples)])
+    start, total = rows or (0, n_batch)
+    keys = [prng.split(k) for k in prng.split(rng, n_samples)]
+    u = np.stack([prng.uniform(ku, (total, 1))[start:start + n_batch] for ku, _ in keys])
     u = torch.from_numpy(u).to(first.device)
-    grads = _class_grads(forward, _fold(x, u), classes, single_output)
+    if stdevs > 0:
+        points = {}
+        # layer i in sorted name order: the jitted JAX program sees its input
+        # dict with sorted keys
+        index = {name: i for i, name in enumerate(sorted(x))}
+        for name, v in x.items():
+            i = index[name]
+            noisy = torch.stack([v + stdevs * prng.normal(prng.fold_in(kn, i), v.shape, v.device,
+                                                          row_offset=start)
+                                 for _, kn in keys])
+            points[name] = (noisy * u).reshape(-1, v.shape[-1])
+    else:
+        points = _fold(x, u)
+    grads = _class_grads(forward, points, classes, single_output)
     return [{k: (x[k] * g[k].view(n_samples, *x[k].shape)).mean(dim=0) for k in x}
             for g in grads]
 
@@ -149,14 +167,37 @@ def _inputs_only(module: torch.nn.Module):
             p.requires_grad_(flag)
 
 
+def _batch_attr(model, x: Tensors, target_var: str, method: str, steps_or_samples: int,
+                classes, single: bool, key: np.ndarray, rows=None) -> List[Tensors]:
+    """Per class, {layer: (F,)} sums of |attr| over the rows of ``x``."""
+    def forward(xs):
+        return model._attribution_forward(xs, target_var)
+
+    if method == "IntegratedGradients":
+        attrs = integrated_gradients(forward, x, classes, steps_or_samples, single)
+    else:
+        attrs = gradient_shap(forward, x, classes, steps_or_samples, single, key, rows=rows)
+    return [{k: a.abs().sum(dim=0) for k, a in attr.items()} for attr in attrs]
+
+
 def abs_attribution_sums(model, dataset, target_var: str,
-                         method: str = "IntegratedGradients", steps_or_samples: int = 5):
+                         method: str = "IntegratedGradients", steps_or_samples: int = 5,
+                         batch_size: int = BATCH, rng_seed: int = SEED, mesh=None):
     """Per-class, per-layer sum of |attributions| over all samples.
 
     Returns (sums, n_class, n) where sums[c][layer] is a (n_features,) tensor.
-    Batches of ``BATCH`` rows; when the cohort is larger, the last batch is
-    zero-padded to ``BATCH`` rows, as the JAX package pads it (zero rows add
-    exactly zero), so GradientShap draws its scales at that shape."""
+    Batches of ``batch_size`` rows; when the cohort is larger, the last batch
+    is zero-padded to ``batch_size`` rows, as the JAX package pads it (zero
+    rows add exactly zero), so GradientShap draws its scales at that shape.
+
+    ``mesh`` (``parallel/mesh.py``) splits the SAMPLE axis of each batch over
+    the devices of its first axis: attributions are per-sample independent,
+    so each device attributes a contiguous slice of the batch's rows with a
+    copy of the model (its own device context) and the sums are added. As in
+    JAX, ``batch_size`` is rounded up to a multiple of the mesh and the tail
+    is zero-padded even when the cohort fits in one batch; each slice takes
+    its rows of the batch's draws, so the draws are those of the unsharded
+    program at that batch shape."""
     if method not in METHODS:
         raise ValueError(
             f"Unsupported method '{method}'. Choose 'IntegratedGradients' or 'GradientShap'."
@@ -167,41 +208,68 @@ def abs_attribution_sums(model, dataset, target_var: str,
     else:
         n_class = num_classes_for(dataset.ann[target_var])
     single, classes = n_class == 1, range(n_class)
+    steps = int(steps_or_samples)
+    devices = None
+    if mesh is not None:
+        from ..parallel.mesh import replica
 
-    def forward(xs):
-        return model._attribution_forward(xs, target_var)
+        devices = mesh.axis_devices(mesh.axis_names[0])
+        batch_size = -(-batch_size // len(devices)) * len(devices)
+        replicas = [replica(model, d) for d in devices]
 
     x_all = model.make_eval_x(dataset)
     n = len(dataset)
     sums = None
-    rng = prng.key(SEED)
-    with _inputs_only(model.module):
-        for start in range(0, n, BATCH):
-            x = {k: v[start:start + BATCH] for k, v in x_all.items()}
+    rng = prng.key(rng_seed)
+    with contextlib.ExitStack() as stack:
+        for m in [model] if devices is None else replicas:
+            stack.enter_context(_inputs_only(m.module))
+        for start in range(0, n, batch_size):
+            x = {k: v[start:start + batch_size] for k, v in x_all.items()}
             rows = next(iter(x.values())).shape[0]
-            if rows < BATCH and n > BATCH:
-                x = {k: torch.nn.functional.pad(v, (0, 0, 0, BATCH - rows))
+            if rows < batch_size and (n > batch_size or devices is not None):
+                x = {k: torch.nn.functional.pad(v, (0, 0, 0, batch_size - rows))
                      for k, v in x.items()}
             rng, sub = prng.split(rng)
-            if method == "IntegratedGradients":
-                attrs = integrated_gradients(forward, x, classes, int(steps_or_samples),
-                                             single)
+            if devices is None:
+                per_class = _batch_attr(model, x, target_var, method, steps, classes, single,
+                                        sub)
             else:
-                attrs = gradient_shap(forward, x, classes, int(steps_or_samples), single,
-                                      sub)
-            per_class = [{k: a.abs().sum(dim=0) for k, a in attr.items()} for attr in attrs]
+                per_class = _sharded_attr(replicas, devices, x, batch_size, target_var, method,
+                                          steps, classes, single, sub, model.device)
             sums = per_class if sums is None else [
                 {k: s[k] + p[k] for k in s} for s, p in zip(sums, per_class)]
     return sums, n_class, n
 
 
+def _sharded_attr(replicas, devices, x: Tensors, batch_size: int, target_var: str,
+                  method: str, steps: int, classes, single: bool, key: np.ndarray,
+                  out_device) -> List[Tensors]:
+    """One batch's per-class sums, each device attributing its contiguous
+    slice of the rows; the slices' sums added on ``out_device``."""
+    from ..parallel.mesh import device_context, split_rows
+
+    total = None
+    for m, d, rows in zip(replicas, devices, split_rows(batch_size, len(devices))):
+        with device_context(d):
+            part = _batch_attr(m, {k: v[rows].to(d) for k, v in x.items()}, target_var, method,
+                               steps, classes, single, key, rows=(rows.start, batch_size))
+        part = [{k: v.to(out_device) for k, v in p.items()} for p in part]
+        total = part if total is None else [
+            {k: s[k] + p[k] for k in s} for s, p in zip(total, part)]
+    return total
+
+
 def compute_feature_importance(model, dataset, target_var: str,
                                method: str = "IntegratedGradients",
-                               steps_or_samples: int = 5) -> List[dict]:
+                               steps_or_samples: int = 5, batch_size: int = BATCH,
+                               rng_seed: int = SEED, mesh=None) -> List[dict]:
     """Per-feature importance rows for one target variable, class by class
-    and layer by layer, as the JAX package's table orders them."""
+    and layer by layer, as the JAX package's table orders them; ``mesh``
+    splits the sample axis (``abs_attribution_sums``)."""
     sums, n_class, n = abs_attribution_sums(
         model, dataset, target_var, method=method, steps_or_samples=steps_or_samples,
+        batch_size=batch_size, rng_seed=rng_seed, mesh=mesh,
     )
     rows = []
     for c in range(n_class):

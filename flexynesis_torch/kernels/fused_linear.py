@@ -32,8 +32,10 @@ fallback. ``<wrapper>.launches`` counts the CUDA launches of its kernels.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
+import threading
 from typing import NamedTuple
 
 import torch
@@ -113,6 +115,30 @@ def plan_b2(B: int, F: int, H: int, sms: int = H100_SMS, trials: int = 1) -> Spl
     return _plan(B, F, H, B2_COL_TILE, B2_K_STAGE, B2_CTAS_PER_SM * sms, trials)
 
 
+_PLANNED = threading.local()
+
+
+@contextlib.contextmanager
+def planned_for(trials: int):
+    """Plan the B1 and B2 launches made inside the block as for a launch of
+    ``trials`` trials (a shard of a round plans as the whole round): the
+    split of F, and with it each trial's order of summation, then does not
+    depend on how many of the round's trials share a launch, so a trial
+    sharded over a mesh computes the bits it computes unsharded. A shard's
+    grid has fewer CTAs than the plan assumed."""
+    prev = getattr(_PLANNED, "trials", None)
+    _PLANNED.trials = int(trials)
+    try:
+        yield
+    finally:
+        _PLANNED.trials = prev
+
+
+def _plan_trials(K: int) -> int:
+    planned = getattr(_PLANNED, "trials", None)
+    return K if planned is None else max(K, planned)
+
+
 _SMS: dict = {}
 
 
@@ -183,7 +209,7 @@ def fused_linear_bn_relu_eval(x, w, b, gamma, beta, running_mean, running_var,
     y = torch.empty((*lead, B, H), device=x.device, dtype=torch.float32)
     if y.numel() == 0:
         return y
-    plan = plan_b2(B, F, H, _sm_count(x.device), K)
+    plan = plan_b2(B, F, H, _sm_count(x.device), _plan_trials(K))
     fn = launcher("fused_linear_eval", "fused_linear_bn_relu_eval_f32",
                   [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p])
     rc = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), gamma.data_ptr(),
@@ -243,7 +269,7 @@ def fused_linear_bn_relu_forward(x, w, b, gamma, beta, eps: float = 1e-5):
     mu, var = buf[2 * K * B * H: 2 * K * B * H + 2 * K * H].view(2, *lead, H)
     if H == 0 or K == 0:
         return y, h, mu, var
-    plan = plan_b1(B, F, H, _sm_count(x.device), K)
+    plan = plan_b1(B, F, H, _sm_count(x.device), _plan_trials(K))
     part = buf[2 * K * B * H + 2 * K * H:].view(2, K, row_tiles, H) if n_part else None
     fn = launcher("fused_linear_train", "fused_linear_bn_relu_train_f32",
                   [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7

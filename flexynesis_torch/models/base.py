@@ -20,6 +20,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from ..ops.collectives import forward_rows
 from ..ops.losses import compute_total_loss, cox_ph_loss, masked_ce_loss, masked_mse_loss
 from ..utils.csvio import Table
 from ..utils.device import resolve_device
@@ -142,7 +143,11 @@ class BaseModel:
         module uses batch statistics and draws its noise (dropout, the VAE's
         reparameterisation) from ``generator``; validation passes None."""
         self.module.train(train)
-        out = self._module_train(batch, generator)
+        # on the data axis of a multi-process fit each rank forwards its rows
+        # of the global batch and the outputs are gathered
+        # (ops/collectives.py); else the forward of the whole batch
+        out = forward_rows(lambda xs: self._module_train({**batch, "x": xs}, generator),
+                           batch["x"])
         losses = supervised_loss_terms(
             out["outputs"], batch["y"], self.variables, self.variable_types,
             self.surv_event_var, self.surv_time_var,
@@ -178,10 +183,12 @@ class BaseModel:
 
     def fit(self, dataset, train_idx=None, val_idx=None, *, lr: float,
             batch_size: int, max_epochs: int, early_stop_patience: int = -1,
-            seed: int = 42, on_epoch_end=None):
+            seed: int = 42, on_epoch_end=None, mesh=None):
         """Train this model on (a subset of) a dataset from fresh parameters
         drawn with ``seed``; keeps the best state and returns the TrainResult,
-        also kept as ``train_result``. ``on_epoch_end`` goes to the trainer."""
+        also kept as ``train_result``. ``on_epoch_end`` goes to the trainer;
+        ``mesh`` with a ``data`` axis over the live process group runs the
+        data-parallel fit (``train/trainer.py``)."""
         from ..train.trainer import Trainer
 
         self.init_params(seed)
@@ -189,7 +196,7 @@ class BaseModel:
             train_idx = np.arange(self.n_train_samples(dataset))
         train_data = self.make_batch(dataset, train_idx)
         val_data = self.make_batch(dataset, val_idx) if val_idx is not None else None
-        trainer = Trainer(self.module, self.loss_fn, lr=lr)
+        trainer = Trainer(self.module, self.loss_fn, lr=lr, mesh=mesh)
         res = trainer.fit(
             train_data, val_data, n_samples=len(train_idx), batch_size=batch_size,
             max_epochs=max_epochs, early_stop_patience=early_stop_patience, seed=seed,
@@ -266,13 +273,16 @@ class BaseModel:
 
     def compute_feature_importance(self, dataset, target_var: str,
                                    method: str = "IntegratedGradients",
-                                   steps_or_samples: int = 5) -> List[dict]:
+                                   steps_or_samples: int = 5, batch_size: int = 512,
+                                   rng_seed: int = 42, mesh=None) -> List[dict]:
         """Per-class feature attributions of one target variable, as rows
         (reference direct_pred.py:432-590; ``interpret/attribution.py``);
-        also kept in ``feature_importances[target_var]``."""
+        also kept in ``feature_importances[target_var]``. ``mesh`` splits the
+        sample axis over its devices."""
         from ..interpret.attribution import compute_feature_importance
 
         rows = compute_feature_importance(self, dataset, target_var, method=method,
-                                          steps_or_samples=steps_or_samples)
+                                          steps_or_samples=steps_or_samples,
+                                          batch_size=batch_size, rng_seed=rng_seed, mesh=mesh)
         self.feature_importances[target_var] = rows
         return rows

@@ -157,13 +157,16 @@ class GNN(BaseModel):
 
     def compute_feature_importance(self, dataset, target_var: str,
                                    method: str = "IntegratedGradients",
-                                   steps_or_samples: int = 5) -> List[dict]:
+                                   steps_or_samples: int = 5, batch_size: int = 512,
+                                   rng_seed: int = 42, mesh=None) -> List[dict]:
         """Node attributions split per original omic layer (gnn_early.py:599-633):
-        one row per (class, layer, node)."""
+        one row per (class, layer, node); ``mesh`` splits the sample axis."""
         from ..interpret.attribution import abs_attribution_sums
 
         sums, n_class, n = abs_attribution_sums(self, dataset, target_var, method=method,
-                                                steps_or_samples=steps_or_samples)
+                                                steps_or_samples=steps_or_samples,
+                                                batch_size=batch_size, rng_seed=rng_seed,
+                                                mesh=mesh)
         orig_layers = list(getattr(dataset, "multiomic_dataset", dataset).dat.keys())
         node_names = list(dataset.node_names)
         rows = []

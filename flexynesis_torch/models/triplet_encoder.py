@@ -34,6 +34,7 @@ import torch
 from torch import nn
 
 from ..data.dataset import TripletMultiOmicDataset
+from ..ops.collectives import forward_rows
 from ..ops.losses import compute_total_loss, triplet_margin_loss
 from .base import BaseModel, supervised_loss_terms
 from .direct_pred import DirectPredNet
@@ -190,7 +191,9 @@ class MultiTripletNetwork(BaseModel):
                             else self.partners(batch["anchor_group"], generator))
         idx3 = torch.cat([anchor_idx, pos_idx, neg_idx])
         x3 = {k: v.index_select(0, idx3) for k, v in batch["_full_x"].items()}
-        out = self.module(x3, generator)
+        # on the data axis each rank forwards its rows of the 3B-row batch
+        # (the partners drawn for the global batch, as one process draws them)
+        out = forward_rows(lambda xs: self.module(xs, generator), x3)
         emb = out["embeddings"]
         outputs = {var: o[:B] for var, o in out["outputs"].items()}
         losses = {"triplet_loss": triplet_margin_loss(emb[:B], emb[B:2 * B], emb[2 * B:])}

@@ -8,7 +8,10 @@ mode the block runs kernel B1 (batch statistics) and then updates the running
 statistics as the JAX block does: ``ra = 0.9 * ra + 0.1 * mean`` and
 ``ra_var = 0.9 * ra_var + 0.1 * var * n / max(n - 1, 1)`` (torch's unbiased
 convention, unlike ``MLP``). Dropout is applied outside the kernel, from the
-caller's ``torch.Generator``. In eval mode the block runs kernel B2. Both
+caller's ``torch.Generator``. On the data axis of a fit over several
+processes, B1 runs on the gathered global batch (its statistics are inside
+the kernel) and each rank keeps its rows. In eval mode the block runs kernel
+B2. Both
 kernels live in ``kernels/fused_linear.py`` and take a leading trial axis, as
 ``forward_with`` does (see ``ops/mlp.py``); CPU tensors take their plain
 versions.
@@ -20,6 +23,7 @@ import torch
 from torch import nn
 
 from ..kernels.fused_linear import fused_linear_bn_relu, fused_linear_bn_relu_eval
+from .collectives import gather_rows
 from .initializers import reset_linear_, torch_linear_uniform_
 from .mlp import BN_EPS, Dropout, Tensors, linear, module_forward, update_running_
 
@@ -63,8 +67,13 @@ class FusedMLP(nn.Module):
                 params["bn_bias"])
         rm, rv = buffers["running_mean"], buffers["running_var"]
         if train:
-            h, mu, var = fused_linear_bn_relu(*args, BN_EPS)
-            update_running_(rm, rv, mu, var, n=x.shape[-2])
+            # on the data axis B1 runs on the gathered global rows and each
+            # rank keeps its own (ops/collectives.py)
+            x_all, own_rows = gather_rows(x)
+            h, mu, var = fused_linear_bn_relu(x_all, *args[1:], BN_EPS)
+            update_running_(rm, rv, mu, var, n=x_all.shape[-2])
+            if own_rows is not None:
+                h = h[own_rows]
             h = drop(h, self.dropout_rate)
         else:
             h = fused_linear_bn_relu_eval(*args, rm, rv, BN_EPS)

@@ -40,6 +40,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .collectives import global_moments, row_draw
 from .initializers import reset_linear_
 
 BN_EPS = 1e-5
@@ -47,14 +48,19 @@ BN_MOMENTUM = 0.1  # weight of the new batch in the running statistics (flax's 1
 
 
 def dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
-    """Inverted dropout whose mask comes from an explicit generator."""
-    keep = torch.rand(x.shape, generator=generator, device=generator.device) >= rate
+    """Inverted dropout whose mask comes from an explicit generator (a
+    per-row draw: on the data axis, this rank's rows of the global batch's
+    mask, ``ops/collectives.py``)."""
+    keep = row_draw(lambda shape: torch.rand(shape, generator=generator,
+                                             device=generator.device), x.shape) >= rate
     return x * keep.to(x.device, x.dtype) / (1.0 - rate)
 
 
 def standard_normal(shape, generator: torch.Generator, device) -> torch.Tensor:
-    """N(0, 1) float32 draws of ``shape`` from ``generator``, on ``device``."""
-    return torch.randn(shape, generator=generator, device=generator.device).to(device)
+    """N(0, 1) float32 draws of ``shape`` from ``generator``, on ``device``
+    (inside a data-axis forward a per-row draw, as ``dropout``)."""
+    return row_draw(lambda s: torch.randn(s, generator=generator, device=generator.device),
+                    shape).to(device)
 
 
 Tensors = Dict[str, torch.Tensor]
@@ -68,6 +74,16 @@ def linear(x: torch.Tensor, weight: torch.Tensor,
     one (B, in) shared by the trials."""
     if weight.dim() == 2:
         return F.linear(x, weight, bias)
+    if weight.shape[0] == 1:
+        # one trial runs as the first of two: a batched product of one
+        # matrix may take another kernel (a matrix-vector one for one output
+        # column), so a trial's arithmetic would depend on how many trials
+        # share its launch, and a shard of one trial on a trial mesh
+        # (parallel/trials.py) would part from the unsharded round
+        two = (x if x.dim() == 2 else x.expand(2, *x.shape[1:]),
+               weight.expand(2, *weight.shape[1:]),
+               None if bias is None else bias.expand(2, *bias.shape[1:]))
+        return linear(*two)[:1]
     if x.dim() == 3 and bias is not None:
         return torch.baddbmm(bias.unsqueeze(-2), x, weight.mT)
     y = torch.matmul(x, weight.mT)
@@ -88,9 +104,10 @@ def batch_norm_train(h: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
                      running_mean: torch.Tensor, running_var: torch.Tensor) -> torch.Tensor:
     """Flax's training-mode BatchNorm over the rows (axis -2) of ``h`` (B, H)
     or (K, B, H), each trial with its own statistics; updates the running
-    statistics ((H,) or (K, H)) in place."""
-    mu = h.mean(dim=-2)
-    var = torch.clamp((h * h).mean(dim=-2) - mu * mu, min=0.0)
+    statistics ((H,) or (K, H)) in place. On the data axis the statistics
+    span every rank's rows (``ops/collectives.py::global_moments``)."""
+    mu, mean_sq = global_moments(h)
+    var = torch.clamp(mean_sq - mu * mu, min=0.0)
     update_running_(running_mean, running_var, mu, var)
     return ((h - mu.unsqueeze(-2)) * torch.rsqrt(var + BN_EPS).unsqueeze(-2)
             * scale.unsqueeze(-2) + shift.unsqueeze(-2))

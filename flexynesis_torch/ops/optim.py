@@ -98,5 +98,10 @@ class TrialOptimizer:
 
 def trial_optimizer(moment_dtype: str = "bfloat16") -> TrialOptimizer:
     """The trial engines' chain: global-norm clip 1.0 per trial, then Adam's
-    scaling with the moments stored as ``moment_dtype``."""
+    scaling with the moments stored as ``moment_dtype``. The 8-bit moments
+    (``"int8"``, ``"int8_m"``) exist only inside SR-Adam
+    (``ops/sr_adam.py``); this chain, their fallback outside SR, stores
+    bfloat16 there, as JAX's does."""
+    if moment_dtype in ("int8", "int8_m"):
+        moment_dtype = "bfloat16"
     return TrialOptimizer(scale_by_adam_lowp(state_dtype=MOMENT_DTYPES[moment_dtype]))

@@ -24,14 +24,29 @@ rounded once, and the square root is correctly rounded. Where the clip is
 active the norm's order of summation differs from XLA's, so the clip scale,
 and through it the step, may differ in the last place.
 
-The int8 moments (``q8_encode_*``, ``moment_dtype="int8"``) are not ported:
-the JAX engine reaches them only through ``trial_optimizer("int8")``, which
-neither its CLI nor its CV rounds set (they run the bfloat16 default).
+``moment_dtype="int8"`` (``sr_adam_init``) stores the moments of the
+bfloat16 leaves in 8 bits with a float32 scale per row (the last axis of the
+leaf's Flax layout, per trial): m as linear int8 with stochastic rounding
+(``q8_encode_m``), v as an 8-bit log code of sqrt(v) below the row's
+maximum, 8 steps an octave over 32 octaves (``q8_encode_v``, stored as
+uint8; q = 255 at the floor scale 1e-30 decodes to about 0). ``"int8_m"``
+quantises m only and leaves v in mirrored bfloat16. The small float32
+leaves keep float32 moments. The dither is the same hash, seeded
+``leaf_seed * P1 + 0x9E3779B9`` for m and ``leaf_seed * P3 + 0x85EBCA77`` for
+v (modulo 2^32). ``log2`` is ``log(x) / log(2)`` in float32 and ``exp2(x)``
+``exp(ln2 * x)``, as jnp lowers them; torch's ``log`` and ``exp`` may differ
+from XLA's in the last place (``exp`` does on about 6% of the 256 codes), so
+a decoded v, and through it a step, can differ from JAX's in the last place,
+and where ``e + u`` sits on an integer a v code by one (the tests measure
+how often). The JAX package measured the int8 moments at about half the
+bfloat16 engine's throughput on a TPU and kept them as an opt-in for
+memory-starved rounds; the port keeps the option for the same reason.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+import math
+from typing import List, Optional, Sequence, Union
 
 import torch
 
@@ -93,19 +108,108 @@ def cast_stacked_params_for_sr(params: List[torch.Tensor], k: int) -> List[torch
     return [a.to(torch.bfloat16) if a.numel() // k >= SR_MIN_SIZE else a for a in params]
 
 
-class SRAdamState:
-    """(m, v, count): moments mirroring each parameter leaf's type, and the
-    step count shared by the trials."""
+def _u01(shape: Sequence[int], seed, trial_axis: bool = False, device=None) -> torch.Tensor:
+    """Per-element float32 uniforms in [0, 1) from the hash (24 bits)."""
+    bits = hash_bits(shape, seed, trial_axis, device)
+    return (bits >> 8).to(torch.float32) * (2.0 ** -24)
 
-    def __init__(self, m: List[torch.Tensor], v: List[torch.Tensor], count: int = 0):
+
+class Q8:
+    """An 8-bit moment: codes ``q`` (int8 for m, uint8 for v) of the leaf's
+    shape and float32 scales ``s`` of its shape with the last axis 1."""
+
+    def __init__(self, q: torch.Tensor, s: torch.Tensor):
+        self.q, self.s = q, s
+
+    def tensors(self) -> List[torch.Tensor]:
+        return [self.q, self.s]
+
+
+Moment = Union[torch.Tensor, Q8]
+
+
+def q8_encode_m(m32: torch.Tensor, seed, trial_axis: bool = False) -> Q8:
+    """First moment -> int8 with a per-row (last-axis) absmax scale; linear
+    and symmetric with stochastic rounding, clipped after the dither."""
+    s = torch.clamp(m32.abs().amax(dim=-1, keepdim=True), min=1e-30)
+    x = m32 * (127.0 / s)
+    u = _u01(m32.shape, seed, trial_axis, m32.device)
+    q = torch.clamp(torch.floor(x + u), -127.0, 127.0).to(torch.int8)
+    return Q8(q, s)
+
+
+def q8_decode_m(d: Q8) -> torch.Tensor:
+    return d.q.to(torch.float32) * (d.s * _f32(1.0 / 127.0))
+
+
+def _log2(x: torch.Tensor) -> torch.Tensor:
+    """jnp.log2: the float32 log divided by the float32 log of 2."""
+    return torch.log(x) / torch.log(torch.full((), 2.0, device=x.device))
+
+
+def q8_encode_v(v32: torch.Tensor, seed, trial_axis: bool = False) -> Q8:
+    """Second moment -> 8-bit log code of sqrt(v) below the row maximum, 8
+    steps an octave (uint8, 255 the floor)."""
+    r = torch.sqrt(v32)
+    s = torch.clamp(r.amax(dim=-1, keepdim=True), min=1e-30)
+    e = torch.clamp(-8.0 * _log2(torch.clamp(r / s, min=2.0 ** -40)), min=0.0)
+    u = _u01(v32.shape, seed, trial_axis, v32.device)
+    q = torch.clamp(torch.floor(e + u), max=255.0).to(torch.uint8)
+    return Q8(q, s)
+
+
+def q8_decode_v(d: Q8) -> torch.Tensor:
+    # jnp.exp2 lowers to exp(ln2 * x) in float32
+    r = d.s * torch.exp(_f32(math.log(2.0)) * (d.q.to(torch.float32) * -0.125))
+    return r * r
+
+
+class SRAdamState:
+    """(m, v, count): the moments of each leaf (a tensor mirroring the leaf's
+    type or float32, or a ``Q8``), and the step count shared by the
+    trials."""
+
+    def __init__(self, m: List[Moment], v: List[Moment], count: int = 0):
         self.m, self.v, self.count = m, v, count
 
 
-def sr_adam_init(params: List[torch.Tensor]) -> SRAdamState:
-    """Zero moments of each leaf's shape and type (the JAX "mirror"
-    moments)."""
-    zeros = [torch.zeros_like(a) for a in params]
-    return SRAdamState(zeros, [torch.zeros_like(a) for a in params], 0)
+MOMENT_DTYPES = ("mirror", "bfloat16", "float32", "int8", "int8_m")
+
+
+def sr_adam_init(params: List[torch.Tensor], moment_dtype: str = "mirror") -> SRAdamState:
+    """Zero moments. ``"mirror"`` (JAX's default; any other type name acts
+    the same, as in JAX): each leaf's shape and type. ``"int8"``: the
+    bfloat16 leaves get ``Q8`` moments (m zero codes, v code 255, scales
+    1e-30); ``"int8_m"``: only m is quantised. Leaves in any layout (a
+    transposed view included) get contiguous moments of their shape."""
+    def zeros(a):
+        return torch.zeros(a.shape, dtype=a.dtype, device=a.device)
+
+    if moment_dtype not in ("int8", "int8_m"):
+        return SRAdamState([zeros(a) for a in params], [zeros(a) for a in params], 0)
+
+    def scales(a):
+        return torch.full((*a.shape[:-1], 1), 1e-30, dtype=torch.float32, device=a.device)
+
+    def init_m(a):
+        if a.dtype != torch.bfloat16:
+            return zeros(a)
+        return Q8(torch.zeros(a.shape, dtype=torch.int8, device=a.device), scales(a))
+
+    def init_v(a):
+        if a.dtype != torch.bfloat16 or moment_dtype == "int8_m":
+            return zeros(a)
+        return Q8(torch.full(a.shape, 255, dtype=torch.uint8, device=a.device), scales(a))
+
+    return SRAdamState([init_m(a) for a in params], [init_v(a) for a in params], 0)
+
+
+def moment_tensors(moments: List[Moment]) -> List[torch.Tensor]:
+    """The tensors of a moment list, a ``Q8`` as its codes then its scales."""
+    out = []
+    for m in moments:
+        out += m.tensors() if isinstance(m, Q8) else [m]
+    return out
 
 
 def _f32(v: float) -> float:
@@ -172,8 +276,10 @@ def sr_adam_step(params: List[torch.Tensor], state: SRAdamState, grads: List[tor
         nd = lp.dim()
         scale = _trial_view(gscale, nd) if trial_axis else gscale
         g32 = lg.float() * scale
-        m32 = _fma(lm.float(), _f32(b1), g32 * one_m_b1)
-        v32 = _fma(lv.float(), _f32(b2), (g32 * one_m_b2) * g32)
+        m_prev = q8_decode_m(lm) if isinstance(lm, Q8) else lm.float()
+        v_prev = q8_decode_v(lv) if isinstance(lv, Q8) else lv.float()
+        m32 = _fma(m_prev, _f32(b1), g32 * one_m_b1)
+        v32 = _fma(v_prev, _f32(b2), (g32 * one_m_b2) * g32)
         denom = b1c * (torch.sqrt((v32 / b2c).double()).float() + eps)
         u = m32 / denom
         if lk is not None:
@@ -185,8 +291,14 @@ def sr_adam_step(params: List[torch.Tensor], state: SRAdamState, grads: List[tor
             new_p.append(sr_bf16(p32, leaf_seed, trial_axis))
         else:
             new_p.append(p32.to(lp.dtype))
-        new_m.append(m32.to(lm.dtype))
-        new_v.append(v32.to(lv.dtype))
+        if isinstance(lm, Q8):
+            new_m.append(q8_encode_m(m32, _u32(_u32(leaf_seed * P1) + 0x9E3779B9), trial_axis))
+        else:
+            new_m.append(m32.to(lm.dtype))
+        if isinstance(lv, Q8):
+            new_v.append(q8_encode_v(v32, _u32(_u32(leaf_seed * P3) + 0x85EBCA77), trial_axis))
+        else:
+            new_v.append(v32.to(lv.dtype))
     return new_p, SRAdamState(new_m, new_v, count)
 
 

@@ -80,17 +80,21 @@ class TrialNoise:
     the trials with that seed, as JAX trials with one seed share one key:
     once for all trials in a same-architecture round (``shared``), once per
     fold in a CV round of K suggestions x k folds, once per trial in a mixed
-    round."""
+    round. ``trials`` (a shard of a sharded round): the indices, among
+    ``seeds``, of the trials this noise serves; every draw is still made for
+    all of ``seeds`` and the shard takes its trials' draws, so a trial's
+    noise does not depend on how the round is split."""
 
-    def __init__(self, generator: torch.Generator, seeds):
+    def __init__(self, generator: torch.Generator, seeds, trials=None):
         self.generator = generator
         first: Dict[int, int] = {}
         groups = [first.setdefault(int(s), len(first)) for s in seeds]
         self.n_draws = len(first)
         self.shared = self.n_draws == 1
+        local = groups if trials is None else [groups[int(t)] for t in trials]
         # the draw of each trial, None where trial k takes draw k
-        self.index = (None if groups == list(range(len(groups)))
-                      else torch.tensor(groups))
+        self.index = (None if local == list(range(self.n_draws))
+                      else torch.tensor(local))
 
     def spread(self, draws: torch.Tensor) -> torch.Tensor:
         """(K, ...) from ``n_draws`` (n_draws, ...) draws, each trial taking

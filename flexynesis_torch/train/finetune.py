@@ -13,7 +13,9 @@ on ``parallel/trials.py::vmapped_grid_fit``: 9 x k trials, each with its own
 fold rows (``equal_kfold_indices``, n % k samples trimmed), lr and seed, the
 trained state broadcast to every trial, and a 0/1 update mask per trial and
 leaf for its freeze configuration; float32 parameters with bfloat16 Adam
-moments, as in JAX. With ``fused_kernels`` a DirectPred training step of the
+moments, as in JAX; split over the local devices' trial mesh where 9 x k
+divides evenly (``parallel/mesh.py::auto_trial_mesh``), or over an explicit
+``mesh``. With ``fused_kernels`` a DirectPred training step of the
 grid is one launch of kernel B1 per block for all trials (each trial's x rows
 its own fold's), a validation one launch of B2 per block, and a
 supervised_vae's MMD terms one launch of B3 each. ``_grid_sequential`` fits
@@ -79,8 +81,12 @@ def trial_masks(stacked, freezes: List[Dict[str, bool]], device) -> List[torch.T
 
 class FineTuner:
     def __init__(self, model, dataset, n_splits: int = 5, max_epochs: int = 50,
-                 early_stop_patience: int = 3, seed: int = 42):
+                 early_stop_patience: int = 3, seed: int = 42, mesh=None):
+        """``mesh``: an explicit trial mesh for the grid (used where the grid
+        splits evenly over it); None takes the shared policy over the local
+        devices, as JAX's fine-tuner does."""
         self.model = model
+        self.mesh = mesh
         self.dataset = dataset
         self.n_splits = n_splits
         self.max_epochs = max_epochs
@@ -164,6 +170,14 @@ class FineTuner:
                             [freeze for _, freeze in combos for _ in range(k)], model.device)
         print(f"[INFO] Fine-tuning grid: {len(combos)} (lr x freeze) combos "
               f"x {k} folds = {T} concurrent stacked fits")
+        # the grid splits over the local devices where T divides evenly
+        # (the shared policy, parallel/mesh.py::auto_trial_mesh)
+        from ..parallel.mesh import auto_trial_mesh, local_devices
+
+        if self.mesh is None:
+            mesh = auto_trial_mesh(T, local_devices(model.device.type))
+        else:
+            mesh = self.mesh if T % self.mesh.size == 0 else None
         state = self._state()
         out = vmapped_grid_fit(
             model, self.dataset, start_params=state, start_stats=state, lrs=lrs,
@@ -171,7 +185,7 @@ class FineTuner:
             train_idx=np.tile(fold_train, (len(combos), 1)),
             val_idx=np.tile(fold_val, (len(combos), 1)), masks=masks,
             batch_size=min(32, fold_train.shape[1]), max_epochs=self.max_epochs,
-            early_stop_patience=self.early_stop_patience,
+            early_stop_patience=self.early_stop_patience, mesh=mesh,
         )
         per_combo = out["best_val_loss"].reshape(len(combos), k).mean(axis=1)
         # the round stops when every cell has stalled: each cell's own stop

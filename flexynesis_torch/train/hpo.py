@@ -26,6 +26,12 @@ once on the trial engine (``parallel/trials.py``), grouped by
   supervised_vae's suggestions (class ``SupervisedVAE``) group by
   architecture identity, so a sampled architecture trains alone.
 
+Every stacked round (same-architecture, mixed, CV) splits its trials over a
+trial mesh (``_trial_mesh``, hpo.py:166-182 of the JAX package): an explicit
+``mesh=`` where the round's trial count divides over it, else the local
+devices of the tuner's type where it divides evenly over more than one; the
+same-architecture engines are cached per architecture and mesh size.
+
 MultiTripletNetwork trains over anchors (samples with a first-target label):
 its splits, folds and batch-size space count anchors (``n_units``). The GNN's
 conv type (``gnn_conv_type``) is fixed for a tuner and reaches every model and
@@ -75,6 +81,7 @@ from typing import List, Optional
 import numpy as np
 
 from ..config import get_search_space
+from ..utils.device import resolve_device
 from .gp import BayesianOptimizer
 from .space import Categorical, SearchSpace, load_and_convert_config
 from .trainer import train_val_split
@@ -108,6 +115,7 @@ class HyperparameterTuning:
         batch_ask: int = 1,
         pipeline_ask: bool = True,
         checkpoint_path: Optional[str] = None,
+        mesh=None,
     ):
         self.dataset = dataset
         self.model_class = model_class
@@ -138,6 +146,9 @@ class HyperparameterTuning:
         # stays on the device for each engine)
         self._templates: dict = {}
         self._pts: dict = {}
+        # an explicit trial mesh, or None: a mesh per round over the local
+        # devices where the round splits evenly (_trial_mesh)
+        self.mesh = mesh
 
         if config_path:
             external = load_and_convert_config(config_path)
@@ -207,6 +218,17 @@ class HyperparameterTuning:
         )
         return float(res.val_loss), int(res.epochs_run), model
 
+    def _trial_mesh(self, n_trials: int):
+        """The trial mesh of an ``n_trials`` round, or None (hpo.py:166-182):
+        an explicit ``mesh`` where the round splits evenly over it, else
+        ``auto_trial_mesh`` over this process's devices of the tuner's type
+        (None on one device or for an uneven split)."""
+        from ..parallel.mesh import auto_trial_mesh, local_devices
+
+        if self.mesh is not None:
+            return self.mesh if n_trials % self.mesh.size == 0 else None
+        return auto_trial_mesh(n_trials, local_devices(resolve_device(self.device).type))
+
     def _objective_cv_parallel(self, params: dict, n: int):
         """The k CV folds of one suggestion as one stacked program
         (hpo.py:232-267): equal folds (n % k rows trimmed; the final retrain
@@ -223,7 +245,7 @@ class HyperparameterTuning:
             train_idx=tr, val_idx=va,
             batch_size=int(params["batch_size"]), max_epochs=int(params["epochs"]),
             early_stop_patience=self.early_stop_patience, param_dtype="bfloat16_sr",
-            on_epoch_end=self._stacked_plots([params] * k),
+            mesh=self._trial_mesh(k), on_epoch_end=self._stacked_plots([params] * k),
         )
         avg_loss = float(np.mean(out["best_val_loss"]))
         avg_epochs = int(np.mean(out["best_epoch"]))
@@ -294,10 +316,13 @@ class HyperparameterTuning:
         from ..parallel.trials import ParallelTrials
 
         train_idx, val_idx = train_val_split(self.n_units, self.val_size, seed=self.seed)
-        key = self._template_key(group[0])
+        mesh = self._trial_mesh(len(group))
+        # one engine per architecture and mesh size (hpo.py:464-471)
+        key = (self._template_key(group[0]), 0 if mesh is None else mesh.size)
         pt = self._pts.get(key)
         if pt is None:
-            pt = self._pts[key] = ParallelTrials(self._get_template(group[0]), self.dataset)
+            pt = self._pts[key] = ParallelTrials(self._get_template(group[0]), self.dataset,
+                                                 mesh=mesh)
         print(f"[INFO] Training {len(group)} same-architecture trials concurrently (stacked)")
         # the round checkpoints mid-round beside the JSON state, in a
         # directory of its own (keyed by its suggestions), so replaying
@@ -346,7 +371,8 @@ class HyperparameterTuning:
             masks=trials["masks"], aux=trials.get("aux"),
             batch_size=int(group[0]["batch_size"]), max_epochs=int(group[0]["epochs"]),
             early_stop_patience=self.early_stop_patience, param_dtype="bfloat16_sr",
-            host_work=self._host_work, on_epoch_end=self._stacked_plots(group),
+            mesh=self._trial_mesh(K), host_work=self._host_work,
+            on_epoch_end=self._stacked_plots(group),
         )
         return self._group_results(out, K)
 
@@ -384,7 +410,7 @@ class HyperparameterTuning:
             masks=trials.get("masks"), aux=trials.get("aux"),
             batch_size=int(group[0]["batch_size"]), max_epochs=int(group[0]["epochs"]),
             early_stop_patience=self.early_stop_patience, param_dtype="bfloat16_sr",
-            host_work=self._host_work,
+            mesh=self._trial_mesh(K * k), host_work=self._host_work,
             on_epoch_end=self._stacked_plots([p for p in group for _ in range(k)]),
         )
         loss = np.asarray(out["best_val_loss"]).reshape(K, k).mean(axis=1)

@@ -23,6 +23,13 @@
   ``optax.masked`` and adds it to the parameter, so its frozen leaves move:
   a departure, kept on purpose (the reference freezes with
   ``requires_grad=False``).
+* ``Trainer(mesh=...)`` with a ``data`` axis that spans the live
+  ``torch.distributed`` group is the data-parallel fit, JAX's
+  ``Trainer(mesh=)``: one process per device, each forwarding its rows of
+  every global batch, BatchNorm statistics and the loss over the global
+  batch and the gradients summed over the ranks before the clip
+  (``ops/collectives.py``), so every rank holds the same parameters and
+  the fit is the one-process fit's.
 * ``fit(checkpoint_dir=...)`` saves the state every ``checkpoint_every``
   epochs (``train/checkpoint.py``) and resumes from the latest: parameters,
   buffers, Adam's moments and count, both generators, the early stopper and
@@ -42,6 +49,8 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+
+from ..ops.collectives import all_reduce_grads, data_axis
 
 
 @dataclass
@@ -113,6 +122,31 @@ class ClippedAdam:
         torch._foreach_add_(self.params, update, alpha=-self.lr)
 
 
+def data_group(mesh):
+    """The process group of a fit's data axis, or None.
+
+    A mesh with a ``data`` axis selects the data-parallel fit when that axis
+    spans the live ``torch.distributed`` group (one process per device,
+    ``parallel/distributed.py``), a group of one rank included; a data axis
+    of one device without a group is the plain fit; any other data axis
+    raises."""
+    if mesh is None or "data" not in mesh.axis_names:
+        return None
+    import torch.distributed as dist
+
+    size = mesh.shape["data"]
+    if dist.is_available() and dist.is_initialized():
+        if dist.get_world_size() != size:
+            raise ValueError(f"the mesh's data axis has {size} devices but the process "
+                             f"group {dist.get_world_size()} ranks")
+        return dist.group.WORLD
+    if size == 1:
+        return None
+    raise ValueError(f"a data axis of {size} devices needs a torch.distributed group of "
+                     f"{size} processes, one per device "
+                     "(flexynesis_torch.parallel.distributed.initialize)")
+
+
 def gather(data: dict, idx: torch.Tensor) -> dict:
     """Rows ``idx`` of every leaf of a batch tree (``{x: {...}, y: {...}}``,
     the triplet model's anchor tensors); entries under a ``_`` key (the
@@ -129,9 +163,10 @@ class Trainer:
 
     def __init__(self, module: torch.nn.Module, loss_fn: Callable, lr: float,
                  grad_clip: float = 1.0,
-                 trainable_mask: Optional[Callable[[str], bool]] = None):
+                 trainable_mask: Optional[Callable[[str], bool]] = None, mesh=None):
         self.module = module
         self.loss_fn = loss_fn
+        self.data_group = data_group(mesh)
         self.param_names = [n for n, p in module.named_parameters() if p.requires_grad
                             and (trainable_mask is None or trainable_mask(n.split(".")[0]))]
         named = dict(module.named_parameters())
@@ -139,9 +174,16 @@ class Trainer:
         self.optimizer = ClippedAdam(self.params, lr, grad_clip)
 
     def train_step(self, batch: dict, generator: torch.Generator) -> torch.Tensor:
-        """One optimizer step on ``batch``; returns the loss, on the device."""
-        total, _ = self.loss_fn(batch, generator, True)
-        grads = torch.autograd.grad(total, self.params, allow_unused=True)
+        """One optimizer step on ``batch``; returns the loss, on the device.
+        On a data axis the ranks' gradients are summed before the clip."""
+        if self.data_group is None:
+            total, _ = self.loss_fn(batch, generator, True)
+            grads = torch.autograd.grad(total, self.params, allow_unused=True)
+        else:
+            with data_axis(self.data_group):
+                total, _ = self.loss_fn(batch, generator, True)
+                grads = torch.autograd.grad(total, self.params, allow_unused=True)
+                grads = all_reduce_grads(grads, self.params)
         self.optimizer.step(grads)
         return total.detach()
 

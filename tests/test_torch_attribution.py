@@ -4,7 +4,10 @@ inputs:
 
 * ``integrated_gradients`` and ``gradient_shap`` per class, for a DirectPred,
   a supervised_vae and a CrossModalPred (GradientShap draws its scales with
-  the port's copy of ``jax.random``, so both sides use the same numbers);
+  the port's copy of ``jax.random``, so both sides use the same numbers),
+  GradientShap also with input noise (``stdevs`` 0.1): the noise is drawn
+  with the port's copy of ``jax.random.normal``, whose erfinv parts from
+  XLA's by a few float32 ulp, so the same tolerance holds;
 * ``compute_feature_importance`` for DirectPred (unfused), supervised_vae
   (``fused_kernels`` on: only its MMD loss differs) and CrossModalPred
   (its input layers only), every variable (a categorical one with a missing
@@ -13,7 +16,14 @@ inputs:
   labels, importances within the tolerance;
 * attribution forms no weight gradient and leaves ``requires_grad`` as it was;
 * a fused DirectPred is refused: ``NotImplementedError`` in the port,
-  ``ValueError`` in JAX, whose B2 ``pallas_call`` has no VJP.
+  ``ValueError`` in JAX, whose B2 ``pallas_call`` has no VJP;
+* the sample axis split over a mesh of 8 CPU devices (``parallel/mesh.py``)
+  on a cohort of 2,100 samples (above the CLI's 2,048 hook; batches of 512
+  over 8 devices: 5 batches, the tail zero-padded), both methods: against
+  the unsharded port run within rtol 1e-4 / atol 1e-7 (JAX's test's
+  tolerance) and against JAX's run on its 8 virtual devices within the
+  tolerance below; a cohort that fits one batch is zero-padded under a mesh,
+  as in JAX, and still agrees with JAX and with the unpadded run.
 
 Tolerance (f32, different summation orders): rtol 1e-4, atol 1e-6."""
 
@@ -37,6 +47,7 @@ from flexynesis_torch.models.crossmodal_pred import CrossModalPred
 from flexynesis_torch.models.direct_pred import DirectPred
 from flexynesis_torch.models.supervised_vae import SupervisedVAE
 from flexynesis_torch.utils import prng
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-4, atol=1e-6)
 DIMS = (("gex", 24), ("cnv", 16), ("mut", 10))
@@ -136,11 +147,49 @@ def test_gradient_shap_matches_jax(case, var, target_class, seed):
 
 
 def test_gradient_shap_noise_is_not_ported():
+    """Input noise (stdevs > 0) is now ported: the port's noisy GradientShap
+    equals JAX's, and the noise changes the attributions."""
+    jax_model, jax_ds, model, ds = make_pair("direct_pred")
+    jax_forward, port_forward = _forwards(jax_model, model, "subtype")
+    x = model.make_eval_x(ds)
+    theirs = jax.jit(lambda x: jax_attr.gradient_shap(
+        jax_forward, x, 0, 2, False, jax.random.key(0), stdevs=0.1))(
+        jax_model.make_eval_x(jax_ds))
+    ours, = attribution.gradient_shap(port_forward, x, [0], 2, False, prng.key(0), stdevs=0.1)
+    _assert_layers_close(ours, theirs)
+    plain, = attribution.gradient_shap(port_forward, x, [0], 2, False, prng.key(0))
+    assert not torch.allclose(ours["gex"], plain["gex"])
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("var,target_class", [("subtype", 1), ("age", 0)])
+@pytest.mark.parametrize("stdevs", [0.1, 1.0])
+def test_gradient_shap_with_noise_matches_jax(case, var, target_class, stdevs):
+    jax_model, jax_ds, model, ds = make_pair(case)
+    jax_forward, port_forward = _forwards(jax_model, model, var)
+    single = var == "age"
+    theirs = jax.jit(lambda x: jax_attr.gradient_shap(
+        jax_forward, x, target_class, 4, single, jax.random.key(7), stdevs=stdevs))(
+        jax_model.make_eval_x(jax_ds))
+    ours, = attribution.gradient_shap(port_forward, model.make_eval_x(ds), [target_class],
+                                      4, single, prng.key(7), stdevs=stdevs)
+    _assert_layers_close(ours, theirs)
+
+
+def test_noisy_draws_of_a_row_slice_are_the_batchs():
+    """A shard's slice of a batch (``rows``) takes its rows of the batch's
+    uniforms and noise: the slices' attributions are the batch's rows."""
     _, _, model, ds = make_pair("direct_pred")
     _, port_forward = _forwards(None, model, "subtype")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        attribution.gradient_shap(port_forward, model.make_eval_x(ds), [0], 2, False,
-                                  prng.key(0), stdevs=0.1)
+    x = model.make_eval_x(ds)
+    whole, = attribution.gradient_shap(port_forward, x, [1], 3, False, prng.key(5), stdevs=0.1)
+    for sl in (slice(0, 16), slice(16, 40)):
+        part, = attribution.gradient_shap(port_forward, {k: v[sl] for k, v in x.items()}, [1],
+                                          3, False, prng.key(5), stdevs=0.1,
+                                          rows=(sl.start, 40))
+        for k in x:
+            np.testing.assert_allclose(part[k].numpy(), whole[k][sl].numpy(), rtol=1e-5,
+                                       atol=1e-7)
 
 
 def assert_tables_match(ours_rows, theirs: pd.DataFrame):
@@ -187,3 +236,55 @@ def test_fused_direct_pred_is_refused_as_jax_fails():
         jax_model.compute_feature_importance(jax_ds, "subtype", steps_or_samples=2)
     with pytest.raises(NotImplementedError, match="fused_kernels"):
         model.compute_feature_importance(ds, "subtype", steps_or_samples=2)
+
+
+MESH8 = [torch.device("cpu")] * 8
+SHARD_TOL = dict(rtol=1e-4, atol=1e-7)  # JAX's own sharded-attribution tolerance
+
+
+@functools.lru_cache(maxsize=None)
+def _big_pair():
+    return make_pair("direct_pred", n=2100, seed=11)
+
+
+@pytest.mark.parametrize("method", ["IntegratedGradients", "GradientShap"])
+def test_sharded_attribution_matches_unsharded_and_jax(method):
+    from flexynesis_tpu.parallel.mesh import get_mesh as jax_get_mesh
+    from flexynesis_torch.parallel.mesh import get_mesh
+
+    jax_model, jax_ds, model, ds = _big_pair()
+    mesh = get_mesh((("data", 8),), devices=MESH8)
+    sharded = model.compute_feature_importance(ds, "subtype", method=method,
+                                               steps_or_samples=3, mesh=mesh)
+    single = model.compute_feature_importance(ds, "subtype", method=method,
+                                              steps_or_samples=3)
+    np.testing.assert_allclose(pd.DataFrame(sharded)["importance"].to_numpy(np.float64),
+                               pd.DataFrame(single)["importance"].to_numpy(np.float64),
+                               **SHARD_TOL)
+    theirs = jax_model.compute_feature_importance(
+        jax_ds, "subtype", method=method, steps_or_samples=3,
+        mesh=jax_get_mesh((("data", len(jax.devices())),)))
+    assert_tables_match(sharded, theirs)
+
+
+def test_sharded_small_cohort_pads_as_jax():
+    """A cohort that fits one batch is zero-padded to the batch under a mesh
+    (JAX's rule), so GradientShap's draws are those of the padded batch."""
+    from flexynesis_tpu.parallel.mesh import get_mesh as jax_get_mesh
+    from flexynesis_torch.parallel.mesh import get_mesh
+
+    jax_model, jax_ds, model, ds = make_pair("direct_pred")
+    mesh = get_mesh((("data", 8),), devices=MESH8)
+    ours = model.compute_feature_importance(ds, "subtype", method="GradientShap",
+                                            steps_or_samples=3, batch_size=60, mesh=mesh)
+    theirs = jax_model.compute_feature_importance(
+        jax_ds, "subtype", method="GradientShap", steps_or_samples=3, batch_size=60,
+        mesh=jax_get_mesh((("data", len(jax.devices())),)))
+    assert_tables_match(ours, theirs)
+    # the partitionable threefry counts over the flat shape, so the padded
+    # batch's first 40 draws are the unpadded batch's: the results agree
+    unpadded = model.compute_feature_importance(ds, "subtype", method="GradientShap",
+                                                steps_or_samples=3, batch_size=60)
+    np.testing.assert_allclose(pd.DataFrame(ours)["importance"].to_numpy(np.float64),
+                               pd.DataFrame(unpadded)["importance"].to_numpy(np.float64),
+                               **SHARD_TOL)
