@@ -218,7 +218,19 @@ Phases (any failure exits nonzero):
    trials; (d) both attribution methods over 10,250 samples split over two
    shards against the unsharded run; (e) a data-parallel fit over a
    one-rank NCCL group (``distributed.initialize``) against the plain fit,
-   bit for bit, and ``partition_trials`` over it.
+   bit for bit, and ``partition_trials`` over it;
+15. joblib artifacts (after phase 14; the card's machine has neither joblib
+   nor sklearn): (a) phase 5's training command without ``--safetensors``,
+   the CLI's default (phase 5's import reused, 3 epochs): B1 and B2 launches
+   as its steps and validations give them, ``fit.artifacts.joblib`` written
+   and no JSON; (b) the run's 2000-sample training cohort served from that
+   file and from a ``.artifacts.json`` the port writes from the state it
+   loads to: the same tables bit for bit, B2 6 launches each; (c) the
+   JAX-trained fused DirectPred of ``tests/fixtures/joblib`` served from its
+   ``.joblib`` and its ``.json`` on the card (bit for bit) and on the CPU
+   (within rtol/atol 1e-4); (d) what the codec reads and writes back loads
+   to the same state, and the median seconds of the joblib reader and writer (the codec alone
+   and with the state conversion) beside the JSON ones.
 
 Each phase prints its seconds as it ends, and all of them on one line
 before the kernels line (``phase seconds: {...}``).
@@ -1070,14 +1082,14 @@ def run_cli(test, weights, art, outdir: Path, device: str) -> float:
     return time.perf_counter() - t0
 
 
-def read_outputs(outdir: Path, n: int = N_TEST, classes: int = N_CLASSES):
+def read_outputs(outdir: Path, n: int = N_TEST, classes: int = N_CLASSES, latent: int = LATENT):
     """(samples, embeddings, probabilities, stats rows) of an inference run
     over ``n`` samples and ``classes`` classes, checked for shape and finiteness."""
     import numpy as np
     from flexynesis_torch.utils.csvio import read_matrix, read_table
 
     samples, _, emb = read_matrix(str(outdir / "smoke.embeddings_test.csv"))
-    if emb.shape != (n, LATENT) or not np.isfinite(emb).all():
+    if emb.shape != (n, latent) or not np.isfinite(emb).all():
         fail(f"embeddings: shape {emb.shape}, finite {np.isfinite(emb).all()}")
     _, columns, rows = read_table(str(outdir / "smoke.predicted_labels.csv"))
     prob = np.array([float(r[columns.index("probability")]) for r in rows])
@@ -1094,13 +1106,14 @@ def read_outputs(outdir: Path, n: int = N_TEST, classes: int = N_CLASSES):
     return samples, emb, prob, stat_rows
 
 
-def compare_outputs(out_card: Path, out_cpu: Path, n: int, classes: int, phase: str):
+def compare_outputs(out_card: Path, out_cpu: Path, n: int, classes: int, phase: str,
+                    latent: int = LATENT):
     """Hold the card's inference outputs against the CPU run's; returns the
     card run's stats rows."""
     import numpy as np
 
-    s_gpu, emb_gpu, p_gpu, stats = read_outputs(out_card, n, classes)
-    s_cpu, emb_cpu, p_cpu, _ = read_outputs(out_cpu, n, classes)
+    s_gpu, emb_gpu, p_gpu, stats = read_outputs(out_card, n, classes, latent)
+    s_cpu, emb_cpu, p_cpu, _ = read_outputs(out_cpu, n, classes, latent)
     if s_gpu != s_cpu:
         fail(f"{phase}: the cuda and cpu runs scored different samples")
     emb_err = float(np.abs(emb_gpu - emb_cpu).max())
@@ -1455,7 +1468,6 @@ def train(workdir: Path):
     from flexynesis_torch.__main__ import main as cli, parse_args, run_training
     from flexynesis_torch.data.inference_importer import DataImporterInference
     from flexynesis_torch.kernels.fused_linear import (
-        ROW_TILE,
         fused_linear_bn_relu as b1,
         fused_linear_bn_relu_eval as b2,
     )
@@ -1498,11 +1510,7 @@ def train(workdir: Path):
              f"{SUP_HIDDEN}")
     res = model.train_result
     n = len(next(iter(model.ann.values())))
-    n_fit = n - int(np.ceil(n * VAL_SIZE))
-    steps = res.epochs_run * (n_fit // BATCH)
-    # a batch beyond one row tile adds the split reduction's merge launch
-    b1_per_step = B1_PER_STEP * (1 if BATCH <= ROW_TILE else 2)
-    want = (b1_per_step * steps, B2_PER_FORWARD * (res.epochs_run + EVAL_FORWARDS))
+    want, n_fit, b1_per_step = expected_launches(model)
     if launches != want:
         fail(f"training launches (B1, B2) = {launches}, expected {want} "
              f"({res.epochs_run} epochs x {n_fit // BATCH} steps)")
@@ -1548,6 +1556,23 @@ def train(workdir: Path):
     check_card_matches_cpu(model, cohort)
     time_steps(model, cohort)
     return launches, b2_rows, cohort
+
+
+def expected_launches(model):
+    """((B1, B2) launches, fitting rows, B1 launches per step) of a fused
+    DirectPred's one-trial training CLI run at batch BATCH: B1 in every
+    step, B2 in every validation and evaluation forward."""
+    import numpy as np
+    from flexynesis_torch.kernels.fused_linear import ROW_TILE
+
+    res = model.train_result
+    n = len(next(iter(model.ann.values())))
+    n_fit = n - int(np.ceil(n * VAL_SIZE))
+    steps = res.epochs_run * (n_fit // BATCH)
+    # a batch beyond one row tile adds the split reduction's merge launch
+    b1_per_step = B1_PER_STEP * (1 if BATCH <= ROW_TILE else 2)
+    return ((b1_per_step * steps, B2_PER_FORWARD * (res.epochs_run + EVAL_FORWARDS)),
+            n_fit, b1_per_step)
 
 
 class ImportOnce:
@@ -5263,6 +5288,144 @@ def mesh_phase(cohort) -> tuple:
     return launches, summary
 
 
+JOBLIB_EPOCHS = 3  # phase 15's default-command run, cut from phase 5's 10 epochs
+JOBLIB_REPS = 5  # timed calls of each artifact reader and writer (the median is kept)
+JOBLIB_FIXTURE = REPO / "tests" / "fixtures" / "joblib"  # a model the JAX CLI trained
+
+
+def _serve_cli(weights, artifacts, test, out: Path, device: str, what: str):
+    """The inference CLI over ``test``, with B1, B2 and B3 counted from 0;
+    returns the launches."""
+    from flexynesis_torch.__main__ import main as cli
+
+    kernels = _launch_counts()
+    for k in kernels:
+        k.launches = 0
+    if cli(["--pretrained_model", str(weights), "--artifacts", str(artifacts),
+            "--data_path_test", str(test), "--outdir", str(out), "--prefix", "smoke",
+            "--disable_marker_finding", "--device", device]) != 0:
+        fail(f"{what}: the inference CLI on {device} returned nonzero")
+    return tuple(k.launches for k in kernels)
+
+
+def _same_files(a: Path, b: Path, what: str) -> None:
+    """The two inference runs wrote the same tables, bit for bit."""
+    for name in ("smoke.embeddings_test.csv", "smoke.predicted_labels.csv", "smoke.stats.csv"):
+        if (a / name).read_bytes() != (b / name).read_bytes():
+            fail(f"{what}: {name} differs between {a.name} and {b.name}")
+
+
+def _median_s(fn, reps: int = JOBLIB_REPS) -> float:
+    times = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t)
+    return statistics.median(times)
+
+
+def joblib_phase(workdir: Path, importer_cache: "ImportOnce") -> tuple:
+    """Phase 15: joblib artifacts, without joblib or sklearn on this machine.
+    (a) phase 5's training command without ``--safetensors`` (the CLI's
+    default; phase 5's import reused), cut to JOBLIB_EPOCHS: B1/B2 launches
+    as its steps and validations give them, ``fit.artifacts.joblib`` and no
+    JSON; (b) the run's 2000-sample training cohort served from that file and
+    from a ``.artifacts.json`` written from the state it loads to, bit for
+    bit; (c) the JAX-trained fixture ``tests/fixtures/joblib`` served from its
+    ``.joblib`` and its ``.json`` on the card (bit for bit) and on the CPU
+    (TOL); (d) the artifact readers' and writers' seconds on (a)'s file.
+    Returns the launches and summary."""
+    from flexynesis_torch import inference
+    from flexynesis_torch.utils import joblib_io
+    from flexynesis_torch.utils.csvio import read_table
+
+    t0 = time.perf_counter()
+    data, out = workdir / "fit_data", workdir / "joblib_out"
+    config = workdir / "joblib_hpo.yaml"
+    config.write_text(HPO_CONFIG % ("DirectPred", LATENT, HIDDEN_FACTOR, SUP_HIDDEN,
+                                    JOBLIB_EPOCHS, BATCH))
+    args = [a for a in train_args(data, config, out, DEVICE) if a != "--safetensors"]
+    with importer_cache:
+        model, launches, cli_s = cli_run(args, "joblib: phase 5's command without --safetensors")
+    want, n_fit, _ = expected_launches(model)
+    epochs = model.train_result.epochs_run
+    if launches != (*want, 0):
+        fail(f"joblib: launches {launches}, expected {(*want, 0)} ({epochs} epochs x "
+             f"{n_fit // BATCH} steps)")
+    art, weights = out / "fit.artifacts.joblib", out / "fit.final_model.safetensors"
+    if not art.exists() or (out / "fit.artifacts.json").exists():
+        fail(f"joblib: the run wrote {sorted(p.name for p in out.glob('fit.artifacts.*'))}, "
+             "expected fit.artifacts.joblib alone")
+
+    # (b) the run's own artifact, and the JSON the port writes from its state
+    state = inference.load_and_sniff_artifacts(str(art))
+    json_art = workdir / "joblib_state.artifacts.json"
+    inference.write_artifacts(state, str(json_art))
+    if inference.load_and_sniff_artifacts(str(json_art)) != state:
+        fail("joblib: the JSON written from the .joblib's state loads to another state")
+    classes = len(state["label_encoders"]["subtype"]["categories"][0])
+    serve_launches = {}
+    for kind, path in (("joblib", art), ("json", json_art)):
+        serve_launches[kind] = _serve_cli(weights, path, data / "train",
+                                          workdir / f"joblib_served_{kind}", DEVICE, "joblib")
+        read_outputs(workdir / f"joblib_served_{kind}", FIT_TRAIN, classes)
+    _same_files(workdir / "joblib_served_joblib", workdir / "joblib_served_json",
+                "joblib: the run's cohort")
+    want_serve = (0, CLI_FORWARDS * B2_PER_FORWARD, 0)
+    if any(v != want_serve for v in serve_launches.values()):
+        fail(f"joblib: serving launches {serve_launches}, expected {want_serve} each")
+
+    # (c) the JAX-written model, on the card from both files and on the CPU
+    fx_weights, fx_test = JOBLIB_FIXTURE / "job.final_model.safetensors", JOBLIB_FIXTURE / "test"
+    fx_state = inference.load_and_sniff_artifacts(str(JOBLIB_FIXTURE / "job.artifacts.joblib"))
+    if fx_state != inference.load_and_sniff_artifacts(str(JOBLIB_FIXTURE / "job.artifacts.json")):
+        fail("joblib: the fixture's .joblib and .json load to different states")
+    fx_config = json.loads((JOBLIB_FIXTURE / "job.final_model_config.json").read_text())
+    fx_n, fx_latent = len(read_table(str(fx_test / "clin.csv"))[0]), fx_config["latent_dim"]
+    fx_launches = {}
+    for kind, device in (("joblib", DEVICE), ("json", DEVICE), ("joblib", "cpu")):
+        fx_launches[f"{kind}_{device}"] = _serve_cli(
+            fx_weights, JOBLIB_FIXTURE / f"job.artifacts.{kind}", fx_test,
+            workdir / f"joblib_fixture_{kind}_{device}", device, "joblib: the fixture")
+    _same_files(workdir / f"joblib_fixture_joblib_{DEVICE}",
+                workdir / f"joblib_fixture_json_{DEVICE}", "joblib: the fixture")
+    fx_classes = len(fx_state["label_encoders"]["subtype"]["categories"][0])
+    compare_outputs(workdir / f"joblib_fixture_joblib_{DEVICE}",
+                    workdir / "joblib_fixture_joblib_cpu", fx_n, fx_classes,
+                    "joblib: the JAX-trained fixture served", latent=fx_latent)
+    if fx_launches[f"joblib_{DEVICE}"] != want_serve or fx_launches["joblib_cpu"] != (0, 0, 0):
+        fail(f"joblib: the fixture's serving launches {fx_launches}")
+
+    # (d) the codec alone on the headline artifact
+    raw = joblib_io.load(str(art))
+    again = workdir / "joblib_again.artifacts.joblib"
+    joblib_io.dump(raw, str(again))
+    if inference.load_and_sniff_artifacts(str(again)) != state:
+        fail("joblib: what the codec read and wrote back loads to another state")
+    seconds = {
+        "codec_read_s": _median_s(lambda: joblib_io.load(str(art))),
+        "codec_write_s": _median_s(lambda: joblib_io.dump(raw, str(again))),
+        "artifact_read_s": _median_s(lambda: inference.load_and_sniff_artifacts(str(art))),
+        "artifact_write_s": _median_s(
+            lambda: inference.write_artifacts(state, str(again), as_json=False)),
+        "json_read_s": _median_s(lambda: inference.load_and_sniff_artifacts(str(json_art))),
+        "json_write_s": _median_s(lambda: inference.write_artifacts(state, str(json_art))),
+    }
+    widths = {k: len(v) for k, v in state["feature_lists"].items()}
+    summary = {"cli_s": cli_s, "epochs": epochs, "launches": launches,
+               "serve_launches": serve_launches, "fixture_launches": fx_launches,
+               "artifact_bytes": art.stat().st_size, "json_bytes": json_art.stat().st_size,
+               "features": widths, **seconds, "seconds": time.perf_counter() - t0}
+    print(f"joblib: the default command ({epochs} epochs) CLI {cli_s:.3f} s, launches B1 "
+          f"{launches[0]}, B2 {launches[1]}, B3 {launches[2]}; fit.artifacts.joblib "
+          f"{summary['artifact_bytes']} bytes ({widths}); the {FIT_TRAIN}-sample cohort served "
+          f"alike from it and from its JSON, bit for bit; the JAX-trained fixture alike "
+          f"from .joblib and .json on {DEVICE}, and on the CPU within {TOL}", flush=True)
+    print("joblib: median seconds (host clock) " + json.dumps(seconds), flush=True)
+    return ({"joblib_training": launches, "joblib_serving": serve_launches["joblib"],
+             "joblib_fixture_serving": fx_launches[f"joblib_{DEVICE}"]}, summary)
+
+
 def build_all(names):
     """Build the kernels' libraries and the CSV reader's, one compiler per
     source (nvcc, or g++ for the reader), started together."""
@@ -5470,8 +5633,9 @@ def main() -> int:
     base_launches, base_summary = timed("baselines", baseline_phase, workdir, importer_cache)
     analysis_launches, analysis_summary = timed("analysis", analysis_phase, workdir)
     mesh_launches, mesh_summary = timed("mesh", mesh_phase, cohort)
+    joblib_launches, joblib_summary = timed("joblib", joblib_phase, workdir, importer_cache)
     ft_launches = {**ft_launches, **h5_launches, **base_launches, **analysis_launches,
-                   **mesh_launches}
+                   **mesh_launches, **joblib_launches}
 
     trial_b1 = [r for r in trial_rows if r["kernel"] == "B1"]
     trial_b2 = [r for r in trial_rows if r["kernel"] == "B2"]
@@ -5521,6 +5685,7 @@ def main() -> int:
     print("baselines: summary " + json.dumps(base_summary), flush=True)
     print("analysis: summary " + json.dumps(analysis_summary, default=float), flush=True)
     print("mesh: summary " + json.dumps(mesh_summary, default=float), flush=True)
+    print("joblib: summary " + json.dumps(joblib_summary, default=float), flush=True)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     print("phase seconds: " + json.dumps(seconds), flush=True)
     print(json.dumps({"kernels": entries}))

@@ -19,9 +19,12 @@ unless ``--device cpu`` is given.
   ``--disable_marker_finding``), ``<prefix>.predicted_labels.csv`` and
   ``<prefix>.stats.csv``, and saves
   ``<prefix>.final_model.safetensors``, its ``final_model_config.json`` and
-  the JSON artifacts (``--safetensors``). Both this port and flexynesis_tpu
-  load the saved model. CrossModalPred encodes ``--input_layers``, decodes
-  ``--output_layers`` and also writes ``<prefix>.<layer>_decoded.csv``.
+  the preprocessing artifacts: ``<prefix>.artifacts.joblib`` as joblib
+  writes it (the default, without joblib or sklearn) or
+  ``<prefix>.artifacts.json`` (``--safetensors``). Both this port and
+  flexynesis_tpu load the saved model from either. CrossModalPred encodes
+  ``--input_layers``, decodes ``--output_layers`` and also writes
+  ``<prefix>.<layer>_decoded.csv``.
 * Inference mode (``--pretrained_model``, ``--artifacts``,
   ``--data_path_test``) loads a model saved by either package (a GNN's node
   tensor is rebuilt over its saved node set and graph), scores the test
@@ -57,7 +60,6 @@ and on the CPU sets torch's threads for the run; it is the baselines'
 Marker finding on a DirectPred built with ``fused_kernels`` raises
 ``NotImplementedError``, as the JAX package cannot attribute one either; where
 the configuration to train or load fixes ``fused_kernels``, before any work.
-A deep model's training needs ``--safetensors`` (JSON artifacts).
 """
 
 from __future__ import annotations
@@ -170,12 +172,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--user_graph", type=str, default=None,
                    help="Custom GeneA/GeneB/Score network file")
     p.add_argument("--safetensors", action="store_true",
-                   help="JSON artifacts instead of joblib (weights are always "
-                        "safetensors)")
+                   help="<prefix>.artifacts.json instead of <prefix>.artifacts.joblib "
+                        "(weights are always safetensors)")
     p.add_argument("--pretrained_model", type=str, default=None,
                    help="Saved model for inference mode")
     p.add_argument("--artifacts", type=str, default=None,
-                   help="Artifacts .json from training")
+                   help="Artifacts .joblib or .json from training")
     p.add_argument("--data_path_test", type=str, default=None,
                    help="Test-only dataset folder for inference")
     p.add_argument("--join_key", type=str, default="JoinKey",
@@ -303,8 +305,9 @@ def _save_model_files(args, model, data_importer) -> None:
             covariates=_split(args.covariates), join_key=args.join_key,
             string_organism=args.string_organism, string_node_name=args.string_node_name,
         )
-        path = os.path.join(outdir, f"{prefix}.artifacts.json")
-        write_artifacts(artifacts, path)
+        kind = "json" if args.safetensors else "joblib"
+        path = os.path.join(outdir, f"{prefix}.artifacts.{kind}")
+        write_artifacts(artifacts, path, as_json=args.safetensors)
         print(f"[INFO] Wrote inference artifacts to {path}")
     except Exception as e:  # as in JAX: an artifact failure only warns
         print(f"[WARN] Could not write inference artifacts: {e}")
@@ -467,7 +470,7 @@ def run_training(args, device):
 
 
 def _check_training_args(parser, args) -> None:
-    """The JAX CLI's argument checks, then the port's JSON-artifact rule."""
+    """The JAX CLI's argument checks."""
     missing = [k for k in ("data_path", "model_class", "data_types") if not getattr(args, k)]
     if missing:
         parser.error("required in training mode: " + ", ".join(f"--{m}" for m in missing))
@@ -480,11 +483,6 @@ def _check_training_args(parser, args) -> None:
         parser.error(f"--fusion_type early is not applicable to {args.model_class}")
     if args.model_class == "GNN" and args.covariates:
         parser.error("--covariates are not supported for GNN models")
-    if deep and not args.safetensors:
-        raise NotImplementedError(
-            "joblib artifacts hold pickled sklearn objects that flexynesis_torch "
-            "does not write; pass --safetensors for JSON artifacts"
-        )
 
 
 def resolve_hpo_batch(args, device) -> int:

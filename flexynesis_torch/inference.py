@@ -7,8 +7,10 @@ the JAX package in both directions:
   ``batch_stats/<flax path>`` (``convert.to_flax`` / ``from_flax`` map them
   onto the port's modules), read and written by ``utils/safetensors_io``;
 * ``final_model_config.json`` with the same keys;
-* artifacts: the JSON form only (``--safetensors`` in training). A joblib
-  artifact holds pickled sklearn objects that the port cannot load.
+* artifacts: the JSON form (``--safetensors`` in training) and the joblib
+  form (the default), whose fitted sklearn objects ``utils/joblib_io`` reads
+  and writes without joblib or sklearn (``data/preprocessing`` converts their
+  pickled state). Both load to the same JSON-state dicts.
 
 ``reconstruct_model`` rebuilds every class of ``models.MODEL_REGISTRY``. A
 GNN's weights file also holds its interaction graph (``graph/edge_index``,
@@ -26,8 +28,17 @@ from typing import Dict
 import numpy as np
 
 from .convert import from_flax, to_flax
-from .data.preprocessing import encoder_categories, normalize_encoder_state
+from .data.preprocessing import (
+    encoder_categories,
+    encoder_from_sklearn,
+    encoder_to_sklearn,
+    label_encoder_from_sklearn,
+    normalize_encoder_state,
+    scaler_from_sklearn,
+    scaler_to_sklearn,
+)
 from .models import MODEL_REGISTRY
+from .utils import joblib_io
 from .utils.safetensors_io import load_file, save_file
 
 # ---------------------------------------------------------------- save side
@@ -148,10 +159,14 @@ _ARTIFACT_KEYS = (
 )
 
 
-def write_artifacts(artifacts: dict, path: str) -> str:
-    """Write the preprocessing state as the JAX package's JSON artifact
-    (``write_artifacts(..., as_json=True)`` there). Scalers and encoders are
-    the JSON-state dicts of ``data/preprocessing``."""
+def write_artifacts(artifacts: dict, path: str, as_json: bool = True) -> str:
+    """Write the preprocessing state as the JAX package does
+    (``flexynesis_tpu/inference.py::write_artifacts``): its JSON artifact, or
+    with ``as_json`` False the file ``joblib.dump`` writes of the artifact
+    dict, scalers and encoders as fitted sklearn objects. Scalers and encoders
+    are the JSON-state dicts of ``data/preprocessing``."""
+    if not as_json:
+        return joblib_io.dump(_to_pickled(artifacts), path)
     out = {k: artifacts[k] for k in _ARTIFACT_KEYS}
     if "covariate_columns" in artifacts:
         out["covariate_columns"] = {
@@ -163,6 +178,21 @@ def write_artifacts(artifacts: dict, path: str) -> str:
     with open(path, "w") as fh:
         json.dump(out, fh, indent=2)
     return path
+
+
+def _to_pickled(artifacts: dict) -> dict:
+    """The artifact dict as the JAX package pickles it: each scaler a
+    StandardScaler and each encoder an OrdinalEncoder fitted on its variable."""
+    out = dict(artifacts)
+    out["transforms"] = {
+        m: None if s is None else joblib_io.StandardScaler(scaler_to_sklearn(s))
+        for m, s in artifacts["transforms"].items()
+    }
+    out["label_encoders"] = {
+        v: None if e is None else joblib_io.OrdinalEncoder(encoder_to_sklearn(e, v))
+        for v, e in artifacts["label_encoders"].items()
+    }
+    return out
 
 
 # ---------------------------------------------------------------- load side
@@ -181,18 +211,45 @@ def check_model_type(path: str) -> str:
     raise ValueError(f"Unrecognized model file format: {path}")
 
 
+_FROM_PICKLED = {
+    joblib_io.StandardScaler: scaler_from_sklearn,
+    joblib_io.OrdinalEncoder: encoder_from_sklearn,
+    joblib_io.LabelEncoder: label_encoder_from_sklearn,
+}
+
+
+def _from_pickled(raw) -> dict:
+    """A loaded joblib artifact with its sklearn stand-ins as JSON-state dicts."""
+    if not isinstance(raw, dict):
+        raise ValueError(f"a joblib artifact holds a dict, not a {type(raw).__name__}")
+    out = dict(raw)
+    for key in ("transforms", "label_encoders"):
+        if key in raw:
+            out[key] = {name: _state(key, name, obj) for name, obj in raw[key].items()}
+    return out
+
+
+def _state(key: str, name: str, obj):
+    if obj is None:
+        return None
+    convert = _FROM_PICKLED.get(type(obj))
+    if convert is None:
+        raise ValueError(f"{key}[{name!r}] of a joblib artifact is a {type(obj).__name__}, "
+                         "not a fitted sklearn object")
+    return convert(obj.state)
+
+
 def load_and_sniff_artifacts(path: str) -> dict:
-    """Load a JSON artifact; scalers and encoders stay JSON-state dicts."""
+    """Load a JSON or a joblib artifact (sniffed as the JAX package does);
+    scalers and encoders come back as JSON-state dicts in both cases. A
+    joblib file naming a global off ``joblib_io.ALLOWED`` raises."""
     with open(path, "rb") as fh:
         head = fh.read(64).lstrip()
-    if not head.startswith(b"{"):
-        raise ValueError(
-            f"{path} is not a JSON artifact (a joblib file?). flexynesis_torch "
-            "reads JSON artifacts only: re-save them from training with "
-            "--safetensors."
-        )
-    with open(path) as fh:
-        raw = json.load(fh)
+    if head.startswith(b"{"):
+        with open(path) as fh:
+            raw = json.load(fh)
+    else:
+        raw = _from_pickled(joblib_io.load(path))
     out = dict(raw)
     out["transforms"] = dict(raw.get("transforms", {}))
     out["label_encoders"] = {

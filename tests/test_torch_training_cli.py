@@ -146,8 +146,11 @@ def test_gnn_refuses_what_the_jax_cli_refuses(folder, tmp_path, capsys, extra, m
         assert message in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("drop", ["--safetensors", "--disable_marker_finding"])
+@pytest.mark.parametrize("drop", ["--disable_marker_finding"])
 def test_joblib_artifacts_and_marker_finding_raise(folder, tmp_path, drop):
+    """Marker finding on a fused DirectPred raises before any work (joblib
+    artifacts, which raised here too, are written since they were ported:
+    ``tests/test_torch_joblib.py``)."""
     args = [a for a in train_args(folder, tmp_path / "out") if a != drop]
     with pytest.raises(NotImplementedError):
         main(args)
