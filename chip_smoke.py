@@ -231,6 +231,26 @@ Phases (any failure exits nonzero):
    (within rtol/atol 1e-4); (d) what the codec reads and writes back loads
    to the same state, and the median seconds of the joblib reader and writer (the codec alone
    and with the state conversion) beside the JSON ones.
+16. the tuner's and feature selection's library options (after phase 15, on
+   phase 5's folder and 2000-sample import): (a) ``HyperparameterTuning``
+   with ``cv_splits=3`` and ``parallel_folds`` off, 2 suggestions asked as
+   one batch of 2, 3 epochs: 3 fresh fits a suggestion over
+   ``kfold_indices`` and the full-set retrain, B1 and B2 launches as the
+   folds' steps and validations predict, no ask session; (b) B1 and B2 at
+   the K = 12 shapes of a 4 x 3 CV round and B3's MMD term at the K = 6
+   shapes of a 2 x 3 one (x and the prior per trial) against their plain
+   versions; one stacked step of the 4 x 3 DirectPred group against each
+   suggestion's own 3-fold round (the same rows, losses within rtol/atol
+   1e-4), the group's round against each suggestion's own round (fold means
+   within rtol 1e-2), its B1 and B2 launches, and the 2 x 3 supervised_vae
+   round's B3 launches; (c) the Laplacian score of the 2000 x 4000 raw gex
+   matrix: the heat kernel on the card against the CPU, and
+   ``laplacian_score_sharded`` over ``[cuda:0, cuda:0]`` against the
+   unsharded score, within rtol 1e-4 / atol 1e-6, with synchronised
+   seconds (the kNN score card against CPU too, unless near-tied neighbours
+   within float32's error in d^2 let the devices' graphs part); (d) the
+   ``data``, ``ops``, ``train`` and ``models`` facades resolve every name
+   to the port, with no JAX module loaded.
 
 Each phase prints its seconds as it ends, and all of them on one line
 before the kernels line (``phase seconds: {...}``).
@@ -646,6 +666,14 @@ def _trial_inputs(K, B, F, H, per_trial, seed, eval_mode):
     return (x, w, b, gamma, be, rm, rv)
 
 
+def trial_blocks():
+    """(name, F, H) of the fused blocks of a DirectPred step: the two
+    encoders and the head."""
+    return [("encoder_gex", GEX, int(GEX * HIDDEN_FACTOR)),
+            ("encoder_cnv", CNV, int(CNV * HIDDEN_FACTOR)),
+            ("head_subtype", LATENT, SUP_HIDDEN)]
+
+
 def check_trial_kernels(cases=None):
     """B1 and B2 with a trial axis against their plain versions: B1 at the
     three blocks of a 16-trial DirectPred training step (x shared and x per
@@ -669,9 +697,8 @@ def check_trial_kernels(cases=None):
     )
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    h_gex, h_cnv = int(GEX * HIDDEN_FACTOR), int(CNV * HIDDEN_FACTOR)
-    blocks = [("encoder_gex", GEX, h_gex), ("encoder_cnv", CNV, h_cnv),
-              ("head_subtype", LATENT, SUP_HIDDEN)]
+    h_gex = int(GEX * HIDDEN_FACTOR)
+    blocks = trial_blocks()
     val_rows = int(math.ceil(FIT_TRAIN * VAL_SIZE))
     if cases is None:
         cases = []  # (kernel, label, K, B, F, H, x per trial)
@@ -930,12 +957,13 @@ def check_mmd_term(shapes, grad_shapes):
     return rows
 
 
-def check_b3_trials():
+def check_b3_trials(cases=None):
     """B3's MMD term with a trial axis against its plain version: the
     16-trial training term (the 200-draw prior against each trial's 64-row
     batch) and validation term (against the 400-row split), the prior shared
     by the trials (read at a trial stride of 0) and per trial, K = 1 and a
-    ragged K = 3: the means within B3_TOL and the MMD within MMD_TOL of
+    ragged K = 3, or at ``cases`` ((label, K, N, M, d, prior per trial)):
+    the means within B3_TOL and the MMD within MMD_TOL of
     ``mmd_term_ref``, one launch per call, two calls bit for bit, and every
     trial bit for bit equal to a one-trial call on its slice; at the
     training shapes the gradients of the stacked term against autograd
@@ -953,11 +981,12 @@ def check_b3_trials():
 
     val_rows = int(math.ceil(FIT_TRAIN * VAL_SIZE))
     P = N_PRIOR_SAMPLES
-    cases = []  # (label, K, N, M, d, prior per trial)
-    for part, M in (("train", BATCH), (f"val{val_rows}", val_rows)):
-        cases += [(f"{part}_shared", TRIALS, P, M, LATENT, False),
-                  (f"{part}_per_trial", TRIALS, P, M, LATENT, True)]
-    cases += [("k1_train", 1, P, BATCH, LATENT, True), ("k3_ragged", 3, 37, 129, 17, True)]
+    if cases is None:
+        cases = []  # (label, K, N, M, d, prior per trial)
+        for part, M in (("train", BATCH), (f"val{val_rows}", val_rows)):
+            cases += [(f"{part}_shared", TRIALS, P, M, LATENT, False),
+                      (f"{part}_per_trial", TRIALS, P, M, LATENT, True)]
+        cases += [("k1_train", 1, P, BATCH, LATENT, True), ("k3_ragged", 3, 37, 129, 17, True)]
     rows = []
     for label, K, N, M, d, per_trial in cases:
         g = torch.Generator(device="cuda").manual_seed(K * 13 + N * 7 + M * 3 + d)
@@ -4100,6 +4129,15 @@ def h5_phase(workdir: Path, csv_launches) -> tuple:
     return {"h5_training": launches, "h5_profile": prof_launches}, summary
 
 
+def phase5_training_set(importer_cache: "ImportOnce", workdir: Path, what: str):
+    """Phase 5's imported training set (2000 samples, gex 2000 + cnv 1000),
+    as its import cached it."""
+    for key, (_, (train, _)) in importer_cache.done.items():
+        if key[0] == str(workdir / "fit_data") and key[2] is None and key[4] == "intermediate":
+            return train
+    fail(f"{what}: phase 5's import is not in the cache")
+
+
 def _headline_xy(importer_cache: "ImportOnce", workdir: Path, kind: str):
     """Phase 5's imported training set (2000 x 3000): its first KFold fold's
     training rows (1600, the rows one grid fit takes) with a label, and the
@@ -4107,15 +4145,13 @@ def _headline_xy(importer_cache: "ImportOnce", workdir: Path, kind: str):
     import numpy as np
     from flexynesis_torch.utils.classical import KFold
 
-    for key, (_, (train, _)) in importer_cache.done.items():
-        if key[0] == str(workdir / "fit_data") and key[2] is None and key[4] == "intermediate":
-            X = np.concatenate(list(train.dat.values()), axis=1)
-            rows = next(KFold(5, shuffle=True, random_state=42).split(X))[0]
-            y = np.asarray(train.ann["subtype" if kind == "categorical" else "age"],
-                           dtype=np.float64)[rows]
-            ok = np.isfinite(y) & (y != -1)
-            return X[rows][ok], (y[ok].astype(int) if kind == "categorical" else y[ok])
-    fail("baselines: phase 5's import is not in the cache")
+    train = phase5_training_set(importer_cache, workdir, "baselines")
+    X = np.concatenate(list(train.dat.values()), axis=1)
+    rows = next(KFold(5, shuffle=True, random_state=42).split(X))[0]
+    y = np.asarray(train.ann["subtype" if kind == "categorical" else "age"],
+                   dtype=np.float64)[rows]
+    ok = np.isfinite(y) & (y != -1)
+    return X[rows][ok], (y[ok].astype(int) if kind == "categorical" else y[ok])
 
 
 def baseline_phase(workdir: Path, importer_cache: "ImportOnce") -> tuple:
@@ -5426,6 +5462,330 @@ def joblib_phase(workdir: Path, importer_cache: "ImportOnce") -> tuple:
              "joblib_fixture_serving": fx_launches[f"joblib_{DEVICE}"]}, summary)
 
 
+LIB_FOLDS, LIB_EPOCHS = 3, 3  # phase 16: cv_splits and the epochs of its every fit
+LIB_SEQ_ITER = 2  # the sequential-fold search: 2 suggestions, asked as one batch of 2
+LIB_LRS = (1e-4, 3e-4, 1e-3, 3e-3)  # the stacked DirectPred CV round: K = 4 x 3 = 12
+LIB_VAE_LRS = (3e-4, 3e-3)  # the stacked supervised_vae CV round: K = 2 x 3 = 6
+LAPLACIAN_K = 5
+LAPLACIAN_TOL = dict(rtol=1e-4, atol=1e-6)  # JAX's sharded-score test's tolerance
+
+
+def _lib_tuner(train, model_class: str, workdir: Path, name: str, **kw):
+    """A ``--use_cv`` tuner of LIB_FOLDS folds over phase 5's training set on
+    DEVICE, its space TRIAL_CONFIG's (one fused architecture, lr free,
+    LIB_EPOCHS epochs at batch BATCH)."""
+    from flexynesis_torch.models import MODEL_REGISTRY
+    from flexynesis_torch.train.hpo import HyperparameterTuning
+
+    config = workdir / f"{name}.yaml"
+    config.write_text((TRIAL_CONFIG % (LATENT, HIDDEN_FACTOR, SUP_HIDDEN, LIB_EPOCHS, BATCH))
+                      .replace("DirectPred:", f"{model_class}:"))
+    return HyperparameterTuning(train, MODEL_REGISTRY[model_class], model_class, ["subtype"],
+                                config_path=str(config), use_cv=True, cv_splits=LIB_FOLDS,
+                                device=DEVICE, **kw)
+
+
+def _lib_params(lr: float) -> dict:
+    return {"latent_dim": LATENT, "hidden_dim_factor": HIDDEN_FACTOR, "lr": lr,
+            "supervisor_hidden_dim": SUP_HIDDEN, "epochs": LIB_EPOCHS, "batch_size": BATCH,
+            "fused_kernels": True}
+
+
+def sequential_folds(train, workdir: Path) -> tuple:
+    """16(a): ``perform_tuning`` of LIB_SEQ_ITER suggestions (``batch_ask``
+    2) with ``parallel_folds`` False: LIB_FOLDS fresh fits of each
+    suggestion over ``kfold_indices``, then the full-set retrain. B1 must
+    launch in every step and B2 in every validation as the folds' sizes
+    predict, and no pipelined ask session may open."""
+    import numpy as np
+    import torch
+    from flexynesis_torch.kernels.fused_linear import ROW_TILE
+    from flexynesis_torch.train import gp
+    from flexynesis_torch.train.trainer import kfold_indices
+
+    tuner = _lib_tuner(train, "DirectPred", workdir, "lib_sequential", n_iter=LIB_SEQ_ITER,
+                       batch_ask=2)
+    tuner.parallel_folds = False
+    sessions, real = [], gp.BayesianOptimizer.ask_session
+
+    def spy(self, *a, **kw):
+        sessions.append(a)
+        return real(self, *a, **kw)
+
+    gp.BayesianOptimizer.ask_session = spy
+    try:
+        t = time.perf_counter()
+        with Tee() as log:
+            (model, best), launches = _count(tuner.perform_tuning)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+    finally:
+        gp.BayesianOptimizer.ask_session = real
+    if sessions:
+        fail(f"library: the sequential-fold search opened {len(sessions)} ask session(s)")
+    if "CV folds =" in log.text or "fold CV (stacked" in log.text:
+        fail("library: the sequential-fold search trained folds on the stacked engine")
+    n = tuner.n_units
+    folds = kfold_indices(n, LIB_FOLDS, seed=tuner.seed)
+    fold_steps = sum(LIB_EPOCHS * (len(tr) // BATCH) for tr, _ in folds)
+    retrain_steps = model.train_result.epochs_run * (n // BATCH)
+    b1_per_step = B1_PER_STEP * (1 if BATCH <= ROW_TILE else 2)
+    want = (b1_per_step * (LIB_SEQ_ITER * fold_steps + retrain_steps),
+            B2_PER_FORWARD * LIB_SEQ_ITER * LIB_FOLDS * LIB_EPOCHS, 0)
+    if launches != want:
+        fail(f"library: the sequential-fold search launched (B1, B2, B3) {launches}, expected "
+             f"{want}: {b1_per_step} B1 a step x ({LIB_SEQ_ITER} suggestions x {fold_steps} "
+             f"fold steps + {retrain_steps} retrain steps), {B2_PER_FORWARD} B2 a validation")
+    if not np.isfinite(model.train_result.history["train_loss"]).all():
+        fail("library: the sequential-fold retrain's losses are not finite")
+    print(f"library: sequential CV folds ({LIB_SEQ_ITER} suggestions x {LIB_FOLDS} fresh fits "
+          f"over {n} samples, folds of {[len(v) for _, v in folds]} validation rows, then the "
+          f"full-set retrain) on {DEVICE}: {seconds:.2f} s; launches B1 {launches[0]}, B2 "
+          f"{launches[1]}, B3 {launches[2]} (predicted {want}); no ask session; best "
+          f"{best}", flush=True)
+    return launches, {"seconds": seconds, "launches": launches, "predicted": want}
+
+
+def stacked_cv(train, workdir: Path) -> tuple:
+    """16(b): the CV engine at k = LIB_FOLDS. One stacked step of the
+    DirectPred group (K = 12) against each suggestion's own 3-fold round
+    (the same rows, and the first step's losses within TOL: trial (s, f)
+    starts as fold f of suggestion s alone), then the group's round through
+    ``_run_parallel_group_cv`` against each suggestion's
+    ``_objective_cv_parallel`` (fold means within ROUND_RTOL), B1 and B2
+    launches as its steps and validations predict; a supervised_vae group
+    (K = 6) the same way for B3. Returns the launches and summary."""
+    import numpy as np
+    import torch
+    from flexynesis_torch.kernels.fused_linear import ROW_TILE
+    from flexynesis_torch.parallel.trials import (
+        _gather, _init_stacked, _Round, equal_kfold_indices,
+    )
+
+    launches, summary = {}, {}
+    k = LIB_FOLDS
+    tuner = _lib_tuner(train, "DirectPred", workdir, "lib_cv_directpred", batch_ask=len(LIB_LRS))
+    n = tuner.n_units
+    tr, va = equal_kfold_indices(n, k, seed=tuner.seed)
+    group = [_lib_params(lr) for lr in LIB_LRS]
+    model = tuner._get_template(group[0])
+    data = model.make_batch(train)
+
+    def first_step(lrs):
+        seeds = np.tile(np.arange(tuner.seed, tuner.seed + k), len(lrs))
+        params, buffers = _init_stacked(model, seeds)
+        r = _Round(model, params, buffers, lrs=np.repeat(lrs, k), seeds=seeds)
+        table = r.epoch_rows(np.tile(tr, (len(lrs), 1)), 1, BATCH)[0]
+        return table.cpu(), r.step(_gather(data, table)).float().cpu()
+
+    g_table, g_loss = first_step(list(LIB_LRS))
+    step_gap = 0.0
+    for i, lr in enumerate(LIB_LRS):
+        table, loss = first_step([lr])
+        own = slice(k * i, k * i + k)
+        if not torch.equal(g_table[own], table):
+            fail(f"library: the K = {k * len(LIB_LRS)} CV step gives suggestion {i} other rows "
+                 "than its own round")
+        if not torch.allclose(g_loss[own], loss, **TOL):
+            fail(f"library: the K = {k * len(LIB_LRS)} CV step's losses for suggestion {i} "
+                 f"{g_loss[own].tolist()} differ from its own round's {loss.tolist()}")
+        step_gap = max(step_gap, float(((g_loss[own] - loss) / loss).abs().max()))
+
+    t = time.perf_counter()
+    results, launches["cv3_directpred_round"] = _count(lambda: tuner._run_parallel_group_cv(group))
+    torch.cuda.synchronize()
+    summary["directpred_round_s"] = time.perf_counter() - t
+    own_losses = []
+    for i, params in enumerate(group):
+        (loss, _, _), _ = _count(lambda: tuner._objective_cv_parallel(params, n))
+        own_losses.append(loss)
+        if not abs(results[i][0] - loss) <= ROUND_RTOL * abs(loss):
+            fail(f"library: suggestion {i} scores {results[i][0]} in the K = {k * len(group)} "
+                 f"round and {loss} in its own {k}-fold round (rtol {ROUND_RTOL})")
+    n_tr = len(tr[0])
+    steps = LIB_EPOCHS * (n_tr // BATCH)
+    per_call = 1 if BATCH <= ROW_TILE else 2
+    want = (B1_PER_STEP * per_call * steps, B2_PER_FORWARD * LIB_EPOCHS, 0)
+    if launches["cv3_directpred_round"] != want:
+        fail(f"library: the K = {k * len(group)} DirectPred round launched (B1, B2, B3) "
+             f"{launches['cv3_directpred_round']}, expected {want} ({steps} stacked steps, "
+             f"{LIB_EPOCHS} stacked validations)")
+    gap = max(abs(a[0] - b) / abs(b) for a, b in zip(results, own_losses))
+    print(f"library: DirectPred CV round of {len(group)} suggestions x {k} folds (K = "
+          f"{k * len(group)}, {n_tr} training and {len(va[0])} validation rows a fold) in "
+          f"{summary['directpred_round_s']:.2f} s: first step's losses within {step_gap:.2e} "
+          f"(relative) of each suggestion's own round, the same rows; fold means "
+          f"{[round(r[0], 5) for r in results]} against its own rounds' "
+          f"{[round(v, 5) for v in own_losses]} ({gap:.2e} apart); launches "
+          f"{launches['cv3_directpred_round']} (predicted {want})", flush=True)
+
+    vae = _lib_tuner(train, "supervised_vae", workdir, "lib_cv_vae", batch_ask=len(LIB_VAE_LRS))
+    vae_group = [_lib_params(lr) for lr in LIB_VAE_LRS]
+    t = time.perf_counter()
+    vae_results, launches["cv3_vae_round"] = _count(lambda: vae._run_parallel_group_cv(vae_group))
+    torch.cuda.synchronize()
+    summary["vae_round_s"] = time.perf_counter() - t
+    n_dec = len(train.dat)
+    vae_want = (0, 0, n_dec * (steps + LIB_EPOCHS))
+    if launches["cv3_vae_round"] != vae_want:
+        fail(f"library: the K = {k * len(vae_group)} supervised_vae round launched (B1, B2, B3) "
+             f"{launches['cv3_vae_round']}, expected {vae_want} ({n_dec} decoded layers x "
+             f"({steps} stacked steps + {LIB_EPOCHS} stacked validations))")
+    if not all(np.isfinite(r[0]) for r in vae_results):
+        fail(f"library: the supervised_vae CV round scored {vae_results}")
+    print(f"library: supervised_vae CV round of {len(vae_group)} x {k} (K = "
+          f"{k * len(vae_group)}) in {summary['vae_round_s']:.2f} s: fold means "
+          f"{[round(r[0], 5) for r in vae_results]}; launches {launches['cv3_vae_round']} "
+          f"(predicted {vae_want})", flush=True)
+    summary.update(step_rel_gap=step_gap, round_rel_gap=gap, launches=launches,
+                   validation_rows=len(va[0]))
+    return launches, summary
+
+
+def check_cv3_kernels(val_rows: int) -> list:
+    """16(b): B1 and B2 at the K = 12 round's shapes (x per trial: each
+    trial gathers its fold's rows), B3's MMD term at the K = 6 round's (a
+    prior per trial), against their plain versions."""
+    K, K_vae = LIB_FOLDS * len(LIB_LRS), LIB_FOLDS * len(LIB_VAE_LRS)
+    cases = [("B1", f"cv{K}_{name}_x_per_trial", K, BATCH, F, H, True)
+             for name, F, H in trial_blocks()]
+    cases += [("B2", f"cv{K}_{name}_val{val_rows}", K, val_rows, F, H, True)
+              for name, F, H in trial_blocks()]
+    rows = check_trial_kernels(cases)
+    b3 = check_b3_trials([(f"cv{K_vae}_train_per_trial", K_vae, 200, BATCH, LATENT, True),
+                          (f"cv{K_vae}_val{val_rows}_per_trial", K_vae, 200, val_rows, LATENT,
+                           True)])
+    return rows + [dict(r, kernel="B3") for r in b3]
+
+
+def laplacian_phase(workdir: Path) -> dict:
+    """16(c): the Laplacian score of phase 5's raw training gex matrix (2000
+    samples x 4000 features, a missing cell set to its feature's median as
+    the importer's cleanup sets it): the heat-kernel score (t = twice the
+    summed feature variances, the mean squared distance between two samples)
+    on the card against the CPU, and the kNN score sharded over two shards
+    of the card (``laplacian_score_sharded``) against the unsharded one,
+    each within LAPLACIAN_TOL; synchronised seconds of each (the card's
+    after one warm-up call). The kNN score card against CPU is held too
+    unless some sample's k-th and (k+1)-th neighbours lie within twice
+    float32's largest error in d^2 (both measured here against float64 on
+    the card): then the two devices' sums may pick different neighbours, as
+    they would for the JAX package, and the gap is printed, not held."""
+    import numpy as np
+    import torch
+    from flexynesis_torch.data.fastcsv import read_matrix_csv
+    from flexynesis_torch.data.feature_selection import laplacian_score, laplacian_score_sharded
+    from flexynesis_torch.parallel.mesh import get_mesh
+
+    _, _, mat = read_matrix_csv(str(workdir / "fit_data" / "train" / "gex.csv"))
+    with np.errstate(all="ignore"):
+        med = np.nanmedian(mat.astype(np.float64), axis=1, keepdims=True)
+    X = np.ascontiguousarray(np.where(np.isnan(mat), med, mat).T, dtype=np.float32)
+    t_heat = float(2 * X.astype(np.float64).var(axis=0).sum())
+    mesh = get_mesh((("data", len(MESH_DEVICES)),), devices=MESH_DEVICES)
+
+    def run(fn, warm: bool):
+        if warm:
+            fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    Xd = torch.from_numpy(X).to(DEVICE)
+    X64 = Xd.double()
+    sq32, sq64 = (Xd * Xd).sum(dim=1), (X64 * X64).sum(dim=1)
+    d64 = sq64[:, None] + sq64[None, :] - 2.0 * (X64 @ X64.T)
+    d2_err = float(((sq32[:, None] + sq32[None, :] - 2.0 * (Xd @ Xd.T)).double() - d64)
+                   .abs().max())
+    d64.fill_diagonal_(-1.0)  # self is one of the k, as in the score
+    nearest = -torch.topk(-d64, LAPLACIAN_K + 1, dim=1).values
+    near_ties = int((nearest[:, LAPLACIAN_K] - nearest[:, LAPLACIAN_K - 1] <= 2 * d2_err).sum())
+    del Xd, X64, d64
+
+    scores, seconds = {}, {}
+    calls = {
+        "heat_card": (lambda: laplacian_score(X, LAPLACIAN_K, t=t_heat, device=DEVICE), True),
+        "heat_cpu": (lambda: laplacian_score(X, LAPLACIAN_K, t=t_heat, device="cpu"), False),
+        "knn_card": (lambda: laplacian_score(X, LAPLACIAN_K, device=DEVICE), True),
+        "knn_cpu": (lambda: laplacian_score(X, LAPLACIAN_K, device="cpu"), False),
+        "knn_sharded_card": (lambda: laplacian_score_sharded(X, LAPLACIAN_K, mesh=mesh), True),
+    }
+    for name, (fn, warm) in calls.items():
+        scores[name], seconds[name] = run(fn, warm)
+        if scores[name].shape != (X.shape[1],) or not np.isfinite(scores[name]).all():
+            fail(f"library: the {name} Laplacian scores are not {X.shape[1]} finite values")
+    gaps = {}
+    for got, want in (("heat_card", "heat_cpu"), ("knn_sharded_card", "knn_card"),
+                      ("knn_card", "knn_cpu")):
+        a, b = scores[got], scores[want]
+        gaps[f"{got}_vs_{want}"] = float(np.abs(a - b).max())
+        if (want != "knn_cpu" or not near_ties) and not np.allclose(a, b, **LAPLACIAN_TOL):
+            fail(f"library: the {got} Laplacian scores differ from the {want} ones: max abs "
+                 f"{gaps[f'{got}_vs_{want}']:.3e}, tolerance {LAPLACIAN_TOL}")
+    beyond = int((~np.isclose(scores["knn_card"], scores["knn_cpu"], **LAPLACIAN_TOL)).sum())
+    print(f"library: Laplacian scores of {X.shape[0]} samples x {X.shape[1]} features (k "
+          f"{LAPLACIAN_K}; heat kernel t = {t_heat:.1f}): the heat kernel card against CPU "
+          f"and the kNN score sharded over {len(MESH_DEVICES)} shards of {MESH_DEVICES[0]} "
+          f"against unsharded held; {near_ties} samples whose {LAPLACIAN_K}th and "
+          f"{LAPLACIAN_K + 1}th neighbours lie within 2 x {d2_err:.3e} (float32's largest "
+          f"error in d^2) of each other, so the kNN score card against CPU "
+          + ("is held" if not near_ties else
+             f"is not held ({beyond} features beyond the tolerance)")
+          + "; max abs gaps "
+          f"{json.dumps({k: float(f'{v:.3e}') for k, v in gaps.items()})} (tol {LAPLACIAN_TOL});"
+          f" seconds {json.dumps({k: round(v, 4) for k, v in seconds.items()})}", flush=True)
+    return {"seconds": seconds, "max_abs_gaps": gaps, "t": t_heat,
+            "knn_cpu_features_beyond_tol": beyond, "near_tied_samples": near_ties,
+            "d2_f32_max_abs_err": d2_err}
+
+
+def facade_check() -> dict:
+    """16(d): every name of the ``data``, ``ops``, ``train`` and ``models``
+    facades resolves to an object of the port, and nothing of JAX is
+    loaded."""
+    import importlib
+
+    names = {}
+    for pkg in ("data", "ops", "train", "models"):
+        mod = importlib.import_module(f"flexynesis_torch.{pkg}")
+        for name in mod.__all__:
+            value = getattr(mod, name)
+            home = (next(iter(value.values())).__module__ if name == "MODEL_REGISTRY"
+                    else value.__module__)
+            if not home.startswith("flexynesis_torch."):
+                fail(f"library: flexynesis_torch.{pkg}.{name} resolves to {home}")
+        names[pkg] = len(mod.__all__)
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "flax", "flexynesis_tpu"))
+    if loaded:
+        fail(f"library: the port loaded {loaded}")
+    print(f"library: facades resolve every name to the port ({names}); no JAX module loaded",
+          flush=True)
+    return names
+
+
+def library_phase(workdir: Path, importer_cache: "ImportOnce") -> tuple:
+    """Phase 16: the tuner's and feature selection's options the CLI never
+    sets, on phase 5's folder and import (after phase 15): (a) sequential
+    CV folds, (b) the stacked CV engine at k = 3 with B1, B2 and B3 at its
+    shapes, (c) the heat-kernel and feature-sharded Laplacian scores, (d)
+    the facades. Returns the launches, the summary and the kernel rows."""
+    t0 = time.perf_counter()
+    train = phase5_training_set(importer_cache, workdir, "library")
+    launches, summary = {}, {}
+    launches["cv3_sequential"], summary["sequential"] = sequential_folds(train, workdir)
+    rows = check_cv3_kernels(len(train) // LIB_FOLDS)
+    cv_launches, summary["stacked_cv"] = stacked_cv(train, workdir)
+    launches.update(cv_launches)
+    summary["laplacian"] = laplacian_phase(workdir)
+    summary["facades"] = facade_check()
+    summary["seconds"] = time.perf_counter() - t0
+    print(f"library: phase 16 in {summary['seconds']:.1f} s", flush=True)
+    return launches, summary, rows
+
+
 def build_all(names):
     """Build the kernels' libraries and the CSV reader's, one compiler per
     source (nvcc, or g++ for the reader), started together."""
@@ -5482,10 +5842,16 @@ def grid_entry(rows, kind: str):
     """The fine-tuning grid's trial axis in the kernels line: one stacked
     step (B1) or validation (B2) of FT_K trials over the early-fusion path's
     two blocks, x per trial."""
-    path = [r for r in rows if r["kernel"] == kind and r["K"] == FT_K
-            and ("grid_all" in r["label"] or "grid_head" in r["label"])]
+    return axis_entry(rows, kind, FT_K, ("grid_all", "grid_head"))
+
+
+def axis_entry(rows, kind: str, K: int, label_parts):
+    """One stacked pass of K trials of B1 or B2 in the kernels line: the
+    rows of that K whose label holds one of ``label_parts``, summed."""
+    path = [r for r in rows if r["kernel"] == kind and r["K"] == K
+            and any(part in r["label"] for part in label_parts)]
     bms, by = bound_ms(sum(r["ops_ms"] for r in path), sum(r["bytes"] for r in path))
-    return {"K": FT_K, "launches_per_pass": sum(r["launches"] for r in path),
+    return {"K": K, "launches_per_pass": sum(r["launches"] for r in path),
             "ms": sum(r["ms"] for r in path),
             "device_ms": (None if any(r["device_ms"] is None for r in path)
                           else sum(r["device_ms"] for r in path)),
@@ -5634,8 +6000,12 @@ def main() -> int:
     analysis_launches, analysis_summary = timed("analysis", analysis_phase, workdir)
     mesh_launches, mesh_summary = timed("mesh", mesh_phase, cohort)
     joblib_launches, joblib_summary = timed("joblib", joblib_phase, workdir, importer_cache)
+    lib_launches, lib_summary, lib_rows = timed("library", library_phase, workdir,
+                                                importer_cache)
+    trial_rows += lib_rows
     ft_launches = {**ft_launches, **h5_launches, **base_launches, **analysis_launches,
-                   **mesh_launches, **joblib_launches}
+                   **mesh_launches, **joblib_launches, **lib_launches}
+    K_cv3, K_cv3_vae = LIB_FOLDS * len(LIB_LRS), LIB_FOLDS * len(LIB_VAE_LRS)
 
     trial_b1 = [r for r in trial_rows if r["kernel"] == "B1"]
     trial_b2 = [r for r in trial_rows if r["kernel"] == "B2"]
@@ -5651,7 +6021,8 @@ def main() -> int:
                                 **{k: v[0] for k, v in zoo.items()},
                                 **{k: v[0] for k, v in ft_launches.items()}},
                      extra={"trial_axis": trial_entry(trial_b1, "shared_x"),
-                            "finetune_grid_axis": grid_entry(trial_b1, "B1")}),
+                            "finetune_grid_axis": grid_entry(trial_b1, "B1"),
+                            "cv3_axis": axis_entry(trial_b1, "B1", K_cv3, ("_x_per_trial",))}),
         kernel_entry("fused_linear_bn_relu_eval", "flexynesis_torch/csrc/fused_linear_eval.cu",
                      "flexynesis_tpu/ops/pallas/fused_linear.py:223",
                      rows + ft_b2_rows + trial_b2,
@@ -5663,7 +6034,8 @@ def main() -> int:
                                 **{k: v[1] for k, v in ft_launches.items()}},
                      extra={"gemm_only_addmm_device_ms": passes["cohort"]["addmm_device_ms"],
                             "passes": passes, "trial_axis": trial_entry(trial_b2, "_val"),
-                            "finetune_grid_axis": grid_entry(trial_b2, "B2")}),
+                            "finetune_grid_axis": grid_entry(trial_b2, "B2"),
+                            "cv3_axis": axis_entry(trial_b2, "B2", K_cv3, ("_val",))}),
         kernel_entry("gaussian_kernel_mean", "flexynesis_torch/csrc/mmd_kernel.cu",
                      "flexynesis_tpu/ops/pallas/mmd_kernel.py:66", b3_rows + term_rows + trial_b3,
                      term_rows[:1], vae_b3,
@@ -5673,7 +6045,12 @@ def main() -> int:
                       **{k: v[2] for k, v in zoo.items()},
                       **{k: v[2] for k, v in ft_launches.items()}},
                      per_path=2,  # one training step: an MMD term per decoded layer
-                     extra={"trial_axis": b3_trial_entry(trial_b3)}),
+                     extra={"trial_axis": b3_trial_entry(
+                         [r for r in trial_b3 if not r["label"].startswith("cv")]),
+                            "cv3_axis": [{k: r[k] for k in ("label", "shape", "ms", "device_ms",
+                                                            "plain_ms", "bound_ms", "bound_by",
+                                                            "max_abs_err")}
+                                         for r in trial_b3 if r["K"] == K_cv3_vae]}),
     ]
     print("trials: summary " + json.dumps(hpo_summary), flush=True)
     print("vae trials: summary " + json.dumps(vae_summary), flush=True)
@@ -5686,6 +6063,7 @@ def main() -> int:
     print("analysis: summary " + json.dumps(analysis_summary, default=float), flush=True)
     print("mesh: summary " + json.dumps(mesh_summary, default=float), flush=True)
     print("joblib: summary " + json.dumps(joblib_summary, default=float), flush=True)
+    print("library: summary " + json.dumps(lib_summary, default=float), flush=True)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     print("phase seconds: " + json.dumps(seconds), flush=True)
     print(json.dumps({"kernels": entries}))

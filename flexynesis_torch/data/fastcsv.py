@@ -49,15 +49,19 @@ def _split_names(blob_ptr, blob_len: int, count: int):
     return raw.decode("utf-8", errors="replace").split("\x00")[:count]
 
 
-def read_matrix_csv(path: str):
+def read_matrix_csv(path: str, n_threads: int = 0, fallback: bool = True):
     """(row_names, columns, float32 matrix) of a numeric CSV whose first
     column names the rows, as ``csvio.read_matrix`` returns them; the parser
-    runs on every core."""
+    runs on ``n_threads`` threads (0: every core). A file the parser refuses
+    goes to the Python reader, or with ``fallback`` False raises a
+    RuntimeError."""
     lib = _library()
-    ptr = lib.fastcsv_read(os.fsencode(path), 0)
+    ptr = lib.fastcsv_read(os.fsencode(path), int(n_threads))
     try:
         m = ptr.contents
         if m.error:
+            if not fallback:
+                raise RuntimeError(m.error.decode())
             print(f"[WARN] {m.error.decode()}; using the Python reader for {path}")
             names, columns, mat = read_matrix(path)
             return names, columns, mat.astype(np.float32)

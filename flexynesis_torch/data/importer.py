@@ -121,6 +121,7 @@ class DataImporter:
         path: str,
         data_types: List[str],
         covariates: Optional[List[str]] = None,
+        processed_dir: str = "processed",
         log_transform: bool = False,
         concatenate: bool = False,
         restrict_to_features: Optional[str] = None,
@@ -134,6 +135,8 @@ class DataImporter:
     ):
         self.path = path
         self.data_types = list(data_types)
+        # stored as in JAX (importer.py:53), which never reads it either
+        self.processed_dir = os.path.join(path, processed_dir)
         self.covariates = covariates
         self.concatenate = concatenate
         self.log_transform = log_transform

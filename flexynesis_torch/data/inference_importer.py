@@ -33,13 +33,14 @@ from .preprocessing import apply_standard_scaler, encode_labels, encoder_mapping
 
 
 class DataImporterInference:
-    def __init__(self, test_data_path: str, artifacts, verbose: bool = True):
+    def __init__(self, test_data_path: str, artifacts_path, verbose: bool = True):
         from ..inference import load_and_sniff_artifacts
 
         self.test_data_path = test_data_path
         self.verbose = verbose
         self.artifacts = (
-            artifacts if isinstance(artifacts, dict) else load_and_sniff_artifacts(artifacts)
+            artifacts_path if isinstance(artifacts_path, dict)
+            else load_and_sniff_artifacts(artifacts_path)
         )
         a = self.artifacts
         self.feature_names = a.get("feature_lists", a.get("feature_names", {}))

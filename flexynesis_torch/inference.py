@@ -12,7 +12,9 @@ the JAX package in both directions:
   and writes without joblib or sklearn (``data/preprocessing`` converts their
   pickled state). Both load to the same JSON-state dicts.
 
-``reconstruct_model`` rebuilds every class of ``models.MODEL_REGISTRY``. A
+``reconstruct_model`` rebuilds every class of ``get_model_registry()``
+(``models.MODEL_REGISTRY``, and ``SupervisedVAE`` as a second name of
+``supervised_vae``, as in JAX). A
 GNN's weights file also holds its interaction graph (``graph/edge_index``,
 int32 (2, E)) and its config the node set (``node_names``, ``n_node_feats``)
 and ``gnn_conv_type``, so inference rebuilds the node tensor without the
@@ -40,6 +42,22 @@ from .data.preprocessing import (
 from .models import MODEL_REGISTRY
 from .utils import joblib_io
 from .utils.safetensors_io import load_file, save_file
+
+MODEL_CLASS_NAMES = [
+    "DirectPred",
+    "supervised_vae",
+    "SupervisedVAE",
+    "MultiTripletNetwork",
+    "CrossModalPred",
+    "GNN",
+]
+
+
+def get_model_registry() -> dict:
+    """The model classes by the names a config's ``model_class`` may hold."""
+    registry = dict(MODEL_REGISTRY)
+    registry["SupervisedVAE"] = registry["supervised_vae"]
+    return registry
 
 # ---------------------------------------------------------------- save side
 
@@ -295,8 +313,9 @@ def reconstruct_model(weights_path: str, config_path: str, artifacts, device="au
     if isinstance(artifacts, str):
         artifacts = load_and_sniff_artifacts(artifacts)
 
+    registry = get_model_registry()
     cls_name = config["model_class"]
-    if cls_name not in MODEL_REGISTRY:
+    if cls_name not in registry:
         raise ValueError(f"Unknown model class: {cls_name}")
 
     # gnn_readout and fused_kernels change the module; gnn_sparse only the
@@ -325,7 +344,7 @@ def reconstruct_model(weights_path: str, config_path: str, artifacts, device="au
         ds.dat = {"all": np.zeros((1, len(node_names) * n_mods), np.float32)}
         ds.features = {"all": [f"{g}:{m}" for g in node_names for m in range(n_mods)]}
         extra = {"gnn_conv_type": config.get("gnn_conv_type", "GC")}
-    model = MODEL_REGISTRY[cls_name](
+    model = registry[cls_name](
         config=hyper,
         dataset=ds,
         target_variables=[

@@ -1,6 +1,7 @@
 """Model registry: the ``--model_class`` names the port trains and rebuilds
 (flexynesis_tpu/models/__init__.py:11-17)."""
 
+from .base import BaseModel
 from .crossmodal_pred import CrossModalPred
 from .direct_pred import DirectPred
 from .gnn import GNN
@@ -14,3 +15,13 @@ MODEL_REGISTRY = {
     "CrossModalPred": CrossModalPred,
     "GNN": GNN,
 }
+
+__all__ = [
+    "BaseModel",
+    "DirectPred",
+    "SupervisedVAE",
+    "MultiTripletNetwork",
+    "CrossModalPred",
+    "GNN",
+    "MODEL_REGISTRY",
+]

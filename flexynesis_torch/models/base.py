@@ -183,12 +183,14 @@ class BaseModel:
 
     def fit(self, dataset, train_idx=None, val_idx=None, *, lr: float,
             batch_size: int, max_epochs: int, early_stop_patience: int = -1,
-            seed: int = 42, on_epoch_end=None, mesh=None):
+            seed: int = 42, on_epoch_end=None, mesh=None, checkpoint_dir=None):
         """Train this model on (a subset of) a dataset from fresh parameters
         drawn with ``seed``; keeps the best state and returns the TrainResult,
         also kept as ``train_result``. ``on_epoch_end`` goes to the trainer;
         ``mesh`` with a ``data`` axis over the live process group runs the
-        data-parallel fit (``train/trainer.py``)."""
+        data-parallel fit; ``checkpoint_dir`` makes the fit resumable: a
+        rerun with the same directory resumes from its latest checkpoint
+        (``train/trainer.py``)."""
         from ..train.trainer import Trainer
 
         self.init_params(seed)
@@ -200,7 +202,7 @@ class BaseModel:
         res = trainer.fit(
             train_data, val_data, n_samples=len(train_idx), batch_size=batch_size,
             max_epochs=max_epochs, early_stop_patience=early_stop_patience, seed=seed,
-            on_epoch_end=on_epoch_end,
+            checkpoint_dir=checkpoint_dir, on_epoch_end=on_epoch_end,
         )
         self.module.load_state_dict(res.state)
         self.module.eval()

@@ -89,6 +89,15 @@ class SupervisedVAENet(nn.Module):
             for var in self.variables + ["mmd_loss"]:
                 getattr(self, f"log_var_{var}").zero_()
 
+    def encode(self, x: Dict[str, torch.Tensor],
+               train: Optional[bool] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(mean, log_var) of the latent (supervised_vae.py:83-91 of the JAX
+        package): with ``train`` the encoders use batch statistics and update
+        the running ones, else the running statistics; None follows the
+        module's mode."""
+        return self.encode_with(dict(self.named_parameters()), dict(self.named_buffers()), x,
+                                self.training if train is None else train)
+
     def forward(self, x: Dict[str, torch.Tensor],
                 generator: Optional[torch.Generator] = None) -> dict:
         """``generator`` draws eps and the heads' dropout in training mode."""
@@ -99,6 +108,21 @@ class SupervisedVAENet(nn.Module):
             lambda shape, device: standard_normal(shape, generator, device),
             lambda h, rate: dropout(h, rate, generator))
 
+    def _block(self, name: str, params: Tensors, buffers: Tensors, inp, train: bool):
+        return getattr(self, name).forward_with(own(params, name), own(buffers, name), inp,
+                                                train)
+
+    def encode_with(self, params: Tensors, buffers: Tensors, x: Dict[str, torch.Tensor],
+                    train: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``encode`` on ``params`` and ``buffers`` (as ``forward_with``)."""
+        encoded = [self._block(f"encoder_{ln}", params, buffers, x[ln], train)
+                   for ln in self.layer_names]
+        mean = linear(torch.cat([m for m, _ in encoded], dim=-1), params["FC_mean.weight"],
+                      params["FC_mean.bias"])
+        log_var = linear(torch.cat([lv for _, lv in encoded], dim=-1),
+                         params["FC_log_var.weight"], params["FC_log_var.bias"])
+        return mean, log_var
+
     def forward_with(self, params: Tensors, buffers: Tensors, x: Dict[str, torch.Tensor],
                      train: bool, normal: Optional[Callable] = None,
                      drop: Optional[Callable] = None) -> dict:
@@ -107,15 +131,7 @@ class SupervisedVAENet(nn.Module):
         blocks use batch statistics and update the running ones in place,
         ``normal(shape, device)`` draws eps and ``drop(h, rate)`` the heads'
         dropout."""
-        def block(name, inp):
-            return getattr(self, name).forward_with(own(params, name), own(buffers, name), inp,
-                                                    train)
-
-        encoded = [block(f"encoder_{ln}", x[ln]) for ln in self.layer_names]
-        mean = linear(torch.cat([m for m, _ in encoded], dim=-1), params["FC_mean.weight"],
-                      params["FC_mean.bias"])
-        log_var = linear(torch.cat([lv for _, lv in encoded], dim=-1),
-                         params["FC_log_var.weight"], params["FC_log_var.bias"])
+        mean, log_var = self.encode_with(params, buffers, x, train)
         z = mean + log_var * normal(log_var.shape, log_var.device) if train else mean
         out = {
             "embeddings": z,
@@ -124,7 +140,8 @@ class SupervisedVAENet(nn.Module):
                 for var in self.variables},
             "mean": mean,
             "log_var": log_var,
-            "x_hat": {ln: block(f"decoder_{ln}", z) for ln in self.decoded_names},
+            "x_hat": {ln: self._block(f"decoder_{ln}", params, buffers, z, train)
+                      for ln in self.decoded_names},
         }
         if self.use_loss_weighting:
             out["log_vars"] = {var: params[f"log_var_{var}"]

@@ -91,3 +91,8 @@ class TrainCheckpointer:
         """(tensors, meta) of the latest step, or None without one."""
         steps = self.steps()
         return load_state(self._path(steps[-1])) if steps else None
+
+    def close(self) -> None:
+        """Wait for pending writes (orbax's ``wait_until_finished``). Every
+        ``save`` here has finished and been moved into place when it returns,
+        so nothing is pending."""

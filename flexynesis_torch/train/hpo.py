@@ -37,14 +37,16 @@ its splits, folds and batch-size space count anchors (``n_units``). The GNN's
 conv type (``gnn_conv_type``) is fixed for a tuner and reaches every model and
 template it builds (``_model_args``).
 
-With ``use_cv`` the CV_FOLDS folds run on the same engine, as JAX's
-default ``parallel_folds`` runs them: the folds of one suggestion as one
-stacked program (``_objective_cv_parallel``), and a group of K suggestions
-as one program of K x k trials (``_run_parallel_group_cv``), padded where the
-architectures differ; each suggestion scores the mean of its folds' best
-validation losses. Folds are ``equal_kfold_indices`` (n % k rows trimmed).
-JAX's ``cv_splits`` option and its sequential fold path (``parallel_folds``
-off) are not copied: its CLI uses neither.
+With ``use_cv`` the ``cv_splits`` (k, 5 by default and from the CLI) folds
+run on the same engine while ``parallel_folds`` is True (the default, as in
+JAX): the folds of one suggestion as one stacked program
+(``_objective_cv_parallel``), and a group of K suggestions as one program of
+K x k trials (``_run_parallel_group_cv``), padded where the architectures
+differ; each suggestion scores the mean of its folds' best validation
+losses. Folds are ``equal_kfold_indices`` (n % k rows trimmed). Setting
+``parallel_folds = False`` gives JAX's sequential fold fits (hpo.py:199-228):
+each suggestion trains alone, k fresh ``model.fit`` runs over
+``kfold_indices`` (no rows trimmed), and no pipelined ask is made.
 
 With ``pipeline_ask`` the next round's suggestions (``AskSession``, with this
 round's as constant-liar pending) are computed in the gaps while a round
@@ -84,9 +86,7 @@ from ..config import get_search_space
 from ..utils.device import resolve_device
 from .gp import BayesianOptimizer
 from .space import Categorical, SearchSpace, load_and_convert_config
-from .trainer import train_val_split
-
-CV_FOLDS = 5  # the CLI's k (JAX's cv_splits default)
+from .trainer import kfold_indices, train_val_split
 
 
 class HyperparameterTuning:
@@ -104,6 +104,7 @@ class HyperparameterTuning:
         plot_losses: bool = False,
         val_size: float = 0.2,
         use_cv: bool = False,
+        cv_splits: int = 5,
         use_loss_weighting: bool = True,
         early_stop_patience: int = -1,
         device_type: Optional[str] = None,
@@ -128,6 +129,7 @@ class HyperparameterTuning:
         self.plot_losses = plot_losses
         self.val_size = val_size
         self.use_cv = use_cv
+        self.n_splits = cv_splits
         self.use_loss_weighting = use_loss_weighting
         self.early_stop_patience = early_stop_patience
         self.device_type = device_type
@@ -149,6 +151,9 @@ class HyperparameterTuning:
         # an explicit trial mesh, or None: a mesh per round over the local
         # devices where the round splits evenly (_trial_mesh)
         self.mesh = mesh
+        # CV folds train as one stacked program; False fits them one after
+        # another, as the reference does (JAX's hpo.py:102-104)
+        self.parallel_folds = True
 
         if config_path:
             external = load_and_convert_config(config_path)
@@ -202,21 +207,28 @@ class HyperparameterTuning:
                       seed=self.seed)
             return model
         if self.use_cv:
-            return self._objective_cv_parallel(params, n)
-        train_idx, val_idx = train_val_split(n, self.val_size, seed=self.seed)
-        model = self.model_class(**self._model_args(params))
-        on_epoch_end = None
-        if self.plot_losses:  # a live loss plot per trial (notebooks)
-            from .live_plot import LiveLossPlot
+            if self.parallel_folds:
+                return self._objective_cv_parallel(params, n)
+            splits = kfold_indices(n, self.n_splits, seed=self.seed)
+        else:
+            splits = [train_val_split(n, self.val_size, seed=self.seed)]
+        losses, epochs = [], []
+        for train_idx, val_idx in splits:
+            model = self.model_class(**self._model_args(params))
+            on_epoch_end = None
+            if self.plot_losses:  # a live loss plot per trial and fold (notebooks)
+                from .live_plot import LiveLossPlot
 
-            on_epoch_end = LiveLossPlot(hyperparams=params).update
-        res = model.fit(
-            self.dataset, train_idx, val_idx, lr=params["lr"],
-            batch_size=int(params["batch_size"]), max_epochs=int(params["epochs"]),
-            early_stop_patience=self.early_stop_patience, seed=self.seed,
-            on_epoch_end=on_epoch_end,
-        )
-        return float(res.val_loss), int(res.epochs_run), model
+                on_epoch_end = LiveLossPlot(hyperparams=params).update
+            res = model.fit(
+                self.dataset, train_idx, val_idx, lr=params["lr"],
+                batch_size=int(params["batch_size"]), max_epochs=int(params["epochs"]),
+                early_stop_patience=self.early_stop_patience, seed=self.seed,
+                on_epoch_end=on_epoch_end,
+            )
+            losses.append(res.val_loss)
+            epochs.append(res.epochs_run)
+        return float(np.mean(losses)), int(np.mean(epochs)), model
 
     def _trial_mesh(self, n_trials: int):
         """The trial mesh of an ``n_trials`` round, or None (hpo.py:166-182):
@@ -236,7 +248,7 @@ class HyperparameterTuning:
         Returns (mean best validation loss, mean best epoch, None)."""
         from ..parallel.trials import equal_kfold_indices, vmapped_grid_fit
 
-        k = CV_FOLDS
+        k = self.n_splits
         tr, va = equal_kfold_indices(n, k, seed=self.seed)
         out = vmapped_grid_fit(
             self._get_template(params), self.dataset,
@@ -386,7 +398,7 @@ class HyperparameterTuning:
         means."""
         from ..parallel.trials import equal_kfold_indices, vmapped_grid_fit
 
-        n, k, K = self.n_units, CV_FOLDS, len(group)
+        n, k, K = self.n_units, self.n_splits, len(group)
         tr, va = equal_kfold_indices(n, k, seed=self.seed)
         lrs = np.repeat(np.asarray([p["lr"] for p in group], np.float32), k)
         seeds = np.tile(np.arange(self.seed, self.seed + k), K)
@@ -474,15 +486,17 @@ class HyperparameterTuning:
             groups = self._bucket_by_architecture(suggestions)
             # the next round's ask runs in this round's gaps, with this
             # round's suggestions pending, if a group trains on the engine
+            # (sequential CV folds train no group there)
             q_next = min(self.batch_ask, self.n_iter - i - len(suggestions))
-            drains = any(len(g) > 1 for g in groups)
+            drains = any(len(g) > 1 for g in groups) and (
+                not self.use_cv or self.parallel_folds)
             session = (opt.ask_session(q_next, pending=suggestions)
                        if pipeline and drains and q_next > 0 else None)
             self._host_work = session.work if session is not None else None
             for group in groups:
                 t0 = time.perf_counter()
                 results = None
-                if len(group) > 1 and self.use_cv:
+                if len(group) > 1 and self.use_cv and self.parallel_folds:
                     # suggestions x folds train as one program of K x k trials
                     results = self._run_parallel_group_cv(group)
                 elif len(group) > 1 and not self.use_cv:

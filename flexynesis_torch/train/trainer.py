@@ -230,15 +230,18 @@ class Trainer:
 
     def fit(self, train_data: dict, val_data: Optional[dict], *, n_samples: int,
             batch_size: int, max_epochs: int, early_stop_patience: int = -1,
-            seed: int = 0, checkpoint_dir: Optional[str] = None,
+            seed: int = 0, log_every: int = 0, checkpoint_dir: Optional[str] = None,
             checkpoint_every: int = 10, on_epoch_end=None) -> TrainResult:
         """Train; returns the best-by-val-loss state when ``val_data`` is given,
         the last state otherwise. The per-epoch permutations come from a CPU
         ``torch.Generator`` seeded with ``seed``, the dropout masks from one on
         the module's device, so a seed gives the same batches on every device.
         ``checkpoint_dir`` saves the state every ``checkpoint_every`` epochs and
-        resumes from its latest step. ``on_epoch_end(epoch, train_loss,
-        val_loss)`` is called after each validated epoch (a live loss plot)."""
+        resumes from its latest step. ``log_every`` > 0 prints the losses of
+        every ``log_every``-th epoch, as JAX's trainer prints them (each such
+        line reads the epoch's loss from the device). ``on_epoch_end(epoch,
+        train_loss, val_loss)`` is called after each validated epoch (a live
+        loss plot)."""
         device = next(self.module.parameters()).device
         batch_size = min(batch_size, n_samples)
         n_batches = max(n_samples // batch_size, 1)
@@ -281,15 +284,22 @@ class Trainer:
                 if val_loss < best_val:
                     best_val = val_loss
                     best = self._snapshot()
+                if log_every and epoch % log_every == 0:
+                    print(f"[epoch {epoch}] train_loss={float(train_loss):.4f} "
+                          f"val_loss={val_loss:.4f}")
                 if on_epoch_end is not None:
                     on_epoch_end(epoch, float(train_loss), val_loss)
                 stop = stopper.update(val_loss)
+            elif log_every and epoch % log_every == 0:
+                print(f"[epoch {epoch}] train_loss={float(train_loss):.4f}")
             if ckpt is not None:
                 ckpt.maybe_save(epochs_run, self._checkpoint_tensors(gens, best), {
                     "count": self.optimizer.count, "best_val": best_val,
                     "stopper_best": stopper.best, "stopper_count": stopper.count})
             if stop:
                 break
+        if ckpt is not None:
+            ckpt.close()
         history["train_loss"] = [float(t) for t in history["train_loss"]]
         if val_data is None:
             best = self._snapshot()

@@ -6,7 +6,7 @@ flexynesis_tpu.utils' names, imported lazily: importing a submodule such as
 
 from __future__ import annotations
 
-import importlib
+from .._lazy import lazy_exports
 
 _NAMES = {
     "clustering": ("compute_ami_ari", "get_important_features", "get_optimal_clusters",
@@ -21,17 +21,5 @@ _NAMES = {
                  "cumulative_dynamic_auc", "find_optimal_cutoff", "logrank_test",
                  "multivariate_logrank_test", "recursive_binary_split_minN", "split_by_median"),
 }
-_LAZY_ATTRS = {name: module for module, names in _NAMES.items() for name in names}
+_LAZY_ATTRS, __getattr__, __dir__ = lazy_exports(__name__, _NAMES)
 __all__ = sorted(_LAZY_ATTRS)
-
-
-def __getattr__(name: str):
-    if name in _LAZY_ATTRS:
-        value = getattr(importlib.import_module(f"{__name__}.{_LAZY_ATTRS[name]}"), name)
-        globals()[name] = value
-        return value
-    raise AttributeError(f"module '{__name__}' has no attribute '{name}'")
-
-
-def __dir__():
-    return sorted(set(globals()) | set(_LAZY_ATTRS))

@@ -202,12 +202,52 @@ def _auroc_aupr(y_true, y_probs):
     )
 
 
-def evaluate_classifier(y_true, y_probs) -> Dict:
-    """balanced_acc, weighted F1, Cohen's kappa, AUROC (ovr weighted), AUPR."""
+def classification_report(y_true, y_pred) -> str:
+    """The text of sklearn's ``classification_report(y_true, y_pred,
+    zero_division=0)``: per label (the sorted union of true and predicted
+    labels, named as ``"%s" % label``) precision, recall, f1-score and
+    support, then accuracy, macro avg and weighted avg, to 2 digits."""
+    digits = 2
+    y_true, y_pred = np.asarray(y_true), np.asarray(y_pred)
+    labels = np.union1d(y_true, y_pred)
+    cm = _confusion(y_true, y_pred)
+    tp = np.diag(cm).astype(np.float64)
+    support, predicted = cm.sum(axis=1), cm.sum(axis=0)
+    if not tp.any():  # sklearn then counts the supports in floats
+        support = support.astype(np.float64)
+
+    def ratio(num, den):
+        return np.divide(num, den, out=np.zeros_like(num), where=den > 0)
+
+    per_class = [ratio(tp, predicted), ratio(tp, support), ratio(2 * tp, support + predicted)]
+    names = ["%s" % label for label in labels]
+    width = max(max(len(n) for n in names), len("weighted avg"), digits)
+    head_fmt = "{:>{width}s} " + " {:>9}" * 4
+    row_fmt = "{:>{width}s} " + " {:>9.{digits}f}" * 3 + " {:>9}\n"
+    report = head_fmt.format("", "precision", "recall", "f1-score", "support",
+                             width=width) + "\n\n"
+    for name, p, r, f, n in zip(names, *per_class, support):
+        report += row_fmt.format(name, p, r, f, n, width=width, digits=digits)
+    total = support.sum()
+    accuracy = tp.sum() / total if total else 0.0
+    report += "\n" + ("{:>{width}s} " + " {:>9.{digits}}" * 2 + " {:>9.{digits}f} {:>9}\n"
+                      ).format("accuracy", "", "", accuracy, total, width=width, digits=digits)
+    macro = [np.average(v) for v in per_class]
+    weighted = [np.average(v, weights=support) if total else 0.0 for v in per_class]
+    report += row_fmt.format("macro avg", *macro, total, width=width, digits=digits)
+    report += row_fmt.format("weighted avg", *weighted, total, width=width, digits=digits)
+    return report
+
+
+def evaluate_classifier(y_true, y_probs, print_report: bool = False) -> Dict:
+    """balanced_acc, weighted F1, Cohen's kappa, AUROC (ovr weighted), AUPR;
+    ``print_report`` also prints ``classification_report``."""
+    y_pred = np.argmax(np.asarray(y_probs), axis=1)
+    if print_report:
+        print(classification_report(y_true, y_pred))
     y_true = np.asarray(y_true, dtype=np.float64)
     y_probs = np.asarray(y_probs, dtype=np.float64)
-    y_pred = np.argmax(y_probs, axis=1).astype(np.float64)
-    cm = _confusion(y_true, y_pred)
+    cm = _confusion(y_true, y_pred.astype(np.float64))
     try:
         average_auroc, average_aupr = _auroc_aupr(y_true, y_probs)
     except ValueError:

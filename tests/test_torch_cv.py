@@ -3,7 +3,8 @@
 ``flexynesis_tpu/train/hpo.py``:
 
 * what each hands to ``vmapped_grid_fit`` equals JAX's, both captured with
-  monkeypatch: the fold tables, lrs, seeds, epochs, batch size and patience;
+  monkeypatch, at ``cv_splits`` 3 and 5: the fold tables, lrs, seeds, epochs,
+  batch size and patience;
   for a mixed-architecture group the stacked element masks and ``aux``
   (exactly), for DirectPred, supervised_vae and CrossModalPred;
 * the fold-mean reduction of the engine's (given) per-trial results equals
@@ -99,41 +100,48 @@ KEYS = ("lrs", "seeds", "train_idx", "val_idx", "batch_size", "max_epochs",
         "early_stop_patience")
 
 
-@pytest.mark.parametrize("name", sorted(CLASSES))
-def test_objective_cv_parallel_matches_jax(name, monkeypatch):
-    ours, theirs = _tuners(name)
+# k = 5 keeps the ids the cases had before cv_splits; k = 3 adds "-cv3"
+@pytest.mark.parametrize("name,cv_splits", [
+    pytest.param(n, k, id=n if k == 5 else f"{n}-cv3") for k in (5, 3) for n in sorted(CLASSES)])
+def test_objective_cv_parallel_matches_jax(name, cv_splits, monkeypatch, capsys):
+    k = cv_splits
+    ours, theirs = _tuners(name, cv_splits=k)
     calls = {"ours": [], "theirs": []}
-    _capture(monkeypatch, trials, 5, calls["ours"])
-    _capture(monkeypatch, jax_trials, 5, calls["theirs"])
+    _capture(monkeypatch, trials, k, calls["ours"])
+    _capture(monkeypatch, jax_trials, k, calls["theirs"])
     got = ours.objective(BASE)
     want = theirs.objective(BASE)
     assert got == want and got[2] is None
     (a,), (b,) = calls["ours"], calls["theirs"]
     for key in KEYS:
         _same(a[key], b[key], key)
-    assert a["train_idx"].shape == (5, 32) and a["val_idx"].shape == (5, 8)
+    assert a["train_idx"].shape == (k, N // k * (k - 1)) and a["val_idx"].shape == (k, N // k)
     assert a.get("start_params") is None and b["start_params"] is None
+    assert f"[INFO] {k}-fold CV (stacked, concurrent)" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("name,mixed", [("DirectPred", False), ("DirectPred", True),
-                                        ("supervised_vae", False), ("CrossModalPred", False),
-                                        ("CrossModalPred", True)])
-def test_run_parallel_group_cv_matches_jax(name, mixed, monkeypatch):
-    ours, theirs = _tuners(name, batch_ask=3)
+@pytest.mark.parametrize("name,mixed,cv_splits", [
+    pytest.param(n, m, k, id=f"{n}-{m}" if k == 5 else f"{n}-{m}-cv3") for k in (5, 3)
+    for n, m in [("DirectPred", False), ("DirectPred", True), ("supervised_vae", False),
+                 ("CrossModalPred", False), ("CrossModalPred", True)]])
+def test_run_parallel_group_cv_matches_jax(name, mixed, cv_splits, monkeypatch, capsys):
+    k = cv_splits
+    ours, theirs = _tuners(name, batch_ask=3, cv_splits=k)
     group = [dict(BASE, lr=lr) for lr in (1e-4, 1e-3, 1e-2)]
     if mixed:
         group[1].update(latent_dim=12, supervisor_hidden_dim=6)
         group[2].update(latent_dim=6, hidden_dim_factor=0.6)
     calls = {"ours": [], "theirs": []}
-    _capture(monkeypatch, trials, 15, calls["ours"])
-    _capture(monkeypatch, jax_trials, 15, calls["theirs"])
+    _capture(monkeypatch, trials, 3 * k, calls["ours"])
+    _capture(monkeypatch, jax_trials, 3 * k, calls["theirs"])
     got = ours._run_parallel_group_cv(group)
     want = theirs._run_parallel_group_cv(group)
     assert got == want and len(got) == 3  # the fold means
     (a,), (b,) = calls["ours"], calls["theirs"]
     for key in KEYS:
         _same(a[key], b[key], key)
-    assert a["train_idx"].shape == (15, 32)
+    assert a["train_idx"].shape == (3 * k, N // k * (k - 1))
+    assert f"Training 3 suggestions x {k} CV folds = {3 * k} trials" in capsys.readouterr().out
     if mixed:
         masks = jax.tree.leaves(b["masks"])
         assert len(a["masks"]) == len(masks)
@@ -141,7 +149,7 @@ def test_run_parallel_group_cv_matches_jax(name, mixed, monkeypatch):
             np.testing.assert_array_equal(m.numpy(), np.asarray(w))
         _same(None if a["aux"] is None else {k: v.numpy() for k, v in a["aux"].items()},
               None if b["aux"] is None else jax.tree.map(np.asarray, b["aux"]), "aux")
-        assert all(t.shape[0] == 15 for t in a["start_params"].values())
+        assert all(t.shape[0] == 3 * k for t in a["start_params"].values())
     else:
         for key in ("start_params", "start_stats", "masks", "aux"):
             assert a.get(key) is None and b.get(key) is None, key

@@ -197,8 +197,6 @@ def test_live_loss_plot_in_stacked_rounds(monkeypatch, path):
     """A stacked round plots each trial (each CV fold of each suggestion):
     every plot holds one training and one validation loss per epoch, and a
     suggestion's score is the mean of its plots' least validation losses."""
-    from flexynesis_torch.train.hpo import CV_FOLDS
-
     tuner, plots = _recording_tuner(monkeypatch, use_cv=path != "batched_round")
     group = [LOSS_PARAMS, {**LOSS_PARAMS, "lr": 0.003}]
     if path == "cv_objective":
@@ -209,7 +207,7 @@ def test_live_loss_plot_in_stacked_rounds(monkeypatch, path):
     else:
         results = tuner._run_parallel_group_cv(group)
     per = len(plots) // len(group)
-    assert per == (1 if path == "batched_round" else CV_FOLDS)
+    assert per == (1 if path == "batched_round" else tuner.n_splits)
     for i, (loss, _, _) in enumerate(results):
         mine = plots[i * per:(i + 1) * per]
         assert all(p.hyperparams == group[i] for p in mine)
