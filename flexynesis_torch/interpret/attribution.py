@@ -41,6 +41,7 @@ from ..models.base import num_classes_for
 from ..ops.fused_mlp import FusedMLP
 from ..train.space import Categorical
 from ..utils import prng
+from ..utils.profiling import count, host_wait, span
 
 METHODS = ("IntegratedGradients", "GradientShap")
 # The default rows per attribution batch and GradientShap's key seed. Both
@@ -110,8 +111,9 @@ def integrated_gradients(forward, x: Tensors, classes: Sequence[int], n_steps: i
     attr = x * sum_k w_k * d f(a_k * x) / dx at the Gauss-Legendre nodes a_k."""
     alphas, weights = _gauss_legendre(n_steps)
     device = next(iter(x.values())).device
-    alphas = torch.as_tensor(alphas, dtype=torch.float32, device=device)
-    weights = torch.as_tensor(weights, dtype=torch.float32, device=device)
+    with host_wait():   # copies from pageable memory wait for the stream
+        alphas = torch.as_tensor(alphas, dtype=torch.float32, device=device)
+        weights = torch.as_tensor(weights, dtype=torch.float32, device=device)
     grads = _class_grads(forward, _fold(x, alphas.view(-1, 1, 1)), classes, single_output)
     return [{k: x[k] * torch.tensordot(weights, g[k].view(n_steps, *x[k].shape), dims=1)
              for k in x} for g in grads]
@@ -135,7 +137,8 @@ def gradient_shap(forward, x: Tensors, classes: Sequence[int], n_samples: int,
     start, total = rows or (0, n_batch)
     keys = [prng.split(k) for k in prng.split(rng, n_samples)]
     u = np.stack([prng.uniform(ku, (total, 1))[start:start + n_batch] for ku, _ in keys])
-    u = torch.from_numpy(u).to(first.device)
+    with host_wait():
+        u = torch.from_numpy(u).to(first.device)
     if stdevs > 0:
         points = {}
         # layer i in sorted name order: the jitted JAX program sees its input
@@ -198,48 +201,49 @@ def abs_attribution_sums(model, dataset, target_var: str,
     is zero-padded even when the cohort fits in one batch; each slice takes
     its rows of the batch's draws, so the draws are those of the unsharded
     program at that batch shape."""
-    if method not in METHODS:
-        raise ValueError(
-            f"Unsupported method '{method}'. Choose 'IntegratedGradients' or 'GradientShap'."
-        )
-    check_attributable(model)
-    if dataset.variable_types[target_var] == "numerical":
-        n_class = 1
-    else:
-        n_class = num_classes_for(dataset.ann[target_var])
-    single, classes = n_class == 1, range(n_class)
-    steps = int(steps_or_samples)
-    devices = None
-    if mesh is not None:
-        from ..parallel.mesh import replica
+    with span("attribution.sums"):
+        if method not in METHODS:
+            raise ValueError(
+                f"Unsupported method '{method}'. Choose 'IntegratedGradients' or 'GradientShap'."
+            )
+        check_attributable(model)
+        if dataset.variable_types[target_var] == "numerical":
+            n_class = 1
+        else:
+            n_class = num_classes_for(dataset.ann[target_var])
+        single, classes = n_class == 1, range(n_class)
+        steps = int(steps_or_samples)
+        devices = None
+        if mesh is not None:
+            from ..parallel.mesh import replica
 
-        devices = mesh.axis_devices(mesh.axis_names[0])
-        batch_size = -(-batch_size // len(devices)) * len(devices)
-        replicas = [replica(model, d) for d in devices]
+            devices = mesh.axis_devices(mesh.axis_names[0])
+            batch_size = -(-batch_size // len(devices)) * len(devices)
+            replicas = [replica(model, d) for d in devices]
 
-    x_all = model.make_eval_x(dataset)
-    n = len(dataset)
-    sums = None
-    rng = prng.key(rng_seed)
-    with contextlib.ExitStack() as stack:
-        for m in [model] if devices is None else replicas:
-            stack.enter_context(_inputs_only(m.module))
-        for start in range(0, n, batch_size):
-            x = {k: v[start:start + batch_size] for k, v in x_all.items()}
-            rows = next(iter(x.values())).shape[0]
-            if rows < batch_size and (n > batch_size or devices is not None):
-                x = {k: torch.nn.functional.pad(v, (0, 0, 0, batch_size - rows))
-                     for k, v in x.items()}
-            rng, sub = prng.split(rng)
-            if devices is None:
-                per_class = _batch_attr(model, x, target_var, method, steps, classes, single,
-                                        sub)
-            else:
-                per_class = _sharded_attr(replicas, devices, x, batch_size, target_var, method,
-                                          steps, classes, single, sub, model.device)
-            sums = per_class if sums is None else [
-                {k: s[k] + p[k] for k in s} for s, p in zip(sums, per_class)]
-    return sums, n_class, n
+        x_all = model.make_eval_x(dataset)
+        n = len(dataset)
+        sums = None
+        rng = prng.key(rng_seed)
+        with contextlib.ExitStack() as stack:
+            for m in [model] if devices is None else replicas:
+                stack.enter_context(_inputs_only(m.module))
+            for start in range(0, n, batch_size):
+                x = {k: v[start:start + batch_size] for k, v in x_all.items()}
+                rows = next(iter(x.values())).shape[0]
+                if rows < batch_size and (n > batch_size or devices is not None):
+                    x = {k: torch.nn.functional.pad(v, (0, 0, 0, batch_size - rows))
+                         for k, v in x.items()}
+                rng, sub = prng.split(rng)
+                if devices is None:
+                    per_class = _batch_attr(model, x, target_var, method, steps, classes, single,
+                                            sub)
+                else:
+                    per_class = _sharded_attr(replicas, devices, x, batch_size, target_var, method,
+                                              steps, classes, single, sub, model.device)
+                sums = per_class if sums is None else [
+                    {k: s[k] + p[k] for k in s} for s, p in zip(sums, per_class)]
+        return sums, n_class, n
 
 
 def _sharded_attr(replicas, devices, x: Tensors, batch_size: int, target_var: str,
@@ -267,18 +271,24 @@ def compute_feature_importance(model, dataset, target_var: str,
     """Per-feature importance rows for one target variable, class by class
     and layer by layer, as the JAX package's table orders them; ``mesh``
     splits the sample axis (``abs_attribution_sums``)."""
-    sums, n_class, n = abs_attribution_sums(
-        model, dataset, target_var, method=method, steps_or_samples=steps_or_samples,
-        batch_size=batch_size, rng_seed=rng_seed, mesh=mesh,
-    )
-    rows = []
-    for c in range(n_class):
-        label = (dataset.label_mappings[target_var].get(c)
-                 if target_var in dataset.label_mappings else "")
-        for layer in model.layers:
-            imp = sums[c][layer].cpu().numpy() / n
-            rows += [{"target_variable": target_var, "target_class": c,
-                      "target_class_label": label, "layer": layer, "name": name,
-                      "importance": value}
-                     for name, value in zip(dataset.features[layer], imp)]
-    return rows
+    with span("attribution.pass"):
+        sums, n_class, n = abs_attribution_sums(
+            model, dataset, target_var, method=method, steps_or_samples=steps_or_samples,
+            batch_size=batch_size, rng_seed=rng_seed, mesh=mesh,
+        )
+        count("attribution.passes")
+        count("attribution.samples", n)
+        rows = []
+        with span("attribution.table"):
+            for c in range(n_class):
+                label = (dataset.label_mappings[target_var].get(c)
+                         if target_var in dataset.label_mappings else "")
+                for layer in model.layers:
+                    with host_wait():
+                        imp = sums[c][layer].cpu().numpy()
+                    imp = imp / n
+                    rows += [{"target_variable": target_var, "target_class": c,
+                              "target_class_label": label, "layer": layer, "name": name,
+                              "importance": value}
+                             for name, value in zip(dataset.features[layer], imp)]
+        return rows

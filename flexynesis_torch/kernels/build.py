@@ -23,6 +23,8 @@ from pathlib import Path
 
 import torch
 
+from ..utils.profiling import count, span
+
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
@@ -107,7 +109,9 @@ def build(name: str) -> Path:
         cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
     else:
         cmd = [gxx(), *GXX_FLAGS, str(src), "-o", str(tmp), *GXX_LIBS]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    with span("kernels.build"):
+        count("kernels.builds")
+        proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(
             f"{Path(cmd[0]).name} failed ({proc.returncode}) for {src.name}:\n"

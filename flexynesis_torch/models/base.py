@@ -24,6 +24,7 @@ from ..ops.collectives import forward_rows
 from ..ops.losses import compute_total_loss, cox_ph_loss, masked_ce_loss, masked_mse_loss
 from ..utils.csvio import Table
 from ..utils.device import resolve_device
+from ..utils.profiling import host_wait
 
 
 def num_classes_for(ann_values: np.ndarray) -> int:
@@ -133,8 +134,9 @@ class BaseModel:
                 np.ascontiguousarray(np.asarray(a)[rows], dtype=np.float32)
             ).to(self.device)
 
-        return {"x": {k: put(dat[k]) for k in self.batch_layers},
-                "y": {v: put(ann[v]) for v in sorted(y_vars)}}
+        with host_wait():   # copies from pageable memory wait for the stream
+            return {"x": {k: put(dat[k]) for k in self.batch_layers},
+                    "y": {v: put(ann[v]) for v in sorted(y_vars)}}
 
     def loss_fn(self, batch: dict, generator: Optional[torch.Generator] = None,
                 train: bool = True):
@@ -214,10 +216,12 @@ class BaseModel:
     def make_eval_x(self, dataset) -> Dict[str, torch.Tensor]:
         """{layer: (n, features) float32 tensor on the model's device}."""
         dat, _ = dataset.as_arrays()
-        return {
-            k: torch.from_numpy(np.ascontiguousarray(dat[k], dtype=np.float32)).to(self.device)
-            for k in self.layers
-        }
+        with host_wait():   # copies from pageable memory wait for the stream
+            return {
+                k: torch.from_numpy(np.ascontiguousarray(dat[k], dtype=np.float32)).to(
+                    self.device)
+                for k in self.layers
+            }
 
     @torch.inference_mode()
     def _forward_eval(self, x: Dict[str, torch.Tensor]) -> dict:

@@ -17,6 +17,8 @@ import math
 
 import torch
 
+from ..utils.profiling import host_wait
+
 
 @torch.no_grad()
 def torch_linear_uniform_(tensor: torch.Tensor, fan_in: int,
@@ -25,7 +27,8 @@ def torch_linear_uniform_(tensor: torch.Tensor, fan_in: int,
     bound = 1.0 / math.sqrt(fan_in)
     values = torch.empty(tensor.shape, dtype=tensor.dtype)
     values.uniform_(-bound, bound, generator=generator)
-    return tensor.copy_(values)
+    with host_wait():   # a copy from pageable memory waits for the stream
+        return tensor.copy_(values)
 
 
 @torch.no_grad()
@@ -50,4 +53,5 @@ def xavier_uniform_(weight: torch.Tensor, generator: torch.Generator) -> torch.T
     bound = math.sqrt(6.0 / (fan_in + fan_out))
     values = torch.empty(weight.shape, dtype=weight.dtype)
     values.uniform_(-bound, bound, generator=generator)
-    return weight.copy_(values)
+    with host_wait():
+        return weight.copy_(values)

@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from ..convert import to_flax
+from ..utils.profiling import host_wait
 from .stacked import stacked_model
 
 
@@ -449,7 +450,8 @@ def build_padded_trials(model, configs: List[dict], seeds) -> dict:
     (T, L_max) and ``latent_dim`` (T,); all on the model's device."""
     from .trials import _init_stacked
 
-    template_params, _ = to_flax(model.module)
+    with host_wait():   # one readback of each of the template's leaves
+        template_params, _ = to_flax(model.module)
     builder = MASK_BUILDERS[model.model_name]
     trees = [builder(template_params, cfg, model.layers, model.input_dims) for cfg in configs]
     stacked = stacked_model(model, len(configs))
@@ -457,10 +459,11 @@ def build_padded_trials(model, configs: List[dict], seeds) -> dict:
     masks = []
     for name in stacked.leaf_names:
         path = stacked.flax_paths[name]
-        m = torch.from_numpy(np.stack([np.asarray(_leaf(t[0], path), np.float32)
-                                       for t in trees])).to(model.device)
-        s = torch.tensor([float(_leaf(t[1], path)) for t in trees], dtype=torch.float32,
-                         device=model.device)
+        m = np.stack([np.asarray(_leaf(t[0], path), np.float32) for t in trees])
+        s = [float(_leaf(t[1], path)) for t in trees]
+        with host_wait():   # copies from pageable memory wait for the stream
+            m = torch.from_numpy(m).to(model.device)
+            s = torch.tensor(s, dtype=torch.float32, device=model.device)
         # padded regions start (and stay) at zero
         p = params[name]
         m_port = m.mT if stacked.transposed[name] else m
@@ -471,9 +474,10 @@ def build_padded_trials(model, configs: List[dict], seeds) -> dict:
         # the exact small-architecture MMD needs the trial's latent mask and dim
         L_max = template_params["FC_mean"]["kernel"].shape[1]
         lat_dims = [int(c["latent_dim"]) for c in configs]
-        out["aux"] = {
-            "latent_mask": torch.from_numpy(
-                np.stack([_col_mask(L_max, ld) for ld in lat_dims])).to(model.device),
-            "latent_dim": torch.tensor(lat_dims, dtype=torch.float32, device=model.device),
-        }
+        latent_mask = np.stack([_col_mask(L_max, ld) for ld in lat_dims])
+        with host_wait():
+            out["aux"] = {
+                "latent_mask": torch.from_numpy(latent_mask).to(model.device),
+                "latent_dim": torch.tensor(lat_dims, dtype=torch.float32, device=model.device),
+            }
     return out

@@ -57,6 +57,7 @@ from ..models.base import supervised_loss_terms
 from ..models.triplet_encoder import draw_partners, generator_draw, validation_generator
 from ..ops.losses import N_PRIOR_SAMPLES, compute_total_loss, triplet_margin_loss
 from ..ops.mlp import linear, own, standard_normal
+from ..utils.profiling import host_wait
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -257,7 +258,8 @@ class StackedSupervisedVAE(_Stacked):
             priors = [noise.normal(shape, z.device) for _ in layers]
         else:
             generator = torch.Generator().manual_seed(0)
-            priors = [standard_normal(shape[1:], generator, z.device) for _ in layers]
+            with host_wait():   # draws on the host, copied to the card
+                priors = [standard_normal(shape[1:], generator, z.device) for _ in layers]
         return {"mmd_loss": self.model.mmd_of(out, batch, priors)}
 
 

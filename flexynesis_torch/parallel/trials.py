@@ -76,6 +76,7 @@ from ..kernels.fused_linear import planned_for
 from ..ops.optim import AdamState, trial_optimizer
 from ..ops.sr_adam import (Q8, SRAdamState, cast_stacked_params_for_sr, sr_adam_init,
                            trial_update_step)
+from ..utils.profiling import count, host_wait, span
 from .mesh import device_context, replica, split_rows, to_device
 from .stacked import TrialNoise, stacked_model
 
@@ -157,7 +158,8 @@ class _Round:
         self.tx = None if self.sr else trial_optimizer(moment_dtype)
         self.opt_state = (sr_adam_init(self.views, moment_dtype) if self.sr
                           else self.tx.init(self.views))
-        self.lrs = torch.as_tensor(np.asarray(lrs, np.float32), device=self.device)
+        with host_wait():   # a copy from pageable memory waits for the stream
+            self.lrs = torch.as_tensor(np.asarray(lrs, np.float32), device=self.device)
         self.masks = masks
         self.aux = aux
         dev = self.device
@@ -191,7 +193,7 @@ class _Round:
         grads = torch.autograd.grad(total.sum(), [work[n] for n in names], allow_unused=True)
         grads = {n: torch.zeros_like(work[n]) if g is None else g
                  for n, g in zip(names, grads)}
-        with torch.no_grad():
+        with torch.no_grad(), span("optim.update"):
             seed = sr_seed
             if self.sr and seed is None:
                 seed = self.noise.spread(torch.randint(
@@ -221,7 +223,8 @@ class _Round:
         table = _round_rows(self.perm_gens, self.shared, train_idx, n_batches, batch_size)
         if table.ndim == 3 and len(self.trials) != train_idx.shape[0]:
             table = table[:, self.trials]
-        return torch.from_numpy(np.ascontiguousarray(table)).to(self.device)
+        with host_wait():   # a copy from pageable memory waits for the stream
+            return torch.from_numpy(np.ascontiguousarray(table)).to(self.device)
 
     def train_step(self, data: dict, rows: torch.Tensor) -> torch.Tensor:
         """One step on the rows ``rows`` of ``data`` (the epoch table's row)."""
@@ -317,19 +320,29 @@ def _fit_round(rnd, data, train_idx: np.ndarray, val_batch, *, batch_size: int,
     chunk = max(int(epochs_per_eval), 1)
     for epoch in range(epochs_run, max_epochs):
         t_ep = time.perf_counter()
-        table = rnd.epoch_rows(train_idx, n_batches, batch_size)
-        tlosses = [rnd.train_step(data, table[s]) for s in range(n_batches)]
-        vloss = rnd.validate(val_batch)
+        with span("engine.epoch_rows"):
+            table = rnd.epoch_rows(train_idx, n_batches, batch_size)
+        tlosses = []
+        for s in range(n_batches):
+            with span("engine.step"):
+                count("engine.steps")
+                count("engine.trial_samples", K * table.shape[-1])
+                tlosses.append(rnd.train_step(data, table[s]))
+        with span("engine.validate"):
+            vloss = rnd.validate(val_batch)
         if host_work is not None:
             # the card finishes the epoch while the host runs a slice of
             # the next round's GP ask (about 90% of the last epoch's wall)
             spent = time.perf_counter() - t_ep
             host_work(max(0.0, 0.9 * wall_est - spent) if wall_est is not None else 0.05)
-        v = vloss.cpu().numpy()
+        with host_wait():
+            v = vloss.cpu().numpy()
         wall_est = time.perf_counter() - t_ep
         epochs_run = epoch + 1
         if on_epoch_end is not None:
-            on_epoch_end(epoch, (sum(tlosses) / n_batches).cpu().numpy(), v)
+            with host_wait():
+                train_losses = (sum(tlosses) / n_batches).cpu().numpy()
+            on_epoch_end(epoch, train_losses, v)
         improved = v < best
         best = np.where(improved, v, best)
         best_epoch = np.where(improved, epochs_run, best_epoch)
@@ -431,8 +444,9 @@ class _ShardedRound:
         for shard, dd, d, sl in zip(self.shards, data, self.devices, self.parts):
             r = rows if rows.ndim == 1 else rows[sl]
             with device_context(d):
-                losses.append(shard.train_step(
-                    dd, torch.from_numpy(np.ascontiguousarray(r)).to(d)))
+                with host_wait():
+                    rows_d = torch.from_numpy(np.ascontiguousarray(r)).to(d)
+                losses.append(shard.train_step(dd, rows_d))
         return torch.cat([t.to(self.devices[0]) for t in losses])
 
     def validate(self, batches: list) -> torch.Tensor:
@@ -573,7 +587,9 @@ def _val_batch(data: dict, val_idx: np.ndarray, device) -> dict:
     same rows, else (K, n_val, ...)."""
     shared = bool(np.all(val_idx == val_idx[:1]))
     rows = val_idx[0] if shared else val_idx
-    return _gather(data, torch.from_numpy(np.ascontiguousarray(rows)).to(device))
+    with host_wait():
+        rows = torch.from_numpy(np.ascontiguousarray(rows)).to(device)
+    return _gather(data, rows)
 
 
 def _make_round(model, params, buffers, *, lrs, seeds, mesh=None, **kw):

@@ -22,6 +22,7 @@ import numpy as np
 from scipy.linalg import solve_triangular
 from scipy.stats import norm
 
+from ..utils.profiling import span
 from .space import SearchSpace
 
 
@@ -608,15 +609,17 @@ class AskSession:
         before dispatch where nothing hid it. Subsequent calls overrun
         the budget by at most one step. Returns ``done``.
         """
-        t0 = time.perf_counter()
-        while not self._done:
-            self.step()  # always progresses: a zero budget = one step
-            if time.perf_counter() - t0 >= budget_s:
-                break
-        return self._done
+        with span("tuner.ask.pipelined"):
+            t0 = time.perf_counter()
+            while not self._done:
+                self.step()  # always progresses: a zero budget = one step
+                if time.perf_counter() - t0 >= budget_s:
+                    break
+            return self._done
 
     def finish(self) -> List[dict]:
         """Complete any remaining steps and return all n suggestions."""
-        while not self._done:
-            self.step()
-        return self.out
+        with span("tuner.ask"):
+            while not self._done:
+                self.step()
+            return self.out

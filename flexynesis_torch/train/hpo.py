@@ -84,6 +84,7 @@ import numpy as np
 
 from ..config import get_search_space
 from ..utils.device import resolve_device
+from ..utils.profiling import count, span
 from .gp import BayesianOptimizer
 from .space import Categorical, SearchSpace, load_and_convert_config
 from .trainer import kfold_indices, train_val_split
@@ -199,36 +200,37 @@ class HyperparameterTuning:
         train on the whole training set for ``params["epochs"]`` epochs and
         return the model (the retrain after batched rounds and CV,
         hpo.py:188-198)."""
-        n = self.n_units
-        if full_train:
-            model = self.model_class(**self._model_args(params))
-            model.fit(self.dataset, lr=params["lr"], batch_size=int(params["batch_size"]),
-                      max_epochs=int(params["epochs"]), early_stop_patience=-1,
-                      seed=self.seed)
-            return model
-        if self.use_cv:
-            if self.parallel_folds:
-                return self._objective_cv_parallel(params, n)
-            splits = kfold_indices(n, self.n_splits, seed=self.seed)
-        else:
-            splits = [train_val_split(n, self.val_size, seed=self.seed)]
-        losses, epochs = [], []
-        for train_idx, val_idx in splits:
-            model = self.model_class(**self._model_args(params))
-            on_epoch_end = None
-            if self.plot_losses:  # a live loss plot per trial and fold (notebooks)
-                from .live_plot import LiveLossPlot
+        with span("tuner.retrain" if full_train else "tuner.objective"):
+            n = self.n_units
+            if full_train:
+                model = self.model_class(**self._model_args(params))
+                model.fit(self.dataset, lr=params["lr"], batch_size=int(params["batch_size"]),
+                          max_epochs=int(params["epochs"]), early_stop_patience=-1,
+                          seed=self.seed)
+                return model
+            if self.use_cv:
+                if self.parallel_folds:
+                    return self._objective_cv_parallel(params, n)
+                splits = kfold_indices(n, self.n_splits, seed=self.seed)
+            else:
+                splits = [train_val_split(n, self.val_size, seed=self.seed)]
+            losses, epochs = [], []
+            for train_idx, val_idx in splits:
+                model = self.model_class(**self._model_args(params))
+                on_epoch_end = None
+                if self.plot_losses:  # a live loss plot per trial and fold (notebooks)
+                    from .live_plot import LiveLossPlot
 
-                on_epoch_end = LiveLossPlot(hyperparams=params).update
-            res = model.fit(
-                self.dataset, train_idx, val_idx, lr=params["lr"],
-                batch_size=int(params["batch_size"]), max_epochs=int(params["epochs"]),
-                early_stop_patience=self.early_stop_patience, seed=self.seed,
-                on_epoch_end=on_epoch_end,
-            )
-            losses.append(res.val_loss)
-            epochs.append(res.epochs_run)
-        return float(np.mean(losses)), int(np.mean(epochs)), model
+                    on_epoch_end = LiveLossPlot(hyperparams=params).update
+                res = model.fit(
+                    self.dataset, train_idx, val_idx, lr=params["lr"],
+                    batch_size=int(params["batch_size"]), max_epochs=int(params["epochs"]),
+                    early_stop_patience=self.early_stop_patience, seed=self.seed,
+                    on_epoch_end=on_epoch_end,
+                )
+                losses.append(res.val_loss)
+                epochs.append(res.epochs_run)
+            return float(np.mean(losses)), int(np.mean(epochs)), model
 
     def _trial_mesh(self, n_trials: int):
         """The trial mesh of an ``n_trials`` round, or None (hpo.py:166-182):
@@ -327,36 +329,38 @@ class HyperparameterTuning:
         shared seed (hpo.py:457-512)."""
         from ..parallel.trials import ParallelTrials
 
-        train_idx, val_idx = train_val_split(self.n_units, self.val_size, seed=self.seed)
-        mesh = self._trial_mesh(len(group))
-        # one engine per architecture and mesh size (hpo.py:464-471)
-        key = (self._template_key(group[0]), 0 if mesh is None else mesh.size)
-        pt = self._pts.get(key)
-        if pt is None:
-            pt = self._pts[key] = ParallelTrials(self._get_template(group[0]), self.dataset,
-                                                 mesh=mesh)
-        print(f"[INFO] Training {len(group)} same-architecture trials concurrently (stacked)")
-        # the round checkpoints mid-round beside the JSON state, in a
-        # directory of its own (keyed by its suggestions), so replaying
-        # earlier groups after a restart cannot clobber it
-        ckpt_dir = None
-        if self.checkpoint_path:
-            digest = hashlib.sha256(
-                json.dumps(group, sort_keys=True, default=str).encode()).hexdigest()[:12]
-            ckpt_dir = f"{self.checkpoint_path}.round-{digest}"
-        out = pt.run(
-            lrs=np.asarray([p["lr"] for p in group], np.float32),
-            seeds=np.full(len(group), self.seed, np.int64),
-            train_idx=train_idx, val_idx=val_idx,
-            batch_size=int(group[0]["batch_size"]), max_epochs=int(group[0]["epochs"]),
-            early_stop_patience=self.early_stop_patience, checkpoint_dir=ckpt_dir,
-            host_work=self._host_work, on_epoch_end=self._stacked_plots(group),
-        )
-        if ckpt_dir is not None:
-            shutil.rmtree(ckpt_dir, ignore_errors=True)
-        # no model is kept per trial: the best configuration retrains at the
-        # end of perform_tuning
-        return self._group_results(out, len(group))
+        with span("tuner.round"):
+            count("tuner.rounds")
+            train_idx, val_idx = train_val_split(self.n_units, self.val_size, seed=self.seed)
+            mesh = self._trial_mesh(len(group))
+            # one engine per architecture and mesh size (hpo.py:464-471)
+            key = (self._template_key(group[0]), 0 if mesh is None else mesh.size)
+            pt = self._pts.get(key)
+            if pt is None:
+                pt = self._pts[key] = ParallelTrials(self._get_template(group[0]), self.dataset,
+                                                     mesh=mesh)
+            print(f"[INFO] Training {len(group)} same-architecture trials concurrently (stacked)")
+            # the round checkpoints mid-round beside the JSON state, in a
+            # directory of its own (keyed by its suggestions), so replaying
+            # earlier groups after a restart cannot clobber it
+            ckpt_dir = None
+            if self.checkpoint_path:
+                digest = hashlib.sha256(
+                    json.dumps(group, sort_keys=True, default=str).encode()).hexdigest()[:12]
+                ckpt_dir = f"{self.checkpoint_path}.round-{digest}"
+            out = pt.run(
+                lrs=np.asarray([p["lr"] for p in group], np.float32),
+                seeds=np.full(len(group), self.seed, np.int64),
+                train_idx=train_idx, val_idx=val_idx,
+                batch_size=int(group[0]["batch_size"]), max_epochs=int(group[0]["epochs"]),
+                early_stop_patience=self.early_stop_patience, checkpoint_dir=ckpt_dir,
+                host_work=self._host_work, on_epoch_end=self._stacked_plots(group),
+            )
+            if ckpt_dir is not None:
+                shutil.rmtree(ckpt_dir, ignore_errors=True)
+            # no model is kept per trial: the best configuration retrains at the
+            # end of perform_tuning
+            return self._group_results(out, len(group))
 
     def _run_parallel_group_hetero(self, group):
         """A mixed-architecture group: parameters padded to the group's
@@ -365,28 +369,30 @@ class HyperparameterTuning:
         from ..parallel.hetero import build_padded_trials, max_config
         from ..parallel.trials import vmapped_grid_fit
 
-        K = len(group)
-        train_idx, val_idx = train_val_split(self.n_units, self.val_size, seed=self.seed)
-        template_cfg = dict(group[0])
-        template_cfg.update(max_config(group, [
-            len(self.dataset.features[k]) for k in self.dataset.dat.keys()]))
-        template = self._get_template(template_cfg)
-        seeds = np.arange(self.seed, self.seed + K)
-        trials = build_padded_trials(template, group, seeds)
-        print(f"[INFO] Training {K} mixed-architecture trials concurrently "
-              "(padded, stacked)")
-        out = vmapped_grid_fit(
-            template, self.dataset,
-            start_params=trials["params"], start_stats=trials["buffers"],
-            lrs=np.asarray([p["lr"] for p in group], np.float32), seeds=seeds,
-            train_idx=np.tile(train_idx, (K, 1)), val_idx=np.tile(val_idx, (K, 1)),
-            masks=trials["masks"], aux=trials.get("aux"),
-            batch_size=int(group[0]["batch_size"]), max_epochs=int(group[0]["epochs"]),
-            early_stop_patience=self.early_stop_patience, param_dtype="bfloat16_sr",
-            mesh=self._trial_mesh(K), host_work=self._host_work,
-            on_epoch_end=self._stacked_plots(group),
-        )
-        return self._group_results(out, K)
+        with span("tuner.round"):
+            count("tuner.rounds")
+            K = len(group)
+            train_idx, val_idx = train_val_split(self.n_units, self.val_size, seed=self.seed)
+            template_cfg = dict(group[0])
+            template_cfg.update(max_config(group, [
+                len(self.dataset.features[k]) for k in self.dataset.dat.keys()]))
+            template = self._get_template(template_cfg)
+            seeds = np.arange(self.seed, self.seed + K)
+            trials = build_padded_trials(template, group, seeds)
+            print(f"[INFO] Training {K} mixed-architecture trials concurrently "
+                  "(padded, stacked)")
+            out = vmapped_grid_fit(
+                template, self.dataset,
+                start_params=trials["params"], start_stats=trials["buffers"],
+                lrs=np.asarray([p["lr"] for p in group], np.float32), seeds=seeds,
+                train_idx=np.tile(train_idx, (K, 1)), val_idx=np.tile(val_idx, (K, 1)),
+                masks=trials["masks"], aux=trials.get("aux"),
+                batch_size=int(group[0]["batch_size"]), max_epochs=int(group[0]["epochs"]),
+                early_stop_patience=self.early_stop_patience, param_dtype="bfloat16_sr",
+                mesh=self._trial_mesh(K), host_work=self._host_work,
+                on_epoch_end=self._stacked_plots(group),
+            )
+            return self._group_results(out, K)
 
     def _run_parallel_group_cv(self, group):
         """K suggestions x k CV folds as one stacked program of K x k trials
@@ -398,36 +404,38 @@ class HyperparameterTuning:
         means."""
         from ..parallel.trials import equal_kfold_indices, vmapped_grid_fit
 
-        n, k, K = self.n_units, self.n_splits, len(group)
-        tr, va = equal_kfold_indices(n, k, seed=self.seed)
-        lrs = np.repeat(np.asarray([p["lr"] for p in group], np.float32), k)
-        seeds = np.tile(np.arange(self.seed, self.seed + k), K)
-        if self._arch_identical(group):
-            template = self._get_template(group[0])
-            trials: dict = {}
-        else:
-            from ..parallel.hetero import build_padded_trials, max_config
+        with span("tuner.round"):
+            count("tuner.rounds")
+            n, k, K = self.n_units, self.n_splits, len(group)
+            tr, va = equal_kfold_indices(n, k, seed=self.seed)
+            lrs = np.repeat(np.asarray([p["lr"] for p in group], np.float32), k)
+            seeds = np.tile(np.arange(self.seed, self.seed + k), K)
+            if self._arch_identical(group):
+                template = self._get_template(group[0])
+                trials: dict = {}
+            else:
+                from ..parallel.hetero import build_padded_trials, max_config
 
-            template_cfg = dict(group[0])
-            template_cfg.update(max_config(group, [
-                len(self.dataset.features[key]) for key in self.dataset.dat.keys()]))
-            template = self._get_template(template_cfg)
-            trials = build_padded_trials(template, [p for p in group for _ in range(k)], seeds)
-        print(f"[INFO] Training {K} suggestions x {k} CV folds = {K * k} trials "
-              "concurrently (stacked)")
-        out = vmapped_grid_fit(
-            template, self.dataset,
-            start_params=trials.get("params"), start_stats=trials.get("buffers"),
-            lrs=lrs, seeds=seeds, train_idx=np.tile(tr, (K, 1)), val_idx=np.tile(va, (K, 1)),
-            masks=trials.get("masks"), aux=trials.get("aux"),
-            batch_size=int(group[0]["batch_size"]), max_epochs=int(group[0]["epochs"]),
-            early_stop_patience=self.early_stop_patience, param_dtype="bfloat16_sr",
-            mesh=self._trial_mesh(K * k), host_work=self._host_work,
-            on_epoch_end=self._stacked_plots([p for p in group for _ in range(k)]),
-        )
-        loss = np.asarray(out["best_val_loss"]).reshape(K, k).mean(axis=1)
-        ep = np.asarray(out["best_epoch"]).reshape(K, k).mean(axis=1)
-        return [(float(loss[i]), int(round(ep[i])), None) for i in range(K)]
+                template_cfg = dict(group[0])
+                template_cfg.update(max_config(group, [
+                    len(self.dataset.features[key]) for key in self.dataset.dat.keys()]))
+                template = self._get_template(template_cfg)
+                trials = build_padded_trials(template, [p for p in group for _ in range(k)], seeds)
+            print(f"[INFO] Training {K} suggestions x {k} CV folds = {K * k} trials "
+                  "concurrently (stacked)")
+            out = vmapped_grid_fit(
+                template, self.dataset,
+                start_params=trials.get("params"), start_stats=trials.get("buffers"),
+                lrs=lrs, seeds=seeds, train_idx=np.tile(tr, (K, 1)), val_idx=np.tile(va, (K, 1)),
+                masks=trials.get("masks"), aux=trials.get("aux"),
+                batch_size=int(group[0]["batch_size"]), max_epochs=int(group[0]["epochs"]),
+                early_stop_patience=self.early_stop_patience, param_dtype="bfloat16_sr",
+                mesh=self._trial_mesh(K * k), host_work=self._host_work,
+                on_epoch_end=self._stacked_plots([p for p in group for _ in range(k)]),
+            )
+            loss = np.asarray(out["best_val_loss"]).reshape(K, k).mean(axis=1)
+            ep = np.asarray(out["best_epoch"]).reshape(K, k).mean(axis=1)
+            return [(float(loss[i]), int(round(ep[i])), None) for i in range(K)]
 
     # -------------------------------------------------------------- tuning
 
@@ -467,74 +475,76 @@ class HyperparameterTuning:
         (``epochs`` set to its best epoch count). A batched round and a CV
         run keep no model, so the best configuration then retrains on the
         full set."""
-        opt = BayesianOptimizer(self.space, n_initial_points=10, seed=self.seed)
-        best_loss = np.inf
-        best_params = None
-        best_epochs = 0
-        best_model = None
-        no_improvement = 0
-        i = 0
-        resume = self._load_checkpoint(opt)
-        if resume is not None:
-            best_loss = resume["best_loss"]
-            best_params = resume["best_params"]
-            best_epochs = resume.get("best_epochs", 0)
-            i = resume["iteration"]
-        pipeline = self.pipeline_ask and self.batch_ask > 1
-        suggestions = opt.ask(min(self.batch_ask, self.n_iter - i)) if i < self.n_iter else []
-        while suggestions:
-            groups = self._bucket_by_architecture(suggestions)
-            # the next round's ask runs in this round's gaps, with this
-            # round's suggestions pending, if a group trains on the engine
-            # (sequential CV folds train no group there)
-            q_next = min(self.batch_ask, self.n_iter - i - len(suggestions))
-            drains = any(len(g) > 1 for g in groups) and (
-                not self.use_cv or self.parallel_folds)
-            session = (opt.ask_session(q_next, pending=suggestions)
-                       if pipeline and drains and q_next > 0 else None)
-            self._host_work = session.work if session is not None else None
-            for group in groups:
-                t0 = time.perf_counter()
-                results = None
-                if len(group) > 1 and self.use_cv and self.parallel_folds:
-                    # suggestions x folds train as one program of K x k trials
-                    results = self._run_parallel_group_cv(group)
-                elif len(group) > 1 and not self.use_cv:
-                    results = (self._run_parallel_group(group) if self._arch_identical(group)
-                               else self._run_parallel_group_hetero(group))
-                for gi, params in enumerate(group):
-                    loss, epochs, model = (results[gi] if results is not None
-                                           else self.objective(params))
-                    opt.tell(params, loss)
-                    i += 1
-                    if loss < best_loss:
-                        best_loss, best_params, best_epochs, best_model = (
-                            loss, dict(params), epochs, model)
-                        no_improvement = 0
-                    else:
-                        no_improvement += 1
-                    print(f"[INFO] HPO iter {i}/{self.n_iter}: loss={loss:.4f} "
-                          f"best={best_loss:.4f} ({time.perf_counter() - t0:.1f}s cum. "
-                          f"for group) params={params}")
-                    self._save_checkpoint(opt, best_params, float(best_loss), best_epochs, i)
-            self._host_work = None
-            if hpo_patience > 0 and no_improvement >= hpo_patience:
-                print(f"[INFO] No improvement for {hpo_patience} HPO iterations — "
-                      "stopping early.")
-                break
-            if session is not None:
-                # any ask work the round did not hide
-                suggestions = session.finish()
-            elif i < self.n_iter:
-                suggestions = opt.ask(min(self.batch_ask, self.n_iter - i))
-            else:
-                suggestions = []
-        if best_params is None:
-            raise RuntimeError("no HPO trial produced a finite validation loss")
-        best_params = dict(best_params)
-        best_params["epochs"] = max(best_epochs, 1)
-        if self.use_cv or best_model is None:
-            # CV keeps no single model: retrain on the full set
-            print(f"[INFO] Final full-data training with best params: {best_params}")
-            best_model = self.objective(best_params, full_train=True)
-        return best_model, best_params
+        with span("tuner.job"):
+            count("tuner.jobs")
+            opt = BayesianOptimizer(self.space, n_initial_points=10, seed=self.seed)
+            best_loss = np.inf
+            best_params = None
+            best_epochs = 0
+            best_model = None
+            no_improvement = 0
+            i = 0
+            resume = self._load_checkpoint(opt)
+            if resume is not None:
+                best_loss = resume["best_loss"]
+                best_params = resume["best_params"]
+                best_epochs = resume.get("best_epochs", 0)
+                i = resume["iteration"]
+            pipeline = self.pipeline_ask and self.batch_ask > 1
+            suggestions = opt.ask(min(self.batch_ask, self.n_iter - i)) if i < self.n_iter else []
+            while suggestions:
+                groups = self._bucket_by_architecture(suggestions)
+                # the next round's ask runs in this round's gaps, with this
+                # round's suggestions pending, if a group trains on the engine
+                # (sequential CV folds train no group there)
+                q_next = min(self.batch_ask, self.n_iter - i - len(suggestions))
+                drains = any(len(g) > 1 for g in groups) and (
+                    not self.use_cv or self.parallel_folds)
+                session = (opt.ask_session(q_next, pending=suggestions)
+                           if pipeline and drains and q_next > 0 else None)
+                self._host_work = session.work if session is not None else None
+                for group in groups:
+                    t0 = time.perf_counter()
+                    results = None
+                    if len(group) > 1 and self.use_cv and self.parallel_folds:
+                        # suggestions x folds train as one program of K x k trials
+                        results = self._run_parallel_group_cv(group)
+                    elif len(group) > 1 and not self.use_cv:
+                        results = (self._run_parallel_group(group) if self._arch_identical(group)
+                                   else self._run_parallel_group_hetero(group))
+                    for gi, params in enumerate(group):
+                        loss, epochs, model = (results[gi] if results is not None
+                                               else self.objective(params))
+                        opt.tell(params, loss)
+                        i += 1
+                        if loss < best_loss:
+                            best_loss, best_params, best_epochs, best_model = (
+                                loss, dict(params), epochs, model)
+                            no_improvement = 0
+                        else:
+                            no_improvement += 1
+                        print(f"[INFO] HPO iter {i}/{self.n_iter}: loss={loss:.4f} "
+                              f"best={best_loss:.4f} ({time.perf_counter() - t0:.1f}s cum. "
+                              f"for group) params={params}")
+                        self._save_checkpoint(opt, best_params, float(best_loss), best_epochs, i)
+                self._host_work = None
+                if hpo_patience > 0 and no_improvement >= hpo_patience:
+                    print(f"[INFO] No improvement for {hpo_patience} HPO iterations — "
+                          "stopping early.")
+                    break
+                if session is not None:
+                    # any ask work the round did not hide
+                    suggestions = session.finish()
+                elif i < self.n_iter:
+                    suggestions = opt.ask(min(self.batch_ask, self.n_iter - i))
+                else:
+                    suggestions = []
+            if best_params is None:
+                raise RuntimeError("no HPO trial produced a finite validation loss")
+            best_params = dict(best_params)
+            best_params["epochs"] = max(best_epochs, 1)
+            if self.use_cv or best_model is None:
+                # CV keeps no single model: retrain on the full set
+                print(f"[INFO] Final full-data training with best params: {best_params}")
+                best_model = self.objective(best_params, full_train=True)
+            return best_model, best_params

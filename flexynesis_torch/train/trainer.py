@@ -51,6 +51,7 @@ import numpy as np
 import torch
 
 from ..ops.collectives import all_reduce_grads, data_axis
+from ..utils.profiling import count, host_wait, recording, span
 
 
 @dataclass
@@ -176,16 +177,20 @@ class Trainer:
     def train_step(self, batch: dict, generator: torch.Generator) -> torch.Tensor:
         """One optimizer step on ``batch``; returns the loss, on the device.
         On a data axis the ranks' gradients are summed before the clip."""
-        if self.data_group is None:
-            total, _ = self.loss_fn(batch, generator, True)
-            grads = torch.autograd.grad(total, self.params, allow_unused=True)
-        else:
-            with data_axis(self.data_group):
+        with span("trainer.step"):
+            if recording():
+                count("trainer.steps")
+                count("trainer.samples", _batch_rows(batch))
+            if self.data_group is None:
                 total, _ = self.loss_fn(batch, generator, True)
                 grads = torch.autograd.grad(total, self.params, allow_unused=True)
-                grads = all_reduce_grads(grads, self.params)
-        self.optimizer.step(grads)
-        return total.detach()
+            else:
+                with data_axis(self.data_group):
+                    total, _ = self.loss_fn(batch, generator, True)
+                    grads = torch.autograd.grad(total, self.params, allow_unused=True)
+                    grads = all_reduce_grads(grads, self.params)
+            self.optimizer.step(grads)
+            return total.detach()
 
     def train_epoch(self, perm: torch.Tensor, data: dict,
                     generator: torch.Generator) -> torch.Tensor:
@@ -274,24 +279,34 @@ class Trainer:
         for epoch in range(start_epoch, max_epochs):
             perm = torch.randperm(n_samples, generator=perm_gen)
             perm = perm[: n_batches * batch_size].reshape(n_batches, batch_size)
-            train_loss = self.train_epoch(perm.to(device), train_data, dropout_gen)
+            with host_wait():   # a copy from pageable memory waits for the stream
+                perm = perm.to(device)
+            train_loss = self.train_epoch(perm, train_data, dropout_gen)
             epochs_run = epoch + 1
             history["train_loss"].append(train_loss)
             stop = False
             if val_data is not None:
-                val_loss = float(self.validate(val_data))
+                with span("trainer.validate"):
+                    val_loss = self.validate(val_data)
+                with host_wait():
+                    val_loss = float(val_loss)
                 history["val_loss"].append(val_loss)
                 if val_loss < best_val:
                     best_val = val_loss
                     best = self._snapshot()
                 if log_every and epoch % log_every == 0:
-                    print(f"[epoch {epoch}] train_loss={float(train_loss):.4f} "
-                          f"val_loss={val_loss:.4f}")
+                    with host_wait():
+                        loss = float(train_loss)
+                    print(f"[epoch {epoch}] train_loss={loss:.4f} val_loss={val_loss:.4f}")
                 if on_epoch_end is not None:
-                    on_epoch_end(epoch, float(train_loss), val_loss)
+                    with host_wait():
+                        loss = float(train_loss)
+                    on_epoch_end(epoch, loss, val_loss)
                 stop = stopper.update(val_loss)
             elif log_every and epoch % log_every == 0:
-                print(f"[epoch {epoch}] train_loss={float(train_loss):.4f}")
+                with host_wait():
+                    loss = float(train_loss)
+                print(f"[epoch {epoch}] train_loss={loss:.4f}")
             if ckpt is not None:
                 ckpt.maybe_save(epochs_run, self._checkpoint_tensors(gens, best), {
                     "count": self.optimizer.count, "best_val": best_val,
@@ -300,15 +315,28 @@ class Trainer:
                 break
         if ckpt is not None:
             ckpt.close()
-        history["train_loss"] = [float(t) for t in history["train_loss"]]
+        with host_wait():
+            history["train_loss"] = [float(t) for t in history["train_loss"]]
         if val_data is None:
             best = self._snapshot()
             best_val = history["train_loss"][-1] if history["train_loss"] else 0.0
         elif best is None:  # no finite validation loss: score the last state
             best = self._snapshot()
-            best_val = float(self.validate(val_data))
+            with span("trainer.validate"):
+                best_val = self.validate(val_data)
+            with host_wait():
+                best_val = float(best_val)
         return TrainResult(state=best, val_loss=best_val, epochs_run=epochs_run,
                            history=history, wall_time_s=time.perf_counter() - t0)
+
+
+def _batch_rows(batch: dict) -> int:
+    """The rows of a batch tree: the first dimension of its first leaf
+    outside the ``_`` keys."""
+    for k, v in batch.items():
+        if not k.startswith("_"):
+            return _batch_rows(v) if isinstance(v, dict) else int(v.shape[0])
+    return 0
 
 
 def train_val_split(n: int, val_size: float, seed: int = 42):
