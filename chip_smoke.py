@@ -76,8 +76,15 @@ Phases (any failure exits nonzero):
    fixed SR seeds): three Adam steps on the same gradients bit for bit,
    clipped and unclipped, and three SR-bf16 stacked steps of a
    same-architecture round and of a padded mixed round (element masks,
-   padded entries exactly zero); one stacked step's time and a profiled
-   run; then three training CLI runs of 16 suggestions: a
+   padded entries exactly zero), the card's rounds through the SR-bf16 Adam
+   kernel (``csrc/sr_adam.cu``, two launches a step), and the same steps
+   through the kernel against the card's plain chain and its copy back
+   (fused multiply-adds rounded once) bit for bit; one stacked step's time
+   and a profiled run; the kernel's time per stacked step (K = 16
+   DirectPred and supervised_vae, the padded round) beside its plain
+   chain, its host issue and its bytes bound; then three training CLI runs
+   of 16 suggestions (the kernel 2 launches per stacked step in the
+   batched and the mixed round): a
    same-architecture round (``--hpo_batch 0`` must resolve to 16, ``lr``
    free) whose B1 and B2 launches grow with the steps
    and not with K and whose retrained model serves alike on the card and
@@ -312,7 +319,8 @@ DEVICE = "cuda"  # the training phase's device (a CPU rehearsal sets "cpu")
 # the CUDA functions of the port's kernels, as the profiles name them: B1
 # (and its merge launch above 64 rows), B2 and B3
 KERNEL_FUNCTIONS = ("fused_linear_bn_relu_train_split_kernel", "bn_relu_merge_kernel",
-                    "fused_linear_bn_relu_eval_kernel", "gaussian_kernel_mean_kernel")
+                    "fused_linear_bn_relu_eval_kernel", "gaussian_kernel_mean_kernel",
+                    "sr_adam_norm_kernel", "sr_adam_update_kernel")
 
 
 def fail(msg: str) -> None:
@@ -367,6 +375,35 @@ def device_ms(fn, reps: int = 20):
         if total_us > 0:
             return total_us / reps / 1e3, sum(e.count for e in events) / reps
     return None, 0
+
+
+def kernel_device_ms(fn, names, launches: int, reps: int = 20):
+    """(device ms per call, the calls' kernels found) of ``fn``, whose every
+    call launches ``launches`` kernels named in ``names``: the sum of those
+    kernels' own device times in a torch.profiler trace of ``reps`` calls,
+    over ``reps``. The trace's first ``reps`` calls warm the profiler up and
+    are not read. Fails unless the read calls' kernels are all found, so
+    that the time is never a part of the calls'."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for _ in range(2):
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+              and any(n in e.key for n in names)]
+    found = sum(e.count for e in events)
+    if found != launches * reps:
+        fail(f"the profiler found {found} launches of {', '.join(names)} in {reps} calls of "
+             f"{launches}")
+    return sum(e.self_device_time_total for e in events) / reps / 1e3, found
 
 
 def host_ms(fn, reps: int = 50) -> float:
@@ -2125,7 +2162,13 @@ def check_sr_steps(config, cohort):
     of the final value's), except at most 1e-4 of the entries, whose
     gradient is rounding noise (as a shift-only bias's), within 2 x 3 x lr;
     float32 leaves and running statistics rtol/atol 1e-4 (shift-only entries
-    within their bound); the padded entries exactly zero on both devices."""
+    within their bound); the padded entries exactly zero on both devices.
+    (3) On the card, three steps of each round through ``_Round.step``'s
+    in-place kernel path (``kernels/sr_adam.py``, two launches a step)
+    against the same round on the plain chain and its copy back, with the
+    plain chain's fused multiply-adds rounded once (``fma_rn``) and its norm
+    summed in float64 (``global_norm_f64``): losses, parameters and moments
+    bit for bit."""
     import torch
     from flexynesis_torch.ops.sr_adam import sr_adam_init, sr_adam_step
     from flexynesis_torch.parallel.trials import _gather
@@ -2222,6 +2265,130 @@ def check_sr_steps(config, cohort):
               f"abs diff {err:.3e}, shift-only entries at most {share:.3f} of their bounds"
               f"{'; padded entries exactly zero' if card_round.masks else ''}", flush=True)
 
+    # (3) _Round.step's in-place kernel path against the card's plain chain
+    # and its copy back, the plain chain's fused multiply-adds rounded once
+    # and its norm summed in float64, as the kernel sums it (the model's
+    # gradients clip)
+    from flexynesis_torch.kernels import sr_adam as kernel
+    from flexynesis_torch.ops import sr_adam as sr_ops
+    from flexynesis_torch.parallel import trials
+
+    for name in rounds["card"]:
+        runs = {}
+        for path in ("kernel", "plain"):
+            r, seeds = _sr_rounds(config, cohort, DEVICE)[name]
+            data = r.model.make_batch(cohort)
+            before = kernel.FusedSRAdam.launches
+            saved = trials.fused_update_applies, sr_ops._fma, sr_ops.global_norm_f32
+            if path == "plain":
+                trials.fused_update_applies = lambda params, state: False
+                sr_ops._fma, sr_ops.global_norm_f32 = kernel.fma_rn, kernel.global_norm_f64
+            try:
+                losses = torch.stack([r.step(_gather(data, p.to(DEVICE)), seed.to(DEVICE))
+                                      for p, seed in zip(perm, seeds)])
+            finally:
+                trials.fused_update_applies, sr_ops._fma, sr_ops.global_norm_f32 = saved
+            runs[path] = (r, losses, kernel.FusedSRAdam.launches - before)
+        (fr, fl, fn), (pr, pl, pn) = runs["kernel"], runs["plain"]
+        if fn != 3 * kernel.LAUNCHES_PER_STEP or pn != 0:
+            fail(f"trials: {name} SR-bf16 steps launched the kernel {fn} and {pn} times, "
+                 f"expected {3 * kernel.LAUNCHES_PER_STEP} and 0")
+        if not torch.equal(fl, pl):
+            fail(f"trials: {name} in-place SR-bf16 steps: losses {fl.tolist()} against the "
+                 f"plain chain's {pl.tolist()}")
+        for i, (a, b) in enumerate(zip([*fr.views, *fr.opt_state.m, *fr.opt_state.v],
+                                       [*pr.views, *pr.opt_state.m, *pr.opt_state.v])):
+            if not torch.equal(_bits(a), _bits(b)):
+                fail(f"trials: {name} in-place SR-bf16 steps: leaf {i} of (parameters, m, v) "
+                     "differs from the plain chain with single-rounded fused multiply-adds")
+        if fr.masks is not None:
+            _padded_zero(fr, f"trials: {name} in-place SR-bf16 steps")
+        print(f"trials: 3 in-place SR-bf16 stacked steps ({name}, K={fr.K}, {len(fr.views)} "
+              f"leaves): the kernel ({fn} launches) = the card's plain chain and copy back bit "
+              "for bit (fused multiply-adds rounded once, the norm summed in float64)",
+              flush=True)
+
+
+def time_sr_adam(config, cohort):
+    """The SR-bf16 Adam kernel's rows of the kernels line: one stacked
+    step's update of every leaf of a K = TRIALS same-architecture DirectPred
+    and supervised_vae round at the headline width, and of the padded round
+    of MIXED_GROUP, on fixed 1e-5 N(0, 1) gradients: CUDA-event time,
+    profiler device time, host issue, the plain chain's time
+    (``sr_adam_step`` and the copy back), launches a step and the bytes
+    bound (g and the mask read once, p, m and v read and written once, each
+    in its own type)."""
+    import numpy as np
+    import torch
+    from flexynesis_torch.kernels.sr_adam import FusedSRAdam
+    from flexynesis_torch.models import MODEL_REGISTRY
+    from flexynesis_torch.ops.sr_adam import sr_adam_step
+    from flexynesis_torch.parallel.trials import _init_stacked, _Round
+
+    def same(model_name):
+        m = MODEL_REGISTRY[model_name](config, cohort, target_variables=["subtype"],
+                                       device=DEVICE)
+        params, buffers = _init_stacked(m, np.zeros(TRIALS, np.int64))
+        return _Round(m, params, buffers, lrs=np.geomspace(1e-4, 1e-2, TRIALS),
+                      seeds=[0] * TRIALS)
+
+    rounds = {"directpred": same("DirectPred"), "supervised_vae": same("supervised_vae"),
+              "padded": _sr_rounds(config, cohort, DEVICE)["padded"][0]}
+    gen = torch.Generator(device=DEVICE).manual_seed(21)
+    rows = []
+    for label, r in rounds.items():
+        grads = [torch.randn(v.shape, generator=gen, device=DEVICE) * 1e-5 for v in r.views]
+        seed = torch.randint(0, 2 ** 32, (r.K,), generator=gen, device=DEVICE)
+        masks = r.masks or [None] * len(r.views)
+        plan = FusedSRAdam(r.views, r.opt_state, r.masks)
+        state = [r.opt_state]
+
+        def fused():
+            state[0] = plan.step(state[0], grads, r.lrs, seed)
+
+        def plain():
+            new, _ = sr_adam_step(r.views, state[0], grads, r.lrs, seed, masks=r.masks,
+                                  trial_axis=True)
+            for v, x in zip(r.views, new):
+                v.copy_(x)
+
+        before = FusedSRAdam.launches
+        fused()
+        torch.cuda.synchronize()
+        launches = FusedSRAdam.launches - before
+        nbytes = sum(v.numel() * (4 + 2 * (v.element_size() + m.element_size() + w.element_size())
+                                  + (4 if k is not None else 0))
+                     for v, m, w, k in zip(r.views, r.opt_state.m, r.opt_state.v, masks))
+        bms, by = bound_ms(0.0, nbytes)
+        row = {"label": label, "K": r.K, "leaves": len(r.views),
+               "elements": sum(v.numel() for v in r.views), "launches_per_step": launches,
+               "ms": cuda_ms(fused, 20), "host_ms": host_ms(fused), "plain_ms": cuda_ms(plain, 5),
+               "bytes": nbytes, "bound_ms": bms, "bound_by": by}
+        row["device_ms"], found = kernel_device_ms(
+            fused, ("sr_adam_norm_kernel", "sr_adam_update_kernel"), launches)
+        print(f"trials: SR-bf16 Adam kernel, one stacked step ({label}, K={r.K}, "
+              f"{row['leaves']} leaves, {row['elements']} elements): {launches} launches, "
+              f"CUDA events {fmt_ms(row['ms'])}, device {fmt_ms(row['device_ms'])} (its "
+              f"{found} kernels of 20 steps), host issue {fmt_ms(row['host_ms'])}, "
+              f"plain chain {fmt_ms(row['plain_ms'])}, bound {fmt_ms(bms)} ({by}, "
+              f"{nbytes / 1e6:.1f} MB)", flush=True)
+        rows.append(row)
+    return rows
+
+
+def sr_adam_entry(rows, by_path):
+    """The SR-bf16 Adam kernel's line: one stacked step of the headline
+    DirectPred round (K = TRIALS), beside the other rounds' rows."""
+    head = rows[0]
+    return {"name": "sr_adam_step", "route": "cuda", "source": "flexynesis_torch/csrc/sr_adam.cu",
+            "replaces": "none: flexynesis_tpu/ops/sr_adam.py::sr_adam_step is plain jnp, "
+                        "fused by XLA",
+            "launches_per_stacked_step": head["launches_per_step"],
+            "launches_by_path": by_path,
+            **{k: head[k] for k in ("ms", "device_ms", "host_ms", "plain_ms", "bound_ms",
+                                    "bound_by")},
+            "library_ms": None, "rounds": rows}
+
 
 def time_stacked_steps(config, cohort, K: int = TRIALS, model_name: str = "DirectPred"):
     """Median host-clock time of one stacked training step of K trials (the
@@ -2304,6 +2471,10 @@ MIXED_CONFIG = """DirectPred:
 """
 
 
+# the SR-bf16 Adam kernel's launches in each hpo_run, by run name
+SR_LAUNCHES = {}
+
+
 def hpo_run(workdir: Path, name: str, config_text: str, extra=(), model_class="DirectPred",
             n_iter=None, data=None):
     """One training CLI run of ``n_iter`` GP suggestions of ``model_class``
@@ -2317,6 +2488,7 @@ def hpo_run(workdir: Path, name: str, config_text: str, extra=(), model_class="D
         fused_linear_bn_relu_eval as b2,
     )
     from flexynesis_torch.kernels.mmd import gaussian_kernel_mean as b3
+    from flexynesis_torch.kernels.sr_adam import FusedSRAdam
 
     config = workdir / f"{name}.yaml"
     config.write_text(config_text)
@@ -2326,9 +2498,11 @@ def hpo_run(workdir: Path, name: str, config_text: str, extra=(), model_class="D
     args[args.index("--hpo_iter") + 1] = str(n_iter)
     torch.cuda.reset_peak_memory_stats()
     b1.launches = b2.launches = b3.launches = 0
+    sr_before = FusedSRAdam.launches
     with Tee() as log:
         model = run_training(*parse_args([*args, *extra]))
     launches = (b1.launches, b2.launches, b3.launches)
+    SR_LAUNCHES[name] = FusedSRAdam.launches - sr_before
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     missing = [f for f in ("fit.stats.csv", "fit.predicted_labels.csv", "fit.embeddings_test.csv",
                            "fit.final_model.safetensors") if not (out / f).exists()]
@@ -2338,7 +2512,8 @@ def hpo_run(workdir: Path, name: str, config_text: str, extra=(), model_class="D
     print(f"trials: {name}: CLI phases (host clock, s): "
           + json.dumps({k: round(v, 4) for k, v in phases.items()})
           + f"; {n_iter} trials in hpo_fit: {n_iter / phases['hpo_fit'] * 3600:.0f} trials/h; "
-          f"launches B1 {launches[0]}, B2 {launches[1]}, B3 {launches[2]}; peak allocated "
+          f"launches B1 {launches[0]}, B2 {launches[1]}, B3 {launches[2]}, SR-bf16 Adam "
+          f"{SR_LAUNCHES[name]}; peak allocated "
           f"on the card {peak_gib:.3f} GiB", flush=True)
     return model, phases, launches, log.text, out
 
@@ -2359,6 +2534,7 @@ def train_trials(workdir: Path, importer_cache: ImportOnce, cohort):
     check_stacked_steps(h_config, cohort)
     check_sr_steps(h_config, cohort)
     step_ms, busy = time_stacked_steps(h_config, cohort)
+    sr_rows = time_sr_adam(h_config, cohort)
 
     same = TRIAL_CONFIG % (LATENT, HIDDEN_FACTOR, SUP_HIDDEN, FIT_EPOCHS, BATCH)
     with importer_cache:
@@ -2387,6 +2563,11 @@ def train_trials(workdir: Path, importer_cache: ImportOnce, cohort):
                 B2_PER_FORWARD * (SEQ_TRIALS * FIT_EPOCHS + EVAL_FORWARDS), 0)
     if seq_launches != seq_want:
         fail(f"trials: sequential launches (B1, B2) = {seq_launches}, expected {seq_want}")
+    mixed_steps = MIXED_EPOCHS * (n_fit // BATCH)  # patience 10 > 5 epochs
+    for run, steps in (("hpo_batched", round_steps), ("hpo_mixed", mixed_steps)):
+        if SR_LAUNCHES[run] != 2 * steps:
+            fail(f"trials: {run} launched the SR-bf16 Adam kernel {SR_LAUNCHES[run]} times, "
+                 f"expected 2 per stacked step x {steps}")
     print(f"trials: {TRIALS} trials batched: B1 {launches[0]} launches = {B1_PER_STEP} x "
           f"({round_steps} stacked steps + {retrain_steps} retrain steps), B2 {launches[1]}; "
           f"one at a time: B1 {seq_launches[0]} = {B1_PER_STEP} x {SEQ_TRIALS} x {round_steps}, "
@@ -2422,7 +2603,8 @@ def train_trials(workdir: Path, importer_cache: ImportOnce, cohort):
           f"{seq_model.config['lr']:.3g}", flush=True)
     return ({"hpo_batched": launches, "hpo_sequential": seq_launches,
              "hpo_mixed": mixed_launches},
-            {"trials_per_hour": rate, "stacked_step_ms": step_ms, "stacked_busy_pct": busy})
+            {"trials_per_hour": rate, "stacked_step_ms": step_ms, "stacked_busy_pct": busy,
+             "sr_adam": sr_rows})
 
 
 # the VAE phases' HPO space: the headline architecture fixed, lr free
@@ -5902,7 +6084,7 @@ def check_kernels():
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    build_all(["fused_linear_eval", "fused_linear_train", "mmd_kernel", "fastcsv"])
+    build_all(["fused_linear_eval", "fused_linear_train", "mmd_kernel", "sr_adam", "fastcsv"])
 
     rows, passes = check_b2()
 
@@ -6052,6 +6234,7 @@ def main() -> int:
                                                             "max_abs_err")}
                                          for r in trial_b3 if r["K"] == K_cv3_vae]}),
     ]
+    entries.append(sr_adam_entry(hpo_summary.pop("sr_adam"), dict(SR_LAUNCHES)))
     print("trials: summary " + json.dumps(hpo_summary), flush=True)
     print("vae trials: summary " + json.dumps(vae_summary), flush=True)
     print("markers: summary " + json.dumps(marker_summary), flush=True)

@@ -238,6 +238,13 @@ def global_norm_f32(tree: List[torch.Tensor], trial_axis: bool = False) -> torch
     return torch.sqrt(sum(x.float().square().sum() for x in tree))
 
 
+def bias_corrections(count: int, b1: float, b2: float):
+    """(1 - b1 ** count, 1 - b2 ** count) as XLA computes them in float32:
+    the power of the float32 base, rounded once, then the subtraction; as
+    Python floats."""
+    return tuple(_f32(1.0 - _f32(_f32(b) ** count)) for b in (b1, b2))
+
+
 def sr_adam_step(params: List[torch.Tensor], state: SRAdamState, grads: List[torch.Tensor],
                  lr, seed, *, masks: Optional[List[Optional[torch.Tensor]]] = None,
                  trial_axis: bool = False, grad_clip: float = 1.0, b1: float = 0.9,
@@ -253,12 +260,9 @@ def sr_adam_step(params: List[torch.Tensor], state: SRAdamState, grads: List[tor
     shared value)."""
     count = state.count + 1
     dev = params[0].device
-    # 1 - b ** count as XLA computes it in float32: the power of the float32
-    # base, rounded once, then the subtraction. Divisors are tensors on the
-    # device: a division by a Python number may become a product with its
-    # reciprocal.
-    b1c = torch.full((), _f32(1.0 - _f32(_f32(b1) ** count)), device=dev)
-    b2c = torch.full((), _f32(1.0 - _f32(_f32(b2) ** count)), device=dev)
+    # divisors are tensors on the device: a division by a Python number may
+    # become a product with its reciprocal
+    b1c, b2c = (torch.full((), b, device=dev) for b in bias_corrections(count, b1, b2))
     one_m_b1, one_m_b2 = _f32(1.0 - b1), _f32(1.0 - b2)
     if masks is None:
         masks = [None] * len(params)

@@ -22,7 +22,9 @@ The rules the JAX engine fixes, kept here:
 
 * each trial has its own lr, and the global-norm clip is per trial; a
   ``ParallelTrials`` round (fresh-initialised) runs SR-bf16 Adam
-  (``ops/sr_adam.py``; its ``moment_dtype="int8"`` stores 8-bit moments);
+  (``ops/sr_adam.py``; its ``moment_dtype="int8"`` stores 8-bit moments;
+  on the card, with tensor moments, the kernel of ``kernels/sr_adam.py``
+  updates every leaf in place in two launches a step);
   ``vmapped_grid_fit`` defaults to JAX's float32
   parameters with bfloat16 Adam moments (``trial_optimizer("bfloat16")``,
   the fine-tuner's grid), and its HPO callers (mixed and CV rounds) ask for
@@ -73,6 +75,7 @@ import numpy as np
 import torch
 
 from ..kernels.fused_linear import planned_for
+from ..kernels.sr_adam import FusedSRAdam, fused_update_applies
 from ..ops.optim import AdamState, trial_optimizer
 from ..ops.sr_adam import (Q8, SRAdamState, cast_stacked_params_for_sr, sr_adam_init,
                            trial_update_step)
@@ -158,6 +161,7 @@ class _Round:
         self.tx = None if self.sr else trial_optimizer(moment_dtype)
         self.opt_state = (sr_adam_init(self.views, moment_dtype) if self.sr
                           else self.tx.init(self.views))
+        self.fused = None  # the SR-bf16 Adam kernel's plan, made at the first fused step
         with host_wait():   # a copy from pageable memory waits for the stream
             self.lrs = torch.as_tensor(np.asarray(lrs, np.float32), device=self.device)
         self.masks = masks
@@ -191,19 +195,32 @@ class _Round:
             total, _ = self.stacked.loss(work, self.buffers, self._with_aux(batch), self.noise,
                                          True)
         grads = torch.autograd.grad(total.sum(), [work[n] for n in names], allow_unused=True)
-        grads = {n: torch.zeros_like(work[n]) if g is None else g
-                 for n, g in zip(names, grads)}
         with torch.no_grad(), span("optim.update"):
+            fused = self.sr and fused_update_applies(self.views, self.opt_state)
+            if fused:  # the kernel reads a missing gradient as zero
+                grads = [None if g is None else g.mT if self.stacked.transposed[n] else g
+                         for n, g in zip(names, grads)]
+            else:
+                grads = self.stacked.flax_layout(
+                    {n: torch.zeros_like(work[n]) if g is None else g
+                     for n, g in zip(names, grads)})
             seed = sr_seed
             if self.sr and seed is None:
                 seed = self.noise.spread(torch.randint(
                     0, 2 ** 32, (self.noise.n_draws,), generator=self.sr_gen,
                     device=self.device))
-            new, self.opt_state = trial_update_step(
-                self.views, self.opt_state, self.stacked.flax_layout(grads), self.lrs,
-                seed, sr=self.sr, tx=self.tx, masks=self.masks)
-            for view, value in zip(self.views, new):
-                view.copy_(value)
+            if fused:  # every leaf updated in place by two launches
+                if self.fused is None or not self.fused.serves(self.views, self.opt_state,
+                                                               self.masks):
+                    self.fused = FusedSRAdam(self.views, self.opt_state, self.masks)
+                self.opt_state = self.fused.step(self.opt_state, grads, self.lrs, seed)
+                count("optim.fused")
+            else:
+                new, self.opt_state = trial_update_step(
+                    self.views, self.opt_state, grads, self.lrs, seed, sr=self.sr, tx=self.tx,
+                    masks=self.masks)
+                for view, value in zip(self.views, new):
+                    view.copy_(value)
         return total.detach()
 
     @torch.no_grad()

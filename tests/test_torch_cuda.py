@@ -1,5 +1,5 @@
-"""Tests of the port that need the CUDA card (kernels B1, B2 and B3); they
-skip where there is none.
+"""Tests of the port that need the CUDA card (kernels B1, B2 and B3, and the
+SR-bf16 Adam kernel); they skip where there is none.
 
 This file imports neither JAX nor the JAX package, so it also runs on a card
 machine without them:
@@ -10,7 +10,9 @@ kernel and cuBLAS sum the product in different orders; TF32 is off). B3's
 mean: rtol 1e-5, atol 1e-6 (one f32 mean near 1, the order of summation
 differs); its gradients: rtol 1e-4, atol 1e-4 times the largest plain
 gradient (they scale as 1 / (N M d^2)); an MMD (a difference of means near
-1): rtol 1e-4, atol 2e-6."""
+1): rtol 1e-4, atol 2e-6. The SR-bf16 Adam kernel: bit for bit, against
+the plain chain with its fused multiply-adds rounded once (and, where real
+gradients clip, its norm summed in float64), as the kernel computes them."""
 
 import pytest
 import torch
@@ -657,3 +659,239 @@ def test_one_rank_nccl_fit_equals_the_plain_fit(card):
     assert grouped.history == plain.history
     for n, t in plain.state.items():
         assert torch.equal(grouped.state[n], t), n
+
+
+# the SR-bf16 Adam kernel (kernels/sr_adam.py): against the plain chain on
+# the card, bit for bit once the plain chain's float64 fused multiply-adds
+# are rounded once (fma_rn), as the kernel rounds them
+SR_CFG = {"latent_dim": 64, "hidden_dim_factor": 0.3, "supervisor_hidden_dim": 16, "lr": 1e-3,
+          "epochs": 1, "batch_size": 64, "fused_kernels": False}
+SR_MIXED = [
+    {"latent_dim": 64, "hidden_dim_factor": 0.3, "supervisor_hidden_dim": 16, "lr": 1e-3},
+    {"latent_dim": 128, "hidden_dim_factor": 0.5, "supervisor_hidden_dim": 32, "lr": 3e-3},
+    {"latent_dim": 32, "hidden_dim_factor": 0.2, "supervisor_hidden_dim": 8, "lr": 3e-4},
+    {"latent_dim": 96, "hidden_dim_factor": 0.4, "supervisor_hidden_dim": 24, "lr": 1e-4},
+]
+
+
+def _synthetic_sr_leaves(device, K=3):
+    """Leaves, masks and gradient layouts beside the models' own: a
+    transposed bfloat16 weight (ragged tiles) with a transposed gradient, a
+    contiguous bfloat16 weight with a transposed gradient, a transposed
+    float32 weight under a broadcasting mask, a masked vector over two flat
+    blocks, a bfloat16 vector with no gradient, a (K, 1) leaf, and three
+    inner axes with a gradient whose strides do not merge."""
+    g = torch.Generator(device=device).manual_seed(1)
+
+    def rnd(*shape, dtype=torch.float32):
+        return (torch.randn(*shape, generator=g, device=device) * 0.1).to(dtype)
+
+    bf16 = torch.bfloat16
+    leaves = [rnd(K, 300, 130, dtype=bf16).mT, rnd(K, 70, 90, dtype=bf16), rnd(K, 40, 70).mT,
+              rnd(K, 5000), rnd(K, 7, dtype=bf16), rnd(K, 1), rnd(K, 3, 4, 65, dtype=bf16)]
+    masks = [None, None, (torch.rand(K, 1, 40, generator=g, device=device) > 0.3).float(),
+             (torch.rand(K, 5000, generator=g, device=device) > 0.5).float(), None, None, None]
+
+    def layouts(x):  # a gradient of each leaf's shape in the layout above
+        return [x[0].mT.contiguous().mT, x[1].mT.contiguous().mT, x[2], x[3], None, x[5],
+                x[6].transpose(1, 2).contiguous().transpose(1, 2)]
+    return leaves, masks, layouts
+
+
+def _many_sr_leaves(device, K=3):
+    """300 leaves, more than a block of the kernel has threads (its leaf
+    vote runs in rounds): transposed bfloat16 weights, contiguous float32
+    weights and bfloat16 vectors in turn, every seventh without a
+    gradient."""
+    g = torch.Generator(device=device).manual_seed(2)
+    leaves = []
+    for i in range(300):
+        x = torch.randn(K, 3 + i % 70, 2 + i % 90, generator=g, device=device) * 0.1
+        leaves.append((x.bfloat16().mT, x, x[:, 0].bfloat16())[i % 3])
+
+    def layouts(x):
+        return [None if i % 7 == 0 else t for i, t in enumerate(x)]
+    return leaves, None, layouts
+
+
+def _nine_layer_dataset(n=64):
+    """Nine omics layers of 150-550 features: a supervised_vae of 138
+    leaves."""
+    import numpy as np
+
+    from flexynesis_torch.data.dataset import MultiOmicDataset
+
+    rng = np.random.default_rng(0)
+    cls = rng.integers(0, 3, n).astype(np.float32)
+    widths = {f"omic{i}": 150 + 50 * i for i in range(9)}
+    return MultiOmicDataset(
+        dat={m: rng.normal(size=(n, d)).astype(np.float32) for m, d in widths.items()},
+        ann={"subtype": cls}, variable_types={"subtype": "categorical"},
+        features={m: [f"{m}_{i}" for i in range(d)] for m, d in widths.items()},
+        samples=[f"S{i}" for i in range(n)],
+        label_mappings={"subtype": {0: "a", 1: "b", 2: "c"}})
+
+
+def _sr_leaf_set(name, device):
+    """(leaves, masks, gradient layouts, K, shared seed) of a set."""
+    import numpy as np
+
+    from flexynesis_torch.models import MODEL_REGISTRY
+    from flexynesis_torch.models.direct_pred import DirectPred
+    from flexynesis_torch.parallel.hetero import build_padded_trials, max_config
+    from flexynesis_torch.parallel.trials import _init_stacked, _Round
+
+    if name == "synthetic":
+        leaves, masks, layouts = _synthetic_sr_leaves(device)
+        return leaves, masks, layouts, 3, False
+    if name == "many":
+        leaves, masks, layouts = _many_sr_leaves(device)
+        return leaves, masks, layouts, 3, False
+    if name == "supervised_vae_9":
+        model = MODEL_REGISTRY["supervised_vae"](SR_CFG, _nine_layer_dataset(), ["subtype"],
+                                                 device=device)
+        params, buffers = _init_stacked(model, [0] * 16)
+        rnd = _Round(model, params, buffers, lrs=np.geomspace(1e-4, 1e-2, 16), seeds=[0] * 16)
+        assert len(rnd.views) == 138
+        return rnd.views, None, list, 16, True
+    ds = _mesh_dataset(n=64, gex=2000, cnv=1000)
+    if name == "padded":
+        group = [dict(SR_CFG, **c) for c in SR_MIXED]
+        model = DirectPred(max_config(group, [2000, 1000]), ds, ["subtype"], device=device)
+        seeds = np.arange(3, 3 + len(group))
+        t = build_padded_trials(model, group, seeds)
+        rnd = _Round(model, t["params"], t["buffers"], lrs=[c["lr"] for c in SR_MIXED],
+                     seeds=seeds, masks=t["masks"])
+        return rnd.views, rnd.masks, list, len(group), False
+    model = MODEL_REGISTRY[name](SR_CFG, ds, ["subtype"], device=device)
+    params, buffers = _init_stacked(model, [0] * 16)
+    rnd = _Round(model, params, buffers, lrs=np.geomspace(1e-4, 1e-2, 16), seeds=[0] * 16)
+    return rnd.views, None, list, 16, True
+
+
+def _sr_grads(leaves, layouts, clipped, gen):
+    """Gradients of the leaves' shapes: 1e-5 N(0, 1) (a norm near 0.02: the
+    clip scale is exactly 1) or +-2^-4 or 0 (exact squares: every order of
+    summation gives the same norm, so the clip scale is the same)."""
+    out = []
+    for v in leaves:
+        x = torch.randn(v.shape, generator=gen, device=v.device)
+        out.append(torch.sign(x) * (x.abs() > 0.5) * 2.0 ** -4 if clipped else x * 1e-5)
+    return layouts(out)
+
+
+def _copy_layout(t):
+    return torch.empty_strided(t.shape, t.stride(), dtype=t.dtype, device=t.device).copy_(t)
+
+
+def _bits_of(t):
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("clipped", [False, True])
+@pytest.mark.parametrize("name", ["DirectPred", "supervised_vae", "padded", "synthetic",
+                                  "supervised_vae_9", "many"])
+def test_sr_adam_kernel_gives_the_plain_chain_bits(card, monkeypatch, name, clipped):
+    """Three steps of the kernel against three of ``sr_adam_step`` on the same
+    gradients, seeds near 2^32 and per-trial lrs: parameters, m and v bit
+    for bit against the chain with single-rounded fused multiply-adds, so
+    that every entry where the kernel parts from the plain chain is a
+    double rounding of the latter's float64 route; the same bits on a
+    repeat; padded entries exactly zero; two launches a step."""
+    from flexynesis_torch.kernels import sr_adam as kernel
+    from flexynesis_torch.ops import sr_adam
+
+    leaves, masks, layouts, K, shared = _sr_leaf_set(name, card)
+    lr = torch.logspace(-4, -2, K, device=card)
+    steps = []
+    gen = torch.Generator(device=card).manual_seed(11)
+    for s in range(3):
+        seed = torch.tensor([2 ** 32 - 1 - 97 * s - k for k in range(1 if shared else K)],
+                            device=card)
+        steps.append((_sr_grads(leaves, layouts, clipped, gen), seed))
+
+    def plain():
+        p = [_copy_layout(t) for t in leaves]
+        st = sr_adam.sr_adam_init(p)
+        for grads, seed in steps:
+            grads = [torch.zeros(v.shape, device=card) if x is None else x
+                     for v, x in zip(leaves, grads)]
+            p, st = sr_adam.sr_adam_step(p, st, grads, lr, seed, masks=masks, trial_axis=True)
+        return [*p, *st.m, *st.v]
+
+    def fused():
+        p = [_copy_layout(t) for t in leaves]
+        st = sr_adam.sr_adam_init(p)
+        plan = kernel.FusedSRAdam(p, st, masks)
+        for grads, seed in steps:
+            before = kernel.FusedSRAdam.launches
+            st = plan.step(st, grads, lr, seed)
+            assert kernel.FusedSRAdam.launches == before + kernel.LAUNCHES_PER_STEP == before + 2
+        assert st.count == 3
+        return [*p, *st.m, *st.v]
+
+    want = plain()
+    with monkeypatch.context() as mp:
+        mp.setattr(sr_adam, "_fma", kernel.fma_rn)
+        once = plain()
+    got = fused()
+    torch.cuda.synchronize()
+    n = len(leaves)
+    for i, (a, b) in enumerate(zip(got, once)):
+        what = ("parameter", "m", "v")[i // n]
+        assert torch.equal(_bits_of(a), _bits_of(b)), (what, i % n, tuple(a.shape))
+    again = fused()
+    assert all(torch.equal(_bits_of(a), _bits_of(b)) for a, b in zip(got, again))
+    double = sum(int((_bits_of(a) != _bits_of(b)).sum()) for a, b in zip(once, want))
+    assert double <= 1e-4 * sum(t.numel() for t in want)  # double roundings are rare
+    if masks is not None and name == "padded":
+        for p, k in zip(got[:n], masks):
+            assert not bool(((p.float() * (1 - k)) != 0).any())
+
+
+@pytest.mark.cuda
+def test_round_step_takes_the_kernel_in_place(card, monkeypatch):
+    """Three SR-bf16 stacked steps of a padded DirectPred round with fixed
+    SR seeds: the kernel's in-place path (two launches a step, one plan for
+    the round) against the same round on the plain chain and its copy back,
+    with single-rounded fused multiply-adds and the norm summed in float64
+    as the kernel sums it (the model's gradients clip): parameters, moments
+    and losses bit for bit."""
+    import numpy as np
+
+    from flexynesis_torch.kernels import sr_adam as kernel
+    from flexynesis_torch.models.direct_pred import DirectPred
+    from flexynesis_torch.ops import sr_adam
+    from flexynesis_torch.parallel import trials
+    from flexynesis_torch.parallel.hetero import build_padded_trials, max_config
+
+    ds = _mesh_dataset(n=96, gex=300, cnv=200)
+    group = [dict(SR_CFG, **c) for c in SR_MIXED]
+    seeds = np.arange(3, 7)
+
+    def run():
+        model = DirectPred(max_config(group, [300, 200]), ds, ["subtype"], device="cuda")
+        t = build_padded_trials(model, group, seeds)
+        rnd = trials._Round(model, t["params"], t["buffers"], lrs=[c["lr"] for c in SR_MIXED],
+                            seeds=seeds, masks=t["masks"])
+        data = model.make_batch(ds)
+        before = kernel.FusedSRAdam.launches
+        losses = [rnd.step(trials._gather(data, torch.arange(16 * s, 16 * s + 16, device=card)),
+                           torch.tensor([2 ** 32 - 1 - 97 * s - k for k in range(4)],
+                                        device=card)) for s in range(3)]
+        return rnd, torch.stack(losses), kernel.FusedSRAdam.launches - before
+
+    fused, fused_losses, launches = run()
+    assert launches == 3 * kernel.LAUNCHES_PER_STEP and fused.fused is not None
+    assert fused.count == 3
+    with monkeypatch.context() as mp:
+        mp.setattr(trials, "fused_update_applies", lambda params, state: False)
+        mp.setattr(sr_adam, "_fma", kernel.fma_rn)
+        mp.setattr(sr_adam, "global_norm_f32", kernel.global_norm_f64)
+        plain, plain_losses, plain_launches = run()
+    assert plain_launches == 0 and plain.fused is None
+    assert torch.equal(fused_losses, plain_losses)
+    for a, b in zip([*fused.views, *fused.opt_state.m, *fused.opt_state.v],
+                    [*plain.views, *plain.opt_state.m, *plain.opt_state.v]):
+        assert torch.equal(_bits_of(a), _bits_of(b))
