@@ -1,7 +1,8 @@
 """One run of one cell: find its files by name, set up, measure, check.
 
 Everything a cell needs is found from its name in ``BENCHMARK.json``:
-the configuration's file, ``traffic/<traffic>.json`` (the mix's parameters
+the configuration's file, its model class's module
+``classes/<model_class>.py``, ``traffic/<traffic>.json`` (the mix's parameters
 and its ``kind``), the generator ``traffic/<kind>.py``, the cell's
 ``workloads/<cell>.json`` (the limits of its comparison) and, for a tuning
 cell, ``workloads/<cell>.space.yaml``; each per-layer metric is read by
@@ -25,7 +26,12 @@ from .trace import Tracer, kernel_seconds, top
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
+CLASSES = HERE / "classes"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "flexynesis_tpu")
+# what a model class's module defines; the harness reaches a class through these alone
+CLASS_NAMES = ("dataset", "arch_of", "canon", "widths", "rows_of", "keep_width", "init_law",
+               "matmul_shapes", "noise_sites", "train_loss_and_grads", "eval_loss",
+               "noise_blocks", "eval_forward")
 
 
 def manifest() -> dict:
@@ -42,6 +48,24 @@ class Cell:
     space_path: Optional[Path]
     end_to_end: list
     per_layer: list
+    model_module: object
+
+
+def model_module(model_class: str):
+    """The module of ``model_class``: ``classes/<model_class>.py``, letter for
+    letter."""
+    path = CLASSES / f"{model_class}.py"
+    shown = path.relative_to(ROOT) if path.is_relative_to(ROOT) else path
+    if not path.is_file():
+        raise FileNotFoundError(f"no module for model class {model_class!r}: add {shown}, "
+                                f"defining {', '.join(CLASS_NAMES)}")
+    spec = importlib.util.spec_from_file_location(f"portbench.classes.{model_class}", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    missing = [n for n in CLASS_NAMES if not hasattr(module, n)]
+    if missing:
+        raise AttributeError(f"{shown} does not define {', '.join(missing)}")
+    return module
 
 
 def _applies(metric: dict, cell: str) -> bool:
@@ -54,15 +78,16 @@ def load_cell(name: str, bench: Optional[dict] = None) -> Cell:
     if entry is None:
         raise KeyError(f"no workload {name!r} in BENCHMARK.json")
     conf = next(c for c in bench["configs"] if c["name"] == entry["config"])
+    config = json.loads((ROOT / conf["file"]).read_text())
     workload = json.loads((HERE / "workloads" / f"{name}.json").read_text())
     space = HERE / "workloads" / f"{name}.space.yaml"
     return Cell(
-        name=name, chips=int(entry["chips"]),
-        config=json.loads((ROOT / conf["file"]).read_text()),
+        name=name, chips=int(entry["chips"]), config=config,
         traffic=json.loads((HERE / "traffic" / f"{entry['traffic']}.json").read_text()),
         limits=workload["limits"], space_path=space if space.exists() else None,
         end_to_end=[m for m in bench["end_to_end"] if _applies(m, name)],
-        per_layer=[m for m in bench["per_layer"] if _applies(m, name)])
+        per_layer=[m for m in bench["per_layer"] if _applies(m, name)],
+        model_module=model_module(config["model_class"]))
 
 
 def traffic_class(kind: str):
@@ -120,6 +145,7 @@ class Context:
     device: object
     seed: int
     space_path: Optional[Path]
+    model_module: object
 
 
 @dataclass
@@ -156,7 +182,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device) -> tupl
     set_precision(cell.config)
     cuda = device.type == "cuda"
     tracer = Tracer(enabled=trace, sync=torch.cuda.synchronize if cuda else None)
-    ctx = Context(cell.config, cell.traffic, tracer, device, int(seed), cell.space_path)
+    ctx = Context(cell.config, cell.traffic, tracer, device, int(seed), cell.space_path,
+                  cell.model_module)
     run = traffic_class(cell.traffic["kind"])(ctx)
     try:
         run.setup()

@@ -1,10 +1,11 @@
-"""Integrated gradients of a plain float32 DirectPred, as Captum defines them.
+"""Integrated gradients of a plain float32 model, as Captum defines them.
 
 Zero baseline; the path integral by Gauss-Legendre quadrature over
 ``steps`` nodes on [0, 1] (Captum's default method); for each class c of
 the target, attr = x * sum_k w_k dlogit_c(a_k x)/dx, in eval mode (running
 statistics, no dropout). The importance of a feature is the mean over the
-samples of |attr|.
+samples of |attr|. The model is its eval-mode ``forward`` (a class
+module's ``eval_forward``).
 """
 
 from __future__ import annotations
@@ -12,10 +13,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import directpred
 
-
-def importances(params, stats, x, layers, target, n_classes, steps, cfg,
+def importances(forward, params, stats, x, layers, target, n_classes, steps, cfg,
                 block_rows: int = 4096) -> np.ndarray:
     """(n_classes, features of every layer in order) mean |attributions|."""
     nodes, weights = np.polynomial.legendre.leggauss(steps)
@@ -28,8 +27,7 @@ def importances(params, stats, x, layers, target, n_classes, steps, cfg,
         acc = [{ln: torch.zeros_like(xb[ln]) for ln in layers} for _ in range(n_classes)]
         for a, w in zip(alphas, weights):
             pts = {ln: (float(a) * xb[ln]).requires_grad_(True) for ln in layers}
-            logits = directpred.forward(params, dict(stats), pts, layers, target, False, None,
-                                        cfg)
+            logits = forward(params, dict(stats), pts, layers, target, cfg)
             for c in range(n_classes):
                 grads = torch.autograd.grad(logits[:, c].sum(), [pts[ln] for ln in layers],
                                             retain_graph=c + 1 < n_classes)

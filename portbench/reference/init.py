@@ -1,10 +1,11 @@
 """The published models' initialisation, and a padded trial's start.
 
 flexynesis initialises every Linear layer by torch's default law, weights and
-biases U(+-1/sqrt(fan_in)), except the supervised VAE's encoder and decoder
-weights, which are Xavier-uniform, U(+-sqrt(6 / (fan_in + fan_out))), their
-biases keeping the default law. BatchNorm starts at scale 1, shift 0,
-running mean 0 and variance 1; a loss weight (``logvar.*``) at 0.
+biases U(+-1/sqrt(fan_in)), unless its model class states another: a class
+module's ``init_law`` names the law of each leaf (the supervised VAE's
+encoder and decoder weights are Xavier-uniform, U(+-sqrt(6 / (fan_in +
+fan_out))), their biases keeping the default law). BatchNorm starts at scale
+1, shift 0, running mean 0 and variance 1; a loss weight (``logvar.*``) at 0.
 
 Leaves are named as the reference names them (``enc.gex.W1`` in the
 (out, in) layout, see ``directpred.py`` and ``vae.py``). A trial of a round
@@ -30,8 +31,8 @@ def weight_of(name: str) -> str:
     return f"{head}.W{leaf[1:]}" if leaf.startswith("b") and leaf != "beta" else name
 
 
-def law(name: str, model_class: str) -> str:
-    """``torch``, ``xavier``, ``one`` or ``zero`` for leaf ``name``."""
+def law(name: str) -> str:
+    """``torch``, ``one`` or ``zero`` for leaf ``name``: the published default."""
     leaf = name.rsplit(".", 1)[-1]
     if name.startswith("logvar."):
         return "zero"
@@ -39,9 +40,6 @@ def law(name: str, model_class: str) -> str:
         return "one"
     if leaf in ZEROS:
         return "zero"
-    if (model_class == "supervised_vae" and name.startswith(("enc.", "dec."))
-            and leaf.startswith("W")):
-        return "xavier"
     return "torch"
 
 
@@ -64,10 +62,9 @@ def scale(name: str, kind: str, full: Tuple[int, ...], own: Tuple[int, ...]) -> 
     return math.sqrt(full[1] / own[1])
 
 
-def fill(u: torch.Tensor, name: str, model_class: str,
+def fill(u: torch.Tensor, name: str, kind: str,
          weight_shapes: Dict[str, Tuple[int, ...]]) -> torch.Tensor:
-    """Leaf ``name`` from ``u``, uniform on [-1, 1): its law's values."""
-    kind = law(name, model_class)
+    """Leaf ``name`` from ``u``, uniform on [-1, 1): the values of its law ``kind``."""
     if kind == "one":
         return torch.ones_like(u)
     if kind == "zero":

@@ -21,7 +21,7 @@ def test_control_fails_a_limit(card, name):
     cell = core.load_cell(name)
     core.set_precision(cell.config)
     ctx = core.Context(cell.config, cell.traffic, Tracer(False), card, 2 ** 31 + 99,
-                       cell.space_path)
+                       cell.space_path, cell.model_module)
     run = core.traffic_class(cell.traffic["kind"])(ctx)
     try:
         run.setup()

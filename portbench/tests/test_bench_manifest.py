@@ -51,10 +51,14 @@ def test_names_and_units(entry):
 
 @pytest.mark.parametrize("conf", BENCH["configs"], ids=lambda c: c["name"])
 def test_config_files(conf):
+    from portbench import core
+
     cfg = json.loads((ROOT / conf["file"]).read_text())
     assert cfg["reduced"] == conf["reduced"]
-    assert {"latent_dim", "hidden_dim_factor", "supervisor_hidden_dim", "features",
-            "n_train", "n_test", "n_classes", "precision", "allow_tf32"} <= set(cfg)
+    assert {"model_class", "features", "n_train", "n_test", "n_classes", "precision",
+            "allow_tf32"} <= set(cfg)
+    arch = core.model_module(cfg["model_class"]).arch_of(cfg)   # raises on a missing key
+    assert arch and all(k in cfg for k in arch)
 
 
 @pytest.mark.parametrize("cell", BENCH["workloads"], ids=lambda w: w["name"])

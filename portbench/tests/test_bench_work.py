@@ -1,17 +1,23 @@
-"""``work.py``'s counts at small shapes, and that no share it computes can
-pass 100% at a device time no shorter than the least time."""
+"""``work.py``'s counts at small shapes, each model's products from its
+class module, and that no share it computes can pass 100% at a device time
+no shorter than the least time."""
 
 from __future__ import annotations
 
 import pytest
 
-from portbench import work
+from portbench import core, work
+
+
+def params(model_class, arch, input_dims, n_classes):
+    shapes = core.model_module(model_class).matmul_shapes(arch, input_dims, n_classes)
+    return work.matmul_params(shapes)
 
 
 def test_directpred_params():
     arch = {"latent_dim": 4, "hidden_dim_factor": 0.5, "supervisor_hidden_dim": 3}
     # gex 10 -> 5 -> 4, cnv 6 -> 3 -> 4, fusion 8 -> 4, head 4 -> 3 -> 2
-    assert work.matmul_params("DirectPred", arch, [10, 6], 2) == (
+    assert params("DirectPred", arch, [10, 6], 2) == (
         10 * 5 + 5 * 4 + 6 * 3 + 3 * 4 + 8 * 4 + 4 * 3 + 3 * 2)
 
 
@@ -19,7 +25,7 @@ def test_vae_params():
     arch = {"latent_dim": 4, "hidden_dim_factor": 0.5, "supervisor_hidden_dim": 3}
     enc = 10 * 5 + 2 * 5 * 4 + 6 * 3 + 2 * 3 * 4
     dec = 4 * 5 + 5 * 10 + 4 * 3 + 3 * 6
-    assert work.matmul_params("supervised_vae", arch, [10, 6], 2) == (
+    assert params("supervised_vae", arch, [10, 6], 2) == (
         enc + 2 * 8 * 4 + dec + 4 * 3 + 3 * 2)
 
 

@@ -35,17 +35,17 @@ def main(argv=None) -> int:
     import numpy as np
     import torch
 
-    from portbench import adapt, core
+    from portbench import core
     from portbench.compare import leaf_gaps, median, norms
     from portbench.reference import adam as ref_adam
-    from portbench.reference import models as ref_models
     from portbench.trace import Tracer
 
     cell = core.load_cell(args.workload)
     device = torch.device(args.device)
     core.set_precision(cell.config)
+    mm = cell.model_module
     ctx = core.Context(cell.config, cell.traffic, Tracer(False), device, args.seed,
-                       cell.space_path)
+                       cell.space_path, mm)
     run = core.traffic_class(cell.traffic["kind"])(ctx)
     try:
         run.setup()
@@ -55,7 +55,7 @@ def main(argv=None) -> int:
     got, ref = run.program_readings(), run.readings()
     k, _ = run.round_grad_gaps(got["round"], ref["round"], True)["x.round.grad_worst_at"]
     rec, cfg, f64 = run.round_rec, run.cfg, torch.float64
-    w = adapt.widths(rec.arch[k], run.input_dims)
+    w = mm.widths(rec.arch[k], run.input_dims)
     p0, s0, bf16 = run._ref_start(rec, k, True)
     rows = rec.rows[0]
     rows = rows[k] if rows.dim() == 2 else rows
@@ -82,9 +82,8 @@ def main(argv=None) -> int:
             return torch.where(mask, u, torch.zeros_like(u))
         torch.relu = flipped
         try:
-            _, grads = ref_models.train_loss_and_grads(
-                cfg["model_class"], params, dict(stats), x, y, run.layers, cfg["target"],
-                draws, cfg)
+            _, grads = mm.train_loss_and_grads(params, dict(stats), x, y, run.layers,
+                                               cfg["target"], draws, cfg)
         finally:
             torch.relu = relu
         gen = torch.Generator(device=device)

@@ -79,17 +79,16 @@ def main(argv=None) -> int:
     import torch
 
     from flexynesis_torch.interpret import attribution
-    from flexynesis_torch.models.direct_pred import DirectPred
-    from portbench import adapt, core
-    from portbench.data import to_dataset
+    from flexynesis_torch.models import MODEL_REGISTRY
+    from portbench import core
     from portbench.trace import Tracer
 
     cell = core.load_cell(args.workload)
-    cfg, steps = cell.config, int(cell.traffic["steps"])
+    cfg, steps, mm = cell.config, int(cell.traffic["steps"]), cell.model_module
     core.set_precision(cfg)
     for seed in args.seeds:
         ctx = core.Context(cfg, cell.traffic, Tracer(False), torch.device(args.device), seed,
-                           cell.space_path)
+                           cell.space_path, mm)
         run = core.traffic_class(cell.traffic["kind"])(ctx)
         try:
             run.setup()
@@ -97,10 +96,10 @@ def main(argv=None) -> int:
         finally:
             run.close()
         # the second witness: the program on the CPU, the same weights and cohort
-        arch = {k: cfg[k] for k in ("latent_dim", "hidden_dim_factor", "supervisor_hidden_dim")}
-        cpu_model = DirectPred(config=dict(arch, fused_kernels=False),
-                               dataset=to_dataset(run.cohort, "train", cfg["target"]),
-                               target_variables=[cfg["target"]], device=torch.device("cpu"))
+        cpu_model = MODEL_REGISTRY[cfg["model_class"]](
+            config=dict(mm.arch_of(cfg), fused_kernels=False),
+            dataset=mm.dataset(run.cohort, "train", cfg),
+            target_variables=[cfg["target"]], device=torch.device("cpu"))
         cpu_model.module.load_state_dict({n: t.cpu() for n, t in run.state.items()},
                                          strict=False)
         cpu_model.module.eval()
@@ -134,7 +133,7 @@ def main(argv=None) -> int:
         card_s = torch.cat([attrs[ln] for ln in layers], dim=1)[:, j].abs().double()
         params, stats = {}, {}
         for n, t in run.state.items():
-            name = adapt.canon(n)
+            name = mm.canon(n)
             if name is not None:
                 (stats if name.endswith((".rm", ".rv")) else params)[name] = t.double()
         x64 = {ln: v.double() for ln, v in x.items()}

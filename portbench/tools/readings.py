@@ -49,7 +49,7 @@ def main(argv=None) -> int:
     for seed in list(dict.fromkeys(args.seeds + args.control_seeds)):
         t0 = time.perf_counter()
         ctx = core.Context(cell.config, cell.traffic, Tracer(False), device, seed,
-                           cell.space_path)
+                           cell.space_path, cell.model_module)
         run = core.traffic_class(cell.traffic["kind"])(ctx)
         try:
             run.setup()

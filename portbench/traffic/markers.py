@@ -3,10 +3,12 @@
 The window calls ``model.compute_feature_importance(test, target,
 method=..., steps_or_samples=...)`` on the test cohort over and over, as
 the training CLI's ``_write_feature_importances`` calls it after a run, and
-writes no file. The model is an unfused DirectPred whose weights and
-running statistics the benchmark makes on the device from the seed, in one
-draw, and hands to the reference as well. The work is the cohort's samples
-attributed, every class of the target each time.
+writes no file. The model is the configuration's class, unfused, whose
+weights and running statistics the benchmark makes on the device from the
+seed, in one draw, and hands to the reference as well. The work is the
+cohort's samples attributed, every class of the target each time. The
+cohort as a dataset, the leaf names, the work and the reference's forward
+come from the configuration's class module (``classes/``).
 
 Once the window has closed, the importances of a sample of its passes
 (drawn from the seed; the first and the last always among them) are held
@@ -21,20 +23,24 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from .. import adapt, work
+from .. import work
 from ..compare import tf32
-from ..data import make_cohort, to_dataset
+from ..data import make_cohort
 from ..reference import ig as ref_ig
+from ..reference.init import weight_of
 from ..trace import Hooks, Profiled
 
 
-def seeded_state(module: torch.nn.Module, seed: int, device) -> Dict[str, torch.Tensor]:
+def seeded_state(module: torch.nn.Module, canon, seed: int,
+                 device) -> Dict[str, torch.Tensor]:
     """Every parameter and running statistic of ``module`` from one uniform
     draw on the device: Linear weights and biases U(+-1/sqrt(fan_in)),
     BatchNorm scales U(0.5, 1.5) and shifts U(-0.1, 0.1), running means
-    U(-0.1, 0.1) and variances U(0.5, 1.5), loss weights 0."""
-    state = {n: t for n, t in module.state_dict().items()
-             if not n.endswith("num_batches_tracked")}
+    U(-0.1, 0.1) and variances U(0.5, 1.5), loss weights 0; each leaf known
+    by its reference name (``canon``)."""
+    names = {n: canon(n) for n in module.state_dict()}
+    state = {n: t for n, t in module.state_dict().items() if names[n] is not None}
+    shapes = {names[n]: t.shape for n, t in state.items()}
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed) % (2 ** 63) ^ 0x5DEECE66D)
     total = sum(t.numel() for t in state.values())
@@ -43,16 +49,16 @@ def seeded_state(module: torch.nn.Module, seed: int, device) -> Dict[str, torch.
     for n, t in state.items():
         part = u[at: at + t.numel()].view(t.shape)
         at += t.numel()
-        leaf = n.rsplit(".", 1)[-1]
-        if n.startswith("log_var_"):
+        name = names[n]
+        leaf = name.rsplit(".", 1)[-1]
+        if name.startswith("logvar."):
             v = torch.zeros_like(part)
-        elif leaf in ("running_var",) or n.endswith("batchnorm.weight"):
+        elif leaf in ("rv", "g"):
             v = 1.0 + 0.5 * part
-        elif leaf == "running_mean" or n.endswith("batchnorm.bias"):
+        elif leaf in ("rm", "beta"):
             v = 0.1 * part
         else:
-            linear = n.rsplit(".", 1)[0]
-            fan_in = state[f"{linear}.weight"].shape[1]
+            fan_in = shapes[weight_of(name)][1]
             v = part / fan_in ** 0.5
         out[n] = v.contiguous()
     return out
@@ -62,6 +68,7 @@ class Markers:
     def __init__(self, ctx):
         self.ctx = ctx
         self.cfg = ctx.config
+        self.mm = ctx.model_module   # the model class's module (``classes/``)
         self.traffic = ctx.traffic
         self.tracer = ctx.tracer
         self.device = ctx.device
@@ -69,21 +76,22 @@ class Markers:
 
     def setup(self):
         from flexynesis_torch.interpret import attribution
-        from flexynesis_torch.models.direct_pred import DirectPred
+        from flexynesis_torch.models import MODEL_REGISTRY
 
-        cfg = self.cfg
+        cfg, mm = self.cfg, self.mm
         self.cohort = make_cohort(cfg, self.ctx.seed, self.device)
-        train = to_dataset(self.cohort, "train", cfg["target"])
-        self.test = to_dataset(self.cohort, "test", cfg["target"])
-        arch = {k: cfg[k] for k in ("latent_dim", "hidden_dim_factor", "supervisor_hidden_dim")}
-        self.model = DirectPred(config=dict(arch, fused_kernels=False), dataset=train,
-                                target_variables=[cfg["target"]], device=self.device)
-        self.state = seeded_state(self.model.module, self.ctx.seed, self.device)
+        train = mm.dataset(self.cohort, "train", cfg)
+        self.test = mm.dataset(self.cohort, "test", cfg)
+        arch = mm.arch_of(cfg)
+        self.model = MODEL_REGISTRY[cfg["model_class"]](
+            config=dict(arch, fused_kernels=False), dataset=train,
+            target_variables=[cfg["target"]], device=self.device)
+        self.state = seeded_state(self.model.module, mm.canon, self.ctx.seed, self.device)
         self.model.module.load_state_dict(self.state, strict=False)
         self.model.module.eval()
         # every product lies on the path to the one target's logits
-        self.n_params = work.matmul_params("DirectPred", arch, list(work.dims_of(cfg).values()),
-                                           int(cfg["n_classes"]))
+        dims = list(work.dims_of(cfg).values())
+        self.n_params = work.matmul_params(mm.matmul_shapes(arch, dims, int(cfg["n_classes"])))
         tr = self.tracer
 
         def sums(orig):
@@ -163,7 +171,7 @@ class Markers:
         cfg = self.cfg
         params, stats = {}, {}
         for n, t in self.state.items():
-            name = adapt.canon(n)
+            name = self.mm.canon(n)
             if name is None:
                 continue
             t = t.to(dtype)
@@ -171,8 +179,8 @@ class Markers:
         x = {ln: v[self.cohort.rows("test")].to(dtype) for ln, v in self.cohort.x.items()}
         if fault == "half":   # the planted fault: half the cohort, the mean over the rest
             x = {ln: v[: v.shape[0] // 2] for ln, v in x.items()}
-        return ref_ig.importances(params, stats, x, list(x), cfg["target"], int(cfg["n_classes"]),
-                                  int(self.traffic["steps"]), cfg)
+        return ref_ig.importances(self.mm.eval_forward, params, stats, x, list(x), cfg["target"],
+                                  int(cfg["n_classes"]), int(self.traffic["steps"]), cfg)
 
     def _table(self, rows: List[dict]) -> np.ndarray:
         """(classes, features) importances of a pass, layers in order; raises

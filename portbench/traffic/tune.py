@@ -36,10 +36,9 @@ import torch
 from .. import adapt, work
 from ..compare import (leaf_gaps, live_leaves, median, norms, rel_gap, start_gap, tf32,
                        worst_leaf)
-from ..data import make_cohort, to_dataset
+from ..data import make_cohort
 from ..reference import adam as ref_adam
 from ..reference import init as ref_init
-from ..reference import models as ref_models
 from ..trace import Hooks, Profiled
 
 STEPS = 3  # steps the reference follows, in the round and in the retrain
@@ -64,14 +63,16 @@ def _mix(*keys: int) -> int:
     return out
 
 
-def seeded_start(module: torch.nn.Module, model_class: str, seed: int, model_seed: int,
+def seeded_start(module: torch.nn.Module, model_module, seed: int, model_seed: int,
                  device) -> Dict[str, torch.Tensor]:
     """Every parameter and running statistic of ``module``, by the state's
-    names, as the published initialisation draws them (``reference/init.py``),
-    from one uniform draw on the device keyed by the run's ``seed`` and the
-    seed the program initialises this model with."""
-    state = {n: t for n, t in module.state_dict().items() if adapt.canon(n) is not None}
-    shapes = {adapt.canon(n): tuple(t.shape) for n, t in state.items()}
+    names, as the published initialisation draws them (``reference/init.py``,
+    each leaf's law from the class module's ``init_law``), from one uniform
+    draw on the device keyed by the run's ``seed`` and the seed the program
+    initialises this model with."""
+    canon = model_module.canon
+    state = {n: t for n, t in module.state_dict().items() if canon(n) is not None}
+    shapes = {canon(n): tuple(t.shape) for n, t in state.items()}
     gen = torch.Generator(device=device)
     gen.manual_seed(_mix(seed, model_seed))
     total = sum(t.numel() for t in state.values())
@@ -80,7 +81,9 @@ def seeded_start(module: torch.nn.Module, model_class: str, seed: int, model_see
     for n, t in state.items():
         part = u[at: at + t.numel()].view(t.shape)
         at += t.numel()
-        out[n] = ref_init.fill(part, adapt.canon(n), model_class, shapes).to(t.dtype).contiguous()
+        name = canon(n)
+        kind = model_module.init_law(name)
+        out[n] = ref_init.fill(part, name, kind, shapes).to(t.dtype).contiguous()
     return out
 
 
@@ -110,6 +113,7 @@ class Tune:
     def __init__(self, ctx):
         self.ctx = ctx
         self.cfg = ctx.config
+        self.mm = ctx.model_module   # the model class's module (``classes/``)
         self.traffic = ctx.traffic
         self.tracer = ctx.tracer
         self.device = ctx.device
@@ -137,7 +141,7 @@ class Tune:
         cfg = self.cfg
         self.model_class = MODEL_REGISTRY[cfg["model_class"]]
         self.cohort = make_cohort(cfg, self.ctx.seed, self.device)
-        self.train_ds = to_dataset(self.cohort, "train", cfg["target"])
+        self.train_ds = self.mm.dataset(self.cohort, "train", cfg)
         self.input_dims = work.dims_of(cfg)
         self.layers = list(self.input_dims)
         self._install()
@@ -172,7 +176,7 @@ class Tune:
 
     def _install(self):
         from flexynesis_torch.kernels import mmd
-        from flexynesis_torch.models import base, supervised_vae
+        from flexynesis_torch.models import base
         from flexynesis_torch.ops import mlp
         from flexynesis_torch.parallel import stacked, trials
         from flexynesis_torch.train import gp, hpo, trainer
@@ -184,8 +188,8 @@ class Tune:
             def wrapped(model, seed=42):
                 out = orig(model, seed)
                 if self.capture:
-                    start = seeded_start(model.module, self.cfg["model_class"], self.ctx.seed,
-                                         seed, self.device)
+                    start = seeded_start(model.module, self.mm, self.ctx.seed, seed,
+                                         self.device)
                     model.module.load_state_dict(start, strict=False)
                     self.starts[(id(model.module), int(seed))] = start
                     self.last_start[id(model.module)] = start
@@ -330,11 +334,12 @@ class Tune:
             return wrapped
 
         # the single model's dropout and noise, and the stacked rounds' noise
-        # (a round's dropout is TrialNoise's own, wrapped per captured step)
-        h.wrap(mlp, "dropout", keep_draw)
-        h.wrap(supervised_vae, "dropout", keep_draw)
-        h.wrap(supervised_vae, "standard_normal", normal_draw)
-        h.wrap(stacked, "standard_normal", normal_draw)
+        # (a round's dropout is TrialNoise's own, wrapped per captured step);
+        # the class module names what its model draws elsewhere
+        draw = {"keep": keep_draw, "normal": normal_draw}
+        for owner, name, kind in [(mlp, "dropout", "keep"), (stacked, "standard_normal", "normal"),
+                                  *self.mm.noise_sites()]:
+            h.wrap(owner, name, draw[kind])
 
         # kernel calls, with their shapes, in the profiled job
         def kernel(key, shapes):
@@ -353,8 +358,8 @@ class Tune:
         h.wrap(mmd, "_launch", kernel("b3", mmd_shapes))
 
     def _params_of(self, params: dict) -> int:
-        return work.matmul_params(self.cfg["model_class"], params, list(self.input_dims.values()),
-                                  int(self.cfg["n_classes"]))
+        return work.matmul_params(self.mm.matmul_shapes(params, list(self.input_dims.values()),
+                                                        int(self.cfg["n_classes"])))
 
     def close(self):
         self.hooks.restore()
@@ -516,20 +521,19 @@ class Tune:
         initialisation law (``reference/init.py``), and, where the
         configuration stores a leaf in bfloat16 (at least ``sr_min_size``
         elements per trial), rounded to it to nearest, as the start is cast."""
-        mc = self.cfg["model_class"]
-        arch = rec.arch[k if stacked else 0]
-        w = adapt.widths(arch, self.input_dims)
-        latent_max = max(int(a["latent_dim"]) for a in rec.arch)
+        mm = self.mm
+        w = mm.widths(rec.arch[k if stacked else 0], self.input_dims)
+        latent_max = self._latent_max(rec)
         full, own = {}, {}
         for n, t in rec.start[k if stacked else 0].items():
-            name = adapt.canon(n)
+            name = mm.canon(n)
             full[name] = t
-            own[name] = adapt.trial_leaf(name, full[name], w, self.layers, latent_max)
+            own[name] = adapt.trial_leaf(mm, name, full[name], w, self.layers, latent_max)
         size = int(self.cfg["sr_min_size"])
         bf16 = {n for n, t in full.items() if t.numel() >= size} if stacked else set()
         params, stats = {}, {}
         for name, t in own.items():
-            kind = ref_init.law(name, mc)
+            kind = mm.init_law(name)
             if kind in ("torch", "xavier"):
                 wn = ref_init.weight_of(name)
                 f = ref_init.scale(name, kind, tuple(full[wn].shape), tuple(own[wn].shape))
@@ -538,6 +542,10 @@ class Tune:
                 t = t.to(torch.bfloat16).float()
             (stats if name.endswith((".rm", ".rv")) else params)[name] = t
         return params, stats, bf16
+
+    def _latent_max(self, rec) -> int:
+        """The round's largest latent width: a padded leaf's latent block."""
+        return max(self.mm.widths(a, self.input_dims)["latent"] for a in rec.arch)
 
     @staticmethod
     def _draw_of(rec, k: int) -> int:
@@ -550,14 +558,13 @@ class Tune:
         """Trial k's noise: its share of each draw; a keep mask is the
         benchmark's uniforms at or above the configuration's dropout."""
         rate = float(self.cfg["dropout"])
-        blocks = iter(ref_models.noise_blocks(self.cfg["model_class"], self.layers,
-                                              self.cfg["target"]))
+        blocks = iter(self.mm.noise_blocks(self.layers, self.cfg["target"]))
         out = []
         for kind, t in draws:
             if stacked and t.dim() == 3:
                 t = t[self._draw_of(rec, k)]
             if kind == "keep":
-                t = adapt.trial_keep(next(blocks), t >= rate, w)
+                t = adapt.trial_keep(self.mm, next(blocks), t >= rate, w)
             out.append((kind, t.float()))
         return out
 
@@ -565,9 +572,9 @@ class Tune:
         """The reference's readings of trial k of a captured stretch: its
         start, step losses, first-gradient and three-step change norms per
         leaf."""
-        cfg, mc = self.cfg, self.cfg["model_class"]
+        cfg = self.cfg
         arch = rec.arch[k if stacked else 0]
-        w = adapt.widths(arch, self.input_dims)
+        w = self.mm.widths(arch, self.input_dims)
         p0, s0, bf16 = self._ref_start(rec, k, stacked)
         start = {**p0, **s0}
         p0 = {n: t.to(dtype) for n, t in p0.items()}
@@ -589,8 +596,8 @@ class Tune:
                 x, y = self._data(rows.to(self.cohort.y.device))
                 x = {n: t.to(dtype) for n, t in x.items()}
                 draws = [(kind, t.to(dtype)) for kind, t in draws]
-                loss, grads = ref_models.train_loss_and_grads(
-                    mc, p, s, x, y, self.layers, cfg["target"], draws, cfg)
+                loss, grads = self.mm.train_loss_and_grads(
+                    p, s, x, y, self.layers, cfg["target"], draws, cfg)
                 stepped = opt.step(p, grads)
                 if fault != "stale":   # the planted fault: a step that keeps its state
                     p = stepped
@@ -608,29 +615,29 @@ class Tune:
         counts the nonzero entries of its parameters and first moments
         outside them, which a padded trial keeps at exactly zero."""
         b1 = float(self.cfg["adam"]["b1"])
-        arch = rec.arch[k if stacked else 0]
-        w = adapt.widths(arch, self.input_dims)
-        latent_max = max(int(a["latent_dim"]) for a in rec.arch)
+        mm = self.mm
+        w = mm.widths(rec.arch[k if stacked else 0], self.input_dims)
+        latent_max = self._latent_max(rec)
         padding = 0
 
         def own(n, t, flax_layout=False, count=True):
             nonlocal padding
-            name = adapt.canon(n)
+            name = mm.canon(n)
             t = (t[k] if stacked else t).float()
             if flax_layout and t.dim() == 2:   # the optimizer's layout: weights are (in, out)
                 t = t.T
-            mine = adapt.trial_leaf(name, t, w, self.layers, latent_max)
+            mine = adapt.trial_leaf(mm, name, t, w, self.layers, latent_max)
             if count and not name.endswith((".rm", ".rv")):
                 padding += int(torch.count_nonzero(t)) - int(torch.count_nonzero(mine))
             return name, mine
 
         start = dict(own(n, t, count=False) for tree in (rec.init, rec.init_buffers)
-                     for n, t in tree.items() if adapt.canon(n) is not None)
+                     for n, t in tree.items() if mm.canon(n) is not None)
         grad = dict(own(n, t / (1 - b1), flax_layout=stacked) for n, t in rec.first_m.items())
         change = {}
         for before, after in ((rec.init, rec.after), (rec.init_buffers, rec.after_buffers)):
             for n, t in before.items():
-                if adapt.canon(n) is not None and n in after:
+                if mm.canon(n) is not None and n in after:
                     name, new = own(n, after[n])
                     change[name] = new - own(n, t, count=False)[1]
         losses = [float(l.reshape(-1)[k] if stacked else l.reshape(-1)[0]) for l in rec.losses]
@@ -641,7 +648,7 @@ class Tune:
         """The reference's validation loss of trial k at its start, on the
         benchmark's noise."""
         rec, cfg = self.round_rec, self.cfg
-        w = adapt.widths(rec.arch[k], self.input_dims)
+        w = self.mm.widths(rec.arch[k], self.input_dims)
         p, s, _ = self._ref_start(rec, k, True)
         rows = torch.as_tensor(rec.val_idx, device=self.cohort.y.device)
         if fault == "half":
@@ -649,8 +656,7 @@ class Tune:
         x, y = self._data(rows)
         draws = self._keeps(rec, rec.val["draws"], k, w)
         with tf32(control):
-            return ref_models.eval_loss(cfg["model_class"], p, s, x, y, self.layers,
-                                        cfg["target"], draws, cfg)
+            return self.mm.eval_loss(p, s, x, y, self.layers, cfg["target"], draws, cfg)
 
     def witness(self) -> dict:
         """The round and the retrain followed by the reference in float64: a

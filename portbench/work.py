@@ -1,5 +1,8 @@
 """Operations and bytes of the model step and of the hand-written kernel
-that a cell runs (B3, the Gaussian-kernel MMD), computed from shapes, and the peaks they are held against.
+that a cell runs (B3, the Gaussian-kernel MMD), computed from shapes, and
+the peaks they are held against. A model's matrix products come from its
+class module (``classes/``, ``matmul_shapes``); the counting rules below
+hold for every class.
 
 The peaks are one NVIDIA H100 SXM's published dense rates (NVIDIA's data
 sheet, 700 W): 495 TFLOP/s in TF32 and 3.35 TB/s of HBM. TF32 is the fastest
@@ -24,50 +27,17 @@ Counting rules (the kernel count is that of ``chip_smoke.py``'s
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, Sequence, Tuple
+from typing import Dict, Iterable, Tuple
 
 PEAK_FLOPS = 495e12       # dense TF32, NVIDIA H100 SXM data sheet
 PEAK_BYTES = 3.35e12      # HBM3, NVIDIA H100 SXM data sheet
 F32 = 4
 
 
-def hidden_width(n_in: int, factor: float) -> int:
-    return max(int(n_in * float(factor)), 2)
-
-
-def matmul_shapes(model_class: str, arch: dict, input_dims: Sequence[int],
-                  n_classes: int) -> list:
-    """The (in, out) shapes of every matrix product of one model of
-    ``arch`` (latent_dim, hidden_dim_factor, supervisor_hidden_dim) over
-    layers of ``input_dims`` with one categorical target of ``n_classes``."""
-    lat = int(arch["latent_dim"])
-    sup = max(int(arch["supervisor_hidden_dim"]), 2)
-    fac = float(arch["hidden_dim_factor"])
-    n_layers = len(input_dims)
-    shapes = []
-    if model_class == "DirectPred":
-        for f in input_dims:
-            h = hidden_width(f, fac)
-            shapes += [(f, h), (h, lat)]
-        if n_layers > 1:
-            shapes.append((n_layers * lat, lat))
-    elif model_class == "supervised_vae":
-        for f in input_dims:
-            h = hidden_width(f, fac)
-            shapes += [(f, h), (h, lat), (h, lat)]           # hidden, FC_mean, FC_var
-        shapes += [(n_layers * lat, lat)] * 2                # FC_mean, FC_log_var
-        for f in input_dims:
-            h = hidden_width(f, fac)
-            shapes += [(lat, h), (h, f)]                     # decoder
-    else:
-        raise ValueError(f"no work count for {model_class}")
-    shapes += [(lat, sup), (sup, n_classes)]
-    return shapes
-
-
-def matmul_params(model_class: str, arch: dict, input_dims: Sequence[int],
-                  n_classes: int) -> int:
-    return sum(i * o for i, o in matmul_shapes(model_class, arch, input_dims, n_classes))
+def matmul_params(shapes: Iterable[Tuple[int, int]]) -> int:
+    """The matrix-product parameters of one model: the sum of in x out over
+    the (in, out) shapes its class module's ``matmul_shapes`` gives."""
+    return sum(i * o for i, o in shapes)
 
 
 def train_flops(params: int, rows: int) -> float:
