@@ -10,25 +10,27 @@ leaf out of a stacked (and possibly padded) tensor by those rules, and
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import NamedTuple
 
 import torch
 
-# ``rows_of``'s columns of a leaf over the layers' concatenated latent
-# blocks: each block of ``latent_max`` columns cut to the trial's latent width
-PER_LAYER = "per_layer"
+
+class Blocks(NamedTuple):
+    """``rows_of``'s columns of a leaf made of ``n`` equal blocks, each cut to
+    its first ``own``: the layers' concatenated latent blocks of a fusion
+    weight, padded to the round's largest latent, or a flatten readout's
+    per-node embeddings."""
+    n: int
+    own: int
 
 
-def trial_leaf(model_module, name: str, t: torch.Tensor, w: dict, layers: Sequence[str],
-               latent_max: int) -> torch.Tensor:
+def trial_leaf(model_module, name: str, t: torch.Tensor, w: dict) -> torch.Tensor:
     """Trial ``w``'s own block of one trial's (possibly padded) leaf ``t``
     (the reference's layout), as float32."""
     t = t.float()
     rows, cols = model_module.rows_of(name, w)
-    if cols == PER_LAYER:
-        lat = w["latent"]
-        t = torch.cat([t[:, i * latent_max: i * latent_max + lat] for i in range(len(layers))],
-                      dim=1)
+    if isinstance(cols, Blocks):
+        t = t.reshape(t.shape[0], cols.n, -1)[..., :cols.own].reshape(t.shape[0], -1)
         cols = None
     if rows is not None:
         t = t[:rows]
@@ -38,5 +40,7 @@ def trial_leaf(model_module, name: str, t: torch.Tensor, w: dict, layers: Sequen
 
 
 def trial_keep(model_module, block: str, keep: torch.Tensor, w: dict) -> torch.Tensor:
-    """A trial's own columns of a recorded (B, H_max) keep mask of ``block``."""
-    return keep[:, :model_module.keep_width(block, w)].float()
+    """A trial's own embedding of a recorded keep mask of ``block``: its last
+    axis ((B, H_max), or (B, N, E_max) over a graph's nodes) cut to the
+    trial's width."""
+    return keep[..., :model_module.keep_width(block, w)].float()

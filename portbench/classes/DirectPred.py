@@ -11,9 +11,11 @@ from portbench.reference import directpred
 from portbench.reference.init import law as init_law  # noqa: F401  (torch's law everywhere)
 
 
-def matmul_shapes(arch: dict, input_dims: Sequence[int], n_classes: int) -> list:
+def matmul_shapes(arch: dict, input_dims: Sequence[int], n_classes: int,
+                  dataset=None) -> list:
     """The (in, out) of every matrix product of one model of ``arch`` over
-    layers of ``input_dims`` with one categorical target of ``n_classes``."""
+    layers of ``input_dims`` with one categorical target of ``n_classes``;
+    the widths alone fix them (``dataset`` is not read)."""
     lat = int(arch["latent_dim"])
     sup = max(int(arch["supervisor_hidden_dim"]), 2)
     fac = float(arch["hidden_dim_factor"])
@@ -31,9 +33,11 @@ def noise_sites() -> list:
     return []
 
 
-def noise_blocks(layers, target) -> list:
-    """The block of each keep mask, in draw order."""
-    return [f"enc.{ln}" for ln in layers] + [f"head.{target}"]
+def noise_blocks(layers, target, cfg, w) -> list:
+    """(block, rate) of each keep mask, in draw order: the configuration's
+    dropout at every site, whatever the trial's widths ``w``."""
+    blocks = [f"enc.{ln}" for ln in layers] + [f"head.{target}"]
+    return [(block, float(cfg["dropout"])) for block in blocks]
 
 
 def train_loss_and_grads(p, stats, x, y, layers, target, draws, cfg):

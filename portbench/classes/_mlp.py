@@ -13,7 +13,7 @@ from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
 
-from portbench.adapt import PER_LAYER
+from portbench.adapt import Blocks
 from portbench.data import to_dataset
 
 ARCH = ("latent_dim", "hidden_dim_factor", "supervisor_hidden_dim")
@@ -72,12 +72,12 @@ def widths(arch: dict, input_dims: Dict[str, int]) -> dict:
 
 def rows_of(name: str, w: dict) -> Tuple[Optional[int], object]:
     """(rows, columns) a trial keeps of leaf ``name``; None keeps the axis
-    whole, ``PER_LAYER`` keeps each layer's latent block of the columns."""
+    whole, ``Blocks`` keeps each layer's latent block of the columns."""
     parts = name.split(".")
     role, leaf = parts[0], parts[-1]
     lat, sup = w["latent"], w["sup"]
     if role in ("fusion", "FC_mean", "FC_log_var"):
-        return lat, PER_LAYER if leaf == "W" else None
+        return lat, Blocks(len(w["hidden"]), lat) if leaf == "W" else None
     if role == "logvar":
         return None, None
     blk = parts[1]

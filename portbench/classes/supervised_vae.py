@@ -19,8 +19,10 @@ def init_law(name: str) -> str:
     return init.law(name)
 
 
-def matmul_shapes(arch: dict, input_dims: Sequence[int], n_classes: int) -> list:
-    """The (in, out) of every matrix product of one model of ``arch``."""
+def matmul_shapes(arch: dict, input_dims: Sequence[int], n_classes: int,
+                  dataset=None) -> list:
+    """The (in, out) of every matrix product of one model of ``arch``; the
+    widths alone fix them (``dataset`` is not read)."""
     lat = int(arch["latent_dim"])
     sup = max(int(arch["supervisor_hidden_dim"]), 2)
     fac = float(arch["hidden_dim_factor"])
@@ -44,9 +46,10 @@ def noise_sites() -> list:
     return [(supervised_vae, "dropout", "keep"), (supervised_vae, "standard_normal", "normal")]
 
 
-def noise_blocks(layers, target) -> list:
-    """The block of each keep mask, in draw order."""
-    return [f"head.{target}"]
+def noise_blocks(layers, target, cfg, w) -> list:
+    """(block, rate) of each keep mask, in draw order: the configuration's
+    dropout at every site, whatever the trial's widths ``w``."""
+    return [(f"head.{target}", float(cfg["dropout"]))]
 
 
 def train_loss_and_grads(p, stats, x, y, layers, target, draws, cfg):

@@ -91,7 +91,8 @@ class Markers:
         self.model.module.eval()
         # every product lies on the path to the one target's logits
         dims = list(work.dims_of(cfg).values())
-        self.n_params = work.matmul_params(mm.matmul_shapes(arch, dims, int(cfg["n_classes"])))
+        self.n_params = work.matmul_params(mm.matmul_shapes(arch, dims, int(cfg["n_classes"]),
+                                                            dataset=train))
         tr = self.tracer
 
         def sums(orig):

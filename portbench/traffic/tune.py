@@ -21,8 +21,9 @@ validation of that round is also run once at its start. The records are the
 rows, the losses, the optimizer's first moments after one step and the state
 after three. Once the window has closed, the reference (``reference/``)
 works out each trial's start from the benchmark's draw itself, thresholds the
-benchmark's uniforms at the configuration's dropout, and redoes those steps
-and that validation in plain float32.
+benchmark's uniforms at each dropout site's own rate (the class module's
+``noise_blocks``), and redoes those steps and that validation in plain
+float32.
 """
 
 from __future__ import annotations
@@ -359,7 +360,8 @@ class Tune:
 
     def _params_of(self, params: dict) -> int:
         return work.matmul_params(self.mm.matmul_shapes(params, list(self.input_dims.values()),
-                                                        int(self.cfg["n_classes"])))
+                                                        int(self.cfg["n_classes"]),
+                                                        dataset=self.train_ds))
 
     def close(self):
         self.hooks.restore()
@@ -523,12 +525,11 @@ class Tune:
         elements per trial), rounded to it to nearest, as the start is cast."""
         mm = self.mm
         w = mm.widths(rec.arch[k if stacked else 0], self.input_dims)
-        latent_max = self._latent_max(rec)
         full, own = {}, {}
         for n, t in rec.start[k if stacked else 0].items():
             name = mm.canon(n)
             full[name] = t
-            own[name] = adapt.trial_leaf(mm, name, full[name], w, self.layers, latent_max)
+            own[name] = adapt.trial_leaf(mm, name, full[name], w)
         size = int(self.cfg["sr_min_size"])
         bf16 = {n for n, t in full.items() if t.numel() >= size} if stacked else set()
         params, stats = {}, {}
@@ -543,10 +544,6 @@ class Tune:
             (stats if name.endswith((".rm", ".rv")) else params)[name] = t
         return params, stats, bf16
 
-    def _latent_max(self, rec) -> int:
-        """The round's largest latent width: a padded leaf's latent block."""
-        return max(self.mm.widths(a, self.input_dims)["latent"] for a in rec.arch)
-
     @staticmethod
     def _draw_of(rec, k: int) -> int:
         """Trial k's draw among a stacked round's per-draw noise: trials
@@ -554,17 +551,22 @@ class Tune:
         first: Dict[int, int] = {}
         return [first.setdefault(int(s), len(first)) for s in rec.seeds][k]
 
-    def _keeps(self, rec, draws, k, w, stacked=True):
+    def _keeps(self, rec, draws, k, w, stacked):
         """Trial k's noise: its share of each draw; a keep mask is the
-        benchmark's uniforms at or above the configuration's dropout."""
-        rate = float(self.cfg["dropout"])
-        blocks = iter(self.mm.noise_blocks(self.layers, self.cfg["target"]))
+        benchmark's uniforms at or above its block's rate, cut to the trial's
+        width. A stacked round's training step (``stacked``) draws once per
+        distinct seed, with a leading draw axis, unless its trials share one
+        seed (``TrialNoise.shared``); its validation and the retrain draw
+        without one."""
+        per_draw = stacked and len({int(s) for s in rec.seeds}) > 1
+        blocks = iter(self.mm.noise_blocks(self.layers, self.cfg["target"], self.cfg, w))
         out = []
         for kind, t in draws:
-            if stacked and t.dim() == 3:
+            if per_draw:
                 t = t[self._draw_of(rec, k)]
             if kind == "keep":
-                t = adapt.trial_keep(self.mm, next(blocks), t >= rate, w)
+                block, rate = next(blocks)
+                t = adapt.trial_keep(self.mm, block, t >= rate, w)
             out.append((kind, t.float()))
         return out
 
@@ -617,7 +619,6 @@ class Tune:
         b1 = float(self.cfg["adam"]["b1"])
         mm = self.mm
         w = mm.widths(rec.arch[k if stacked else 0], self.input_dims)
-        latent_max = self._latent_max(rec)
         padding = 0
 
         def own(n, t, flax_layout=False, count=True):
@@ -626,7 +627,7 @@ class Tune:
             t = (t[k] if stacked else t).float()
             if flax_layout and t.dim() == 2:   # the optimizer's layout: weights are (in, out)
                 t = t.T
-            mine = adapt.trial_leaf(mm, name, t, w, self.layers, latent_max)
+            mine = adapt.trial_leaf(mm, name, t, w)
             if count and not name.endswith((".rm", ".rv")):
                 padding += int(torch.count_nonzero(t)) - int(torch.count_nonzero(mine))
             return name, mine
@@ -654,7 +655,7 @@ class Tune:
         if fault == "half":
             rows = rows[: rows.shape[0] // 2]
         x, y = self._data(rows)
-        draws = self._keeps(rec, rec.val["draws"], k, w)
+        draws = self._keeps(rec, rec.val["draws"], k, w, False)
         with tf32(control):
             return self.mm.eval_loss(p, s, x, y, self.layers, cfg["target"], draws, cfg)
 
